@@ -11,17 +11,29 @@ printed:
 2. build    — builds the kernels from ``src/repro_torch/kernels/csrc``
               (seconds, and ``-Xptxas -v``: registers and spills);
 3. kernels  — each kernel against its plain PyTorch version on the card, at
-              the main path's shapes and at ragged ones;
+              the main path's shapes and at ragged ones (flash attention:
+              the llama3.2-1b prefill head layout, also read through the
+              strides of a (B, S, H, D) transpose as the prefill hands it
+              over, the qwen2-7b one, ragged S, non-causal, a sliding
+              window; peaked softmax, each element and each row held to
+              its tolerance), and the same bits twice;
 4. main path — records two congested 256-host fat-tree runs (128
               participants allreducing 1 MiB each) with the port's
               simulator, compiles the dynamic trees, and replays both in
               fixed point on a seeded (128, 1024, 256) float32 input:
               the int32 results must be bit-identical and exact, and every
               kernel must have been launched as the schedules imply;
+4b. model   — llama3.2-1b at full width (16 layers, bf16, random weights
+              from seed 0) on the port's serving engine: a 4096-token
+              prefill (``Engine.prefill_fn``) that must launch the flash
+              kernel once a layer and agree with the same forward through
+              plain full attention; then ``Engine.generate`` answers 4
+              requests (16-token prompts, 32 new tokens), and a forward over
+              prompt + answer must agree with the decode logits;
 5. timing   — CUDA events over warm launches: each kernel beside its bound,
               its plain version and one PyTorch call for the same function;
-              then one replay under ``torch.profiler`` (device busy share,
-              device time by kernel);
+              then one replay and one prefill under ``torch.profiler``
+              (device busy share, device time by kernel);
 6. summary  — one ``{"kernels": [...]}`` JSON line, the card line, and last
               ``{"ok": true, "device": {...}}``.
 
@@ -31,6 +43,7 @@ is false, or outside a checkout of the repository, it exits non-zero.
 from __future__ import annotations
 
 import argparse
+import copy
 import json
 import subprocess
 import sys
@@ -43,6 +56,8 @@ import torch
 ROOT = Path(__file__).resolve().parent
 DEV = "cuda"
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM, NVIDIA data sheet
+BF16_FLOPS = 989e12              # dense tensor-core peak, same sheet
+F32_FLOPS = 67e12                # FP32 outside the tensor cores
 P, BLOCK_BYTES, MSG_BYTES = 128, 1024, 1 << 20
 D = BLOCK_BYTES // 4             # float32 values per block (one packet)
 BITS = 24
@@ -52,6 +67,36 @@ VARIANTS = {                     # two congestion worlds, distinct trees
 }
 ROUND_SHAPE = (128, 256, 8)      # (N, D, slots) of a replay reduce round
 FIG6_SHAPE = (4096, 32, 1024)    # benchmarks/fig6_single_switch.py:35
+# (name, B, H, KV, S, D, dtype, causal, window, tol, layout); the tolerances
+# are those of tests/kernels/test_kernels.py:137; layout "bshd" hands the
+# kernel the (B, H, S, D) transposes of (B, S, H, D) tensors, as
+# layers.chunked_attention does
+FLASH_CASES = [
+    ("llama3.2-1b prefill", 1, 32, 8, 4096, 64, torch.bfloat16, True, 0,
+     2e-2, "bhsd"),
+    ("llama3.2-1b prefill, (B, S, H, D) transposed", 1, 32, 8, 4096, 64,
+     torch.bfloat16, True, 0, 2e-2, "bshd"),
+    ("qwen2-7b heads", 1, 28, 4, 4096, 128, torch.bfloat16, True, 0, 2e-2,
+     "bhsd"),
+    ("ragged S", 2, 4, 2, 1000, 64, torch.float32, True, 0, 2e-5, "bhsd"),
+    ("non-causal", 1, 2, 2, 512, 64, torch.float32, False, 0, 2e-5, "bhsd"),
+    ("sliding window", 1, 8, 2, 2048, 64, torch.bfloat16, True, 512, 2e-2,
+     "bhsd"),
+]
+# q and k are drawn at QK_SCALE and v at 1: the logits q.k/sqrt(D) then
+# spread by QK_SCALE**2 = 4, the softmax is peaked and every output row is
+# O(|v|). (At 0.5 the softmax is near uniform, late rows of a 4096-token
+# causal case are ~0.01, and the elementwise tolerance checks almost nothing
+# there.) Each row's ||got - want|| / ||want|| is held too: a fault in a few
+# late tiles moves whole rows.
+QK_SCALE = 2.0
+ROW_REL_TOL = {torch.bfloat16: 1e-2, torch.float32: 1e-4}
+MODEL_ARCH = "llama3.2-1b"
+PREFILL_LEN = 4096               # = attn_chunk_threshold: the chunked route
+DECODE_BATCH, PROMPT_LEN, NEW_TOKENS, MAX_LEN = 4, 16, 32, 256
+# bf16 logits of two routes through 16 random layers: the bounds are about
+# twice the differences of the first card run (0.119, 94.9 %; PERF.md)
+MAX_DLOGIT, MIN_ARGMAX_AGREE = 0.25, 0.90
 
 
 def fail(msg: str) -> None:
@@ -98,8 +143,67 @@ def bound_ms(nbytes: int) -> float:
     return nbytes / HBM_BYTES_PER_S * 1e3
 
 
+def flash_work(B, H, KV, S, D, dtype, causal, window):
+    """``(flops, bytes)`` of one attention: 4 D operations per live
+    (query, key) pair (q k^T and p v), and q, k, v, out each moved once."""
+    q = np.arange(S, dtype=np.int64)
+    hi = q if causal else np.full(S, S - 1)
+    lo = np.maximum(q - window + 1, 0) if window > 0 else np.zeros(S, np.int64)
+    pairs = int((hi - lo + 1).sum())
+    esize = torch.tensor([], dtype=dtype).element_size()
+    return 4 * B * H * D * pairs, esize * B * S * D * (2 * H + 2 * KV)
+
+
+def flash_bound_ms(flops: int, nbytes: int, dtype) -> tuple:
+    """The larger of the operations and the bytes bound, and which it is."""
+    peak = BF16_FLOPS if dtype == torch.bfloat16 else F32_FLOPS
+    t_ops, t_bytes = flops / peak * 1e3, bound_ms(nbytes)
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def random_qkv(gen, B, H, KV, S, D, dtype, layout="bhsd"):
+    """q (B, H, S, D) and k, v (B, KV, S, D); with ``layout="bshd"`` these
+    are transposes of (B, S, H, D) tensors."""
+    out = []
+    for n, scale in ((H, QK_SCALE), (KV, QK_SCALE), (KV, 1.0)):
+        shape = (B, n, S, D) if layout == "bhsd" else (B, S, n, D)
+        t = (torch.randn(shape, generator=gen, device=DEV) * scale).to(dtype)
+        out.append(t if layout == "bhsd" else t.transpose(1, 2))
+    return out
+
+
+def logit_agreement(a: torch.Tensor, b: torch.Tensor):
+    """Largest |a - b| and the share of positions whose argmax agrees."""
+    d = float((a.float() - b.float()).abs().max())
+    agree = float((a.argmax(-1) == b.argmax(-1)).float().mean())
+    return d, agree
+
+
+def device_time_by_kernel(fn):
+    """Host wall of ``fn`` under ``torch.profiler`` and ``{kernel name:
+    (count, device us)}``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        wall, _ = sync_wall(fn)
+    by_name: dict = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            n, us = by_name.get(e.name, (0, 0.0))
+            by_name[e.name] = (n + 1, us + e.time_range.elapsed_us())
+    return wall, by_name
+
+
 def max_abs(a: torch.Tensor, b: torch.Tensor) -> float:
     return float((a.double() - b.double()).abs().max()) if a.numel() else 0.0
+
+
+def max_row_rel(got: torch.Tensor, want: torch.Tensor) -> float:
+    """Largest ``||got - want|| / ||want||`` over the rows of the last axis."""
+    g, w = got.double(), want.double()
+    return float(((g - w).norm(dim=-1) / w.norm(dim=-1)).max())
 
 
 def phase_device():
@@ -197,6 +301,44 @@ def phase_kernels(x: torch.Tensor, rows: dict) -> None:
     rows["quantize"]["max_abs_err"] = err_q
     rows["dequantize"]["max_abs_err"] = err_d
     rows["packet_accumulate"]["max_abs_err"] = err_a
+    rows["flash_attention"]["max_abs_err"] = phase_flash_kernel()
+
+
+def phase_flash_kernel() -> float:
+    """Flash attention against its plain version: every element within the
+    reference test's tolerance, every row within ``ROW_REL_TOL``, the
+    output in q's layout, and the same bits twice."""
+    from repro_torch.kernels import flash_attention
+    from repro_torch.kernels.ref import flash_attention_ref
+    gen = torch.Generator(device=DEV).manual_seed(3)
+    worst = 0.0
+    for (name, B, H, KV, S, D, dtype, causal, window, tol,
+         layout) in FLASH_CASES:
+        q, k, v = random_qkv(gen, B, H, KV, S, D, dtype, layout)
+        got = flash_attention(q, k, v, causal=causal, window=window)
+        again = flash_attention(q, k, v, causal=causal, window=window)
+        want = flash_attention_ref(q, k, v, causal=causal, window=window)
+        torch.cuda.synchronize()
+        err, rel = max_abs(got, want), max_row_rel(got, want)
+        check(got.dtype == dtype and got.shape == q.shape
+              and got.stride() == q.stride(),
+              f"flash_attention {name}: {got.dtype} {tuple(got.shape)} "
+              f"strides {got.stride()}, q's {q.stride()}")
+        check(torch.equal(got, again), f"flash_attention {name}: not "
+                                       f"repeatable")
+        check(torch.allclose(got.float(), want.float(), rtol=tol, atol=tol),
+              f"flash_attention {name}: max |diff| {err} (tol {tol})")
+        check(rel <= ROW_REL_TOL[dtype], f"flash_attention {name}: a row's "
+              f"relative error {rel} > {ROW_REL_TOL[dtype]}")
+        worst = max(worst, err)
+        print(f"flash_attention {name} q {(B, H, S, D)} kv {KV} "
+              f"{str(dtype)[6:]} causal={causal} window={window}: max |diff| "
+              f"{err:.3g} (rtol=atol={tol}; mean |want| "
+              f"{float(want.float().abs().mean()):.3g}), max row relative "
+              f"error {rel:.3g} (<= {ROW_REL_TOL[dtype]}), repeatable",
+              flush=True)
+        del q, k, v, got, again, want
+    return worst
 
 
 def phase_main_path(x: torch.Tensor, rows: dict) -> dict:
@@ -214,7 +356,8 @@ def phase_main_path(x: torch.Tensor, rows: dict) -> dict:
     scale = fixed_point_scale(x.abs().max(), bits=BITS, world=P)
     exact = quantize_ref(x, scale).to(torch.int64).sum(dim=0)
     ref64 = x.double().sum(dim=0)
-    qs, schedules, totals = [], [], dict.fromkeys(rows, 0)
+    replay_kernels = ("quantize", "dequantize", "packet_accumulate")
+    qs, schedules, totals = [], [], dict.fromkeys(replay_kernels, 0)
     for label, kw in VARIANTS.items():
         cfg = scaled_config(16, trace=True, **kw)
         jobs = [AllreduceJob(app=0, participants=list(range(P)),
@@ -236,10 +379,10 @@ def phase_main_path(x: torch.Tensor, rows: dict) -> dict:
         counts = launch_counts()
         depth = sum(s.depth for s in scheds)
         check(counts == {"quantize": 1, "dequantize": 1,
-                         "packet_accumulate": depth},
+                         "packet_accumulate": depth, "flash_attention": 0},
               f"{label}: launches {counts}, schedules imply depth {depth}")
-        for k, v in counts.items():
-            totals[k] += v
+        for k in replay_kernels:
+            totals[k] += counts[k]
         check(q.dtype == torch.int32 and q.shape == x.shape, "q shape/type")
         check(torch.equal(q, q[:1].expand_as(q)), f"{label}: rows differ")
         check(torch.equal(q[0].to(torch.int64), exact),
@@ -263,24 +406,143 @@ def phase_main_path(x: torch.Tensor, rows: dict) -> dict:
     return schedules[0]
 
 
+def phase_model(rows: dict, seed: int):
+    """llama3.2-1b at full width on the serving engine: a 4096-token
+    prefill through the flash kernel, held against plain full attention;
+    then greedy decode for 4 requests, held against a forward."""
+    print("== phase 4b: model path (llama3.2-1b prefill and decode)",
+          flush=True)
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import forward, get_config
+    from repro_torch.serving import Engine, ServeConfig
+
+    cfg = get_config(MODEL_ARCH, "full")
+    sc = ServeConfig(model=cfg, batch=DECODE_BATCH, max_len=MAX_LEN)
+    torch.cuda.reset_peak_memory_stats()
+    t_init, engine = sync_wall(lambda: Engine(sc, seed=seed, device=DEV))
+    n_params = sum(p.numel() for p in engine.params.parameters())
+    print(f"{cfg.name}: {cfg.num_layers} layers, d_model {cfg.d_model}, "
+          f"{cfg.num_heads}/{cfg.num_kv_heads} heads of {cfg.head_dim}, "
+          f"{n_params / 1e9:.3f} B parameters ({cfg.dtype}), init "
+          f"{t_init:.2f} s", flush=True)
+    gen = torch.Generator(device=DEV).manual_seed(seed + 1)
+    prompt = torch.randint(0, cfg.vocab_size, (1, PREFILL_LEN), generator=gen,
+                           device=DEV, dtype=torch.int32)
+
+    reset_launch_counts()
+    t_cold, (logits, _) = sync_wall(
+        lambda: engine.prefill_fn(engine.params, prompt, {}))
+    counts = launch_counts()
+    check(counts == {"quantize": 0, "dequantize": 0, "packet_accumulate": 0,
+                     "flash_attention": cfg.num_layers},
+          f"prefill launches {counts}, want flash_attention x "
+          f"{cfg.num_layers}")
+    rows["flash_attention"]["launches"] = counts["flash_attention"]
+    check(tuple(logits.shape) == (1, PREFILL_LEN, cfg.vocab_size)
+          and logits.dtype == torch.bfloat16,
+          f"prefill logits {logits.dtype} {tuple(logits.shape)}")
+    check(torch.isfinite(logits).all(), "prefill logits not finite")
+    t_warm, _ = sync_wall(lambda: engine.prefill_fn(engine.params, prompt,
+                                                    {})[0].shape)
+    full_cfg = cfg.with_(attn_chunk_threshold=1 << 30)
+    with torch.inference_mode():
+        full, _ = forward(engine.params, prompt, full_cfg)
+    d, agree = logit_agreement(logits, full)
+    print(f"prefill (1, {PREFILL_LEN}): launches {counts}, wall {t_cold:.3f} s"
+          f" cold, {t_warm * 1e3:.1f} ms warm; against plain full attention:"
+          f" max |dlogit| {d:.4g} (<= {MAX_DLOGIT}), argmax agrees on "
+          f"{agree:.2%} (>= {MIN_ARGMAX_AGREE:.0%}) of positions", flush=True)
+    check(d <= MAX_DLOGIT and agree >= MIN_ARGMAX_AGREE,
+          f"chunked and full prefill routes differ: {d}, {agree}")
+    # both bf16 routes against a float32 forward over the same weights
+    params32 = copy.deepcopy(engine.params).to(torch.float32)
+    with torch.inference_mode():
+        truth, _ = forward(params32, prompt, cfg.with_(dtype="float32"))
+    del params32
+    for route, lg in (("chunked (flash kernel)", logits),
+                      ("full (plain)", full)):
+        d32, agree32 = logit_agreement(lg, truth)
+        print(f"prefill {route} route against a float32 forward: max "
+              f"|dlogit| {d32:.4g}, argmax agrees on {agree32:.2%}")
+        check(d32 <= MAX_DLOGIT and agree32 >= MIN_ARGMAX_AGREE,
+              f"the {route} route is far from the float32 forward: {d32}, "
+              f"{agree32}")
+    del logits, full, truth
+
+    prompts = torch.randint(0, cfg.vocab_size, (DECODE_BATCH, PROMPT_LEN),
+                            generator=gen, device=DEV, dtype=torch.int32)
+    reset_launch_counts()
+    tokens, stats = engine.generate(prompts, NEW_TOKENS)
+    dcounts = launch_counts()
+    check(tokens.dtype == torch.int32
+          and tuple(tokens.shape) == (DECODE_BATCH, NEW_TOKENS)
+          and int(tokens.min()) >= 0 and int(tokens.max()) < cfg.vocab_size,
+          f"generated tokens {tokens.dtype} {tuple(tokens.shape)}")
+    check(engine.cache["pos"] == PROMPT_LEN + NEW_TOKENS - 1,
+          f"cache pos {engine.cache['pos']}")
+    # decode consistency: teacher-force prompt + answer through decode on a
+    # fresh cache, against one forward over the same 48 tokens
+    seq = torch.cat([prompts, tokens], dim=1)
+    replay = Engine(sc, params=engine.params, device=DEV)
+    steps = []
+    for t in range(seq.shape[1]):
+        _, lg, replay.cache = replay.step_fn(replay.params, replay.cache,
+                                             seq[:, t:t + 1])
+        steps.append(lg[:, 0])
+    dec = torch.stack(steps, dim=1)
+    check(torch.isfinite(dec).all(), "decode logits not finite")
+    greedy = dec[:, PROMPT_LEN - 1:-1].argmax(-1).to(torch.int32)
+    check(torch.equal(greedy, tokens),
+          "generate's tokens are not the argmax of the same decode steps")
+    fwd, _ = engine.prefill_fn(engine.params, seq, {})
+    d2, agree2 = logit_agreement(dec, fwd)
+    print(f"decode: {DECODE_BATCH} requests x {NEW_TOKENS} tokens "
+          f"(prompts of {PROMPT_LEN}, max_len {MAX_LEN}), launches {dcounts},"
+          f" prefill-by-steps {stats['prefill_s'] * 1e3:.1f} ms, decode "
+          f"{stats['decode_s'] * 1e3:.1f} ms = "
+          f"{stats['decode_tok_per_s']:.1f} tok/s; forward over the "
+          f"{seq.shape[1]} tokens against the decode logits: max |dlogit| "
+          f"{d2:.4g}, argmax agrees on {agree2:.2%}", flush=True)
+    check(d2 <= MAX_DLOGIT and agree2 >= MIN_ARGMAX_AGREE,
+          f"decode and forward logits differ: {d2}, {agree2}")
+    print(f"model path: peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+    del replay, dec, fwd
+    return engine, prompt
+
+
+def phase_profile_prefill(engine, prompt) -> None:
+    """One prefill under ``torch.profiler``: device time by kernel and the
+    flash kernel's share."""
+    print("== phase 5c: prefill profile (torch.profiler)", flush=True)
+    wall, by_name = device_time_by_kernel(
+        lambda: engine.prefill_fn(engine.params, prompt, {})[0].shape)
+    busy_us = sum(us for _, us in by_name.values())
+    check(busy_us > 0, "the profiler saw no device activity in the prefill")
+    flash_us = sum(us for name, (_, us) in by_name.items()
+                   if "flash_attention" in name)
+    gemm_us = sum(us for name, (_, us) in by_name.items()
+                  if "gemm" in name.lower() or "sm90_xmma" in name
+                  or "cutlass" in name.lower() or "nvjet" in name)
+    print(f"profiled prefill: wall {wall * 1e3:.1f} ms, device busy "
+          f"{busy_us / 1e3:.2f} ms ({busy_us / (wall * 1e6):.1%} of the "
+          f"wall); flash_attention {flash_us / 1e3:.2f} ms "
+          f"({flash_us / busy_us:.1%} of busy), matrix products "
+          f"{gemm_us / 1e3:.2f} ms ({gemm_us / busy_us:.1%}), the rest "
+          f"{(busy_us - flash_us - gemm_us) / 1e3:.2f} ms")
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:12]
+    for name, (n, us) in top:
+        print(f"  {n:6d} x {us / n:9.2f} us = {us / 1e3:8.2f} ms  {name[:90]}")
+    sys.stdout.flush()
+
+
 def phase_profile(x: torch.Tensor, scheds) -> None:
     """One more replay of the first trace under ``torch.profiler``: device
     busy share of the host wall, and device time by kernel name."""
     print("== phase 5b: replay profile (torch.profiler)", flush=True)
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     from repro_torch.core.trace import fixed_point_replay
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        wall, _ = sync_wall(lambda: fixed_point_replay(scheds, x, bits=BITS,
-                                                       device=DEV))
-    by_name: dict = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            n, us = by_name.get(e.name, (0, 0.0))
-            by_name[e.name] = (n + 1, us + e.time_range.elapsed_us())
+    wall, by_name = device_time_by_kernel(
+        lambda: fixed_point_replay(scheds, x, bits=BITS, device=DEV))
     busy_us = sum(us for _, us in by_name.values())
     if busy_us:
         print(f"profiled replay: wall {wall:.3f} s, device busy "
@@ -354,6 +616,40 @@ def phase_timing(x: torch.Tensor, rows: dict) -> None:
               f"{r['plain_ms']:.4f}, bound {r['bound_ms']:.4f}, library "
               f"{r['library_ms']})")
     sys.stdout.flush()
+    time_flash(rows)
+
+
+def time_flash(rows: dict) -> None:
+    """Flash attention at the prefill head layouts, beside its bound, its
+    plain version and ``scaled_dot_product_attention`` (timed only; the
+    port never calls it)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention
+    from repro_torch.kernels.ref import flash_attention_ref
+    gen = torch.Generator(device=DEV).manual_seed(4)
+    for (name, B, H, KV, S, D, dtype, causal, window, _,
+         layout) in FLASH_CASES[:3] + [
+            ("llama3.2-1b heads, f32", 1, 32, 8, 4096, 64, torch.float32,
+             True, 0, None, "bhsd")]:
+        q, k, v = random_qkv(gen, B, H, KV, S, D, dtype, layout)
+        k_ms, p_ms = in_turns(
+            lambda: flash_attention_ref(q, k, v, causal=causal, window=window),
+            lambda: flash_attention(q, k, v, causal=causal, window=window), 10)
+        lib = event_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=causal, enable_gqa=True), 10)
+        flops, nbytes = flash_work(B, H, KV, S, D, dtype, causal, window)
+        b_ms, b_by = flash_bound_ms(flops, nbytes, dtype)
+        print(f"flash_attention {name} q {(B, H, S, D)} kv {KV} "
+              f"{str(dtype)[6:]}: {k_ms:.4f} ms = {flops / k_ms / 1e9:.1f} "
+              f"TFLOP/s ({flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB); "
+              f"bound {b_ms:.4f} ms ({b_by}); plain {p_ms:.4f} ms; "
+              f"scaled_dot_product_attention {lib:.4f} ms", flush=True)
+        if name == FLASH_CASES[0][0]:
+            rows["flash_attention"].update(ms=k_ms, plain_ms=p_ms,
+                                           bound_ms=b_ms, bound_by=b_by,
+                                           library_ms=lib)
+        del q, k, v
 
 
 def main() -> int:
@@ -362,6 +658,9 @@ def main() -> int:
     args = ap.parse_args()
 
     name, count, smi = phase_device()
+    # float32 references in full float32: no TF32 in matmuls or cuDNN
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     phase_build()
     rows = {
         "quantize": dict(source="src/repro_torch/kernels/csrc/fixedpoint.cu",
@@ -371,14 +670,19 @@ def main() -> int:
         "packet_accumulate": dict(
             source="src/repro_torch/kernels/csrc/packet_accum.cu",
             replaces="src/repro/kernels/packet_accum.py:31"),
+        "flash_attention": dict(
+            source="src/repro_torch/kernels/csrc/flash_attention.cu",
+            replaces="src/repro/kernels/flash_attention.py:27"),
     }
     gen = torch.Generator(device=DEV).manual_seed(args.seed)
     x = torch.randn((P, MSG_BYTES // BLOCK_BYTES, D), generator=gen,
                     device=DEV)
     phase_kernels(x, rows)
     scheds = phase_main_path(x, rows)
+    engine, prompt = phase_model(rows, args.seed)
     phase_timing(x, rows)
     phase_profile(x, scheds)
+    phase_profile_prefill(engine, prompt)
 
     for r in rows.values():
         check(r["launches"] > 0, "a kernel of the main path never launched")

@@ -7,10 +7,11 @@ tensor it launches its kernel (built from ``csrc/`` at first use by
 ``launches`` attribute.
 """
 from .fixedpoint import dequantize, quantize
+from .flash_attention import flash_attention
 from .ops import fixed_point_allreduce_wrap, fixed_point_scale, on_cuda
 from .packet_accum import accumulate_dtype, packet_accumulate
 
-WRAPPERS = (quantize, dequantize, packet_accumulate)
+WRAPPERS = (quantize, dequantize, packet_accumulate, flash_attention)
 
 
 def reset_launch_counts() -> None:
@@ -25,5 +26,6 @@ def launch_counts() -> dict:
 
 
 __all__ = ["WRAPPERS", "accumulate_dtype", "dequantize",
-           "fixed_point_allreduce_wrap", "fixed_point_scale", "launch_counts",
-           "on_cuda", "packet_accumulate", "quantize", "reset_launch_counts"]
+           "fixed_point_allreduce_wrap", "fixed_point_scale",
+           "flash_attention", "launch_counts", "on_cuda", "packet_accumulate",
+           "quantize", "reset_launch_counts"]

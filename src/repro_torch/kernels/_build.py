@@ -24,7 +24,7 @@ from dataclasses import dataclass
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().with_name("csrc")
-SOURCES = ("fixedpoint.cu", "packet_accum.cu")
+SOURCES = ("fixedpoint.cu", "packet_accum.cu", "flash_attention.cu")
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 LIB_NAME = "librepro_torch_kernels.so"
 LOG_NAME = "nvcc.log"
@@ -33,6 +33,11 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
+_I = ctypes.c_int
+# q, k, v, out, strides (host int64[12]), B, H, KV, S, D, causal, window,
+# scale, stream
+_FLASH_ARGS = (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+               ctypes.c_float, _P)
 _SIGNATURES = {
     "repro_quantize_f32": (_P, _P, _P, ctypes.c_int64, _P),
     "repro_quantize_bf16": (_P, _P, _P, ctypes.c_int64, _P),
@@ -43,6 +48,8 @@ _SIGNATURES = {
                                     _P),
     "repro_packet_accumulate_bf16": (_P, _P, _P, _P, ctypes.c_int,
                                      ctypes.c_int, _P),
+    "repro_flash_attention_bf16": _FLASH_ARGS,
+    "repro_flash_attention_f32": _FLASH_ARGS,
 }
 
 

@@ -8,6 +8,8 @@ float, made float32), so the arithmetic is float32 throughout, as in
 """
 from __future__ import annotations
 
+import math
+
 import torch
 
 
@@ -48,3 +50,30 @@ def packet_accumulate_ref(slot_ids: torch.Tensor, payloads: torch.Tensor,
     out = torch.zeros((num_slots, payloads.shape[1]), dtype=acc,
                       device=payloads.device)
     return out.index_add_(0, ids[keep], payloads[keep].to(acc))
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        causal: bool = True, window: int = 0) -> torch.Tensor:
+    """GQA attention with materialised float32 logits.
+
+    q: ``(B, H, S, D)``; k, v: ``(B, KV, S, D)`` with ``H % KV == 0``.
+    Masked logits are ``-1e30``: ``kpos <= qpos`` when ``causal``, and
+    ``kpos > qpos - window`` when ``window > 0`` (the sliding-window term of
+    ``chunked_attention``). Returns ``(B, H, S, D)`` in q's dtype.
+    """
+    B, H, S, D = q.shape
+    KV = k.shape[1]
+    qg = q.reshape(B, KV, H // KV, S, D).to(torch.float32)
+    logits = torch.einsum("bkgqd,bksd->bkgqs", qg,
+                          k.to(torch.float32)) / math.sqrt(D)
+    qpos = torch.arange(S, device=q.device)[:, None]
+    kpos = torch.arange(S, device=q.device)[None, :]
+    mask = torch.ones((S, S), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kpos <= qpos
+    if window > 0:
+        mask &= kpos > qpos - window
+    logits = torch.where(mask, logits, -1e30)
+    probs = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bkgqs,bksd->bkgqd", probs, v.to(torch.float32))
+    return out.reshape(B, H, S, D).to(q.dtype)

