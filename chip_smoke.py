@@ -11,7 +11,9 @@ printed:
 2. build    — builds the kernels from ``src/repro_torch/kernels/csrc``
               (seconds, and ``-Xptxas -v``: registers and spills);
 3. kernels  — each kernel against its plain PyTorch version on the card, at
-              the main path's shapes and at ragged ones (flash attention:
+              the main path's shapes and at ragged ones (the gathered
+              segment-sum on a synthetic plan of fan-in 1 to 128 at the
+              replay's width; flash attention:
               the llama3.2-1b prefill head layout, also read through the
               strides of a (B, S, H, D) transpose as the prefill hands it
               over, the qwen2-7b one, ragged S, non-causal, a sliding
@@ -19,10 +21,15 @@ printed:
               its tolerance), and the same bits twice;
 4. main path — records two congested 256-host fat-tree runs (128
               participants allreducing 1 MiB each) with the port's
-              simulator, compiles the dynamic trees, and replays both in
-              fixed point on a seeded (128, 1024, 256) float32 input:
-              the int32 results must be bit-identical and exact, and every
-              kernel must have been launched as the schedules imply;
+              simulator, compiles the dynamic trees, lowers each into a
+              replay plan, and replays both in fixed point on a seeded
+              (128, 1024, 256) float32 input: the int32 results must be
+              bit-identical and exact, and the replay must launch
+              quantize and dequantize once and the gathered segment-sum
+              once per tree level;
+4c. switch  — the single-switch aggregation of fig6's software switch:
+              ``packet_accumulate`` of 4096 packets of 32 float32 values
+              into 1024 descriptor slots, one launch a call;
 4b. model   — llama3.2-1b at full width (16 layers, bf16, random weights
               from seed 0) on the port's serving engine: a 4096-token
               prefill (``Engine.prefill_fn``) that must launch the flash
@@ -31,7 +38,9 @@ printed:
               requests (16-token prompts, 32 new tokens), and a forward over
               prompt + answer must agree with the decode logits;
 5. timing   — CUDA events over warm launches: each kernel beside its bound,
-              its plain version and one PyTorch call for the same function;
+              its plain version and one PyTorch call for the same function
+              (the gathered segment-sum: the levels of one replay summed;
+              the standalone one also at a few shapes off the paths);
               then one replay and one prefill under ``torch.profiler``
               (device busy share, device time by kernel);
 6. summary  — one ``{"kernels": [...]}`` JSON line, the card line, and last
@@ -58,6 +67,7 @@ DEV = "cuda"
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM, NVIDIA data sheet
 BF16_FLOPS = 989e12              # dense tensor-core peak, same sheet
 F32_FLOPS = 67e12                # FP32 outside the tensor cores
+HEAD_START_CYCLES = 40_000_000   # ~20 ms at the H100's boost clock
 P, BLOCK_BYTES, MSG_BYTES = 128, 1024, 1 << 20
 D = BLOCK_BYTES // 4             # float32 values per block (one packet)
 BITS = 24
@@ -65,8 +75,13 @@ VARIANTS = {                     # two congestion worlds, distinct trees
     "seed3_t50": dict(seed=3, timeout_ns=50.0, noise_prob=0.2),
     "seed29_t500": dict(seed=29, timeout_ns=500.0, noise_prob=0.05),
 }
-ROUND_SHAPE = (128, 256, 8)      # (N, D, slots) of a replay reduce round
+ROUND_SHAPE = (128, 256, 8)      # (N, D, slots) of one reduce round
 FIG6_SHAPE = (4096, 32, 1024)    # benchmarks/fig6_single_switch.py:35
+SWITCH_CALLS = 3                 # fig6's timed repetitions (:41)
+# (N, D, slots) off the repo's paths, timed beside zeros + index_add_: few
+# slots of many rows each, up to one row a slot, and fig6 at 4x the packets
+SWEEP_SHAPES = [(4096, 256, 8), (4096, 256, 64), (4096, 256, 256),
+                (4096, 256, 4096), (16384, 32, 1024)]
 # (name, B, H, KV, S, D, dtype, causal, window, tol, layout); the tolerances
 # are those of tests/kernels/test_kernels.py:137; layout "bshd" hands the
 # kernel the (B, H, S, D) transposes of (B, S, H, D) tensors, as
@@ -119,17 +134,29 @@ def sync_wall(fn):
 
 
 def event_ms(fn, reps: int) -> float:
-    """Mean device milliseconds of ``fn`` over ``reps`` warm launches."""
+    """Mean device milliseconds of ``fn`` over ``reps`` warm launches. The
+    card first spins for ``HEAD_START_CYCLES`` while the host queues the
+    launches, so a call whose host side outlasts its kernels is timed on the
+    card, not on the host (:func:`host_ms` times the host side)."""
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(HEAD_START_CYCLES)
     start.record()
     for _ in range(reps):
         fn()
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def host_ms(fn, reps: int) -> float:
+    """Mean host milliseconds a call of ``fn`` takes, up to a synchronize
+    after ``reps`` warm calls: what a caller waits for."""
+    fn()
+    wall, _ = sync_wall(lambda: [fn() for _ in range(reps)])
+    return wall * 1e3 / reps
 
 
 def in_turns(plain, kernel, reps: int):
@@ -276,15 +303,20 @@ def phase_kernels(x: torch.Tensor, rows: dict) -> None:
 
     gen = torch.Generator(device=DEV).manual_seed(1)
     err_a = 0.0
-    for n, d, slots in (ROUND_SHAPE, FIG6_SHAPE, (77, 200, 7)):
+    for n, d, slots in (ROUND_SHAPE, FIG6_SHAPE, (77, 200, 7), (300, 30, 50)):
         ids = torch.randint(0, slots, (n,), generator=gen, device=DEV,
                             dtype=torch.int32)
         ids[::7] = slots                         # these hit nothing
+        ids[3::11] = -1
         pi = torch.randint(-1_000_000, 1_000_000, (n, d), generator=gen,
                            device=DEV, dtype=torch.int32)
-        got, ref = packet_accumulate(ids, pi, slots), \
-            packet_accumulate_ref(ids, pi, slots)
-        check(torch.equal(got, ref), f"packet_accumulate int32 {n, d, slots}")
+        for id_t in (ids, ids.long()):
+            before = packet_accumulate.launches
+            got = packet_accumulate(id_t, pi, slots)
+            check(packet_accumulate.launches == before + 1,
+                  "packet_accumulate is not one launch a call")
+            check(torch.equal(got, packet_accumulate_ref(id_t, pi, slots)),
+                  f"packet_accumulate int32 {n, d, slots} ids {id_t.dtype}")
         pf = torch.randn((n, d), generator=gen, device=DEV)
         a, b = packet_accumulate(ids, pf, slots), packet_accumulate(ids, pf,
                                                                     slots)
@@ -301,7 +333,44 @@ def phase_kernels(x: torch.Tensor, rows: dict) -> None:
     rows["quantize"]["max_abs_err"] = err_q
     rows["dequantize"]["max_abs_err"] = err_d
     rows["packet_accumulate"]["max_abs_err"] = err_a
+    rows["packet_accumulate_gather"]["max_abs_err"] = phase_gather_kernel()
     rows["flash_attention"]["max_abs_err"] = phase_flash_kernel()
+
+
+def phase_gather_kernel() -> float:
+    """The gathered segment-sum against its plain version on a synthetic
+    plan at the replay's width (P = 128, B = 1024, D = 256; fan-in 1 to
+    128): int32 exact and equal to the sum over participants, float32
+    within 1e-5 and the same bits twice."""
+    from repro_torch.core.trace.executor import run_plan
+    from repro_torch.core.trace.plan import lower_schedules
+    from repro_torch.core.trace.synthetic import random_schedules
+    from repro_torch.kernels.ref import packet_accumulate_gather_ref
+    nb = MSG_BYTES // BLOCK_BYTES
+    plan = lower_schedules(random_schedules(P, nb, seed=1))
+    gen = torch.Generator(device=DEV).manual_seed(5)
+    qi = torch.randint(-1_000_000, 1_000_000, (P, nb, D), generator=gen,
+                       device=DEV, dtype=torch.int32)
+    got = run_plan(plan, qi)
+    check(torch.equal(got, run_plan(plan, qi,
+                                    gather=packet_accumulate_gather_ref)),
+          "packet_accumulate_gather int32 differs from plain")
+    check(torch.equal(got, qi.sum(0, dtype=torch.int32).expand_as(qi)),
+          "packet_accumulate_gather int32 is not the sum over participants")
+    xf = torch.randn((P, nb, D), generator=gen, device=DEV)
+    a, b = run_plan(plan, xf), run_plan(plan, xf)
+    want = run_plan(plan, xf, gather=packet_accumulate_gather_ref)
+    check(torch.equal(a, b), "packet_accumulate_gather f32 not repeatable")
+    err = max_abs(a, want)
+    check(torch.allclose(a, want, rtol=1e-5, atol=1e-5),
+          f"packet_accumulate_gather f32: max |diff| {err}")
+    fanin = [int(np.diff(lv.seg_offsets).max()) for lv in plan.levels]
+    print(f"packet_accumulate_gather synthetic plan (P, B, D)={P, nb, D}, "
+          f"{len(plan.levels)} levels, {plan.num_segments} segments, "
+          f"{plan.num_sources} source rows, fan-in max by level {fanin}: "
+          f"int32 exact, f32 max |diff| {err:.3g} (rtol=atol=1e-5), "
+          f"repeatable", flush=True)
+    return err
 
 
 def phase_flash_kernel() -> float:
@@ -348,7 +417,7 @@ def phase_main_path(x: torch.Tensor, rows: dict) -> dict:
     from repro_torch.core.canary import (Algo, AllreduceJob, Simulator,
                                          scaled_config)
     from repro_torch.core.trace import (compile_app, fixed_point_replay,
-                                        schedule_report)
+                                        lower_schedules, schedule_report)
     from repro_torch.kernels import (fixed_point_scale, launch_counts,
                                      reset_launch_counts)
     from repro_torch.kernels.ref import quantize_ref
@@ -356,8 +425,8 @@ def phase_main_path(x: torch.Tensor, rows: dict) -> dict:
     scale = fixed_point_scale(x.abs().max(), bits=BITS, world=P)
     exact = quantize_ref(x, scale).to(torch.int64).sum(dim=0)
     ref64 = x.double().sum(dim=0)
-    replay_kernels = ("quantize", "dequantize", "packet_accumulate")
-    qs, schedules, totals = [], [], dict.fromkeys(replay_kernels, 0)
+    replay_kernels = ("quantize", "dequantize", "packet_accumulate_gather")
+    qs, plans, totals = [], [], dict.fromkeys(replay_kernels, 0)
     for label, kw in VARIANTS.items():
         cfg = scaled_config(16, trace=True, **kw)
         jobs = [AllreduceJob(app=0, participants=list(range(P)),
@@ -371,16 +440,24 @@ def phase_main_path(x: torch.Tensor, rows: dict) -> dict:
         check(len(scheds) == MSG_BYTES // BLOCK_BYTES == x.shape[1],
               f"{label}: {len(scheds)} schedules")
 
+        t_low, plan = sync_wall(lambda: lower_schedules(scheds))
+
         torch.cuda.reset_peak_memory_stats()
         reset_launch_counts()
-        t_rep, (out, q) = sync_wall(lambda: fixed_point_replay(scheds, x,
+        t_rep, (out, q) = sync_wall(lambda: fixed_point_replay(plan, x,
                                                                bits=BITS,
                                                                device=DEV))
         counts = launch_counts()
-        depth = sum(s.depth for s in scheds)
+        depth = rep["depth_max"]
+        levels = sum(lv.num_segments > 0 for lv in plan.levels)
         check(counts == {"quantize": 1, "dequantize": 1,
-                         "packet_accumulate": depth, "flash_attention": 0},
-              f"{label}: launches {counts}, schedules imply depth {depth}")
+                         "packet_accumulate": 0,
+                         "packet_accumulate_gather": levels,
+                         "flash_attention": 0},
+              f"{label}: launches {counts}, the plan has {levels} levels "
+              f"with segments (depth {depth})")
+        t_warm, _ = sync_wall(lambda: fixed_point_replay(plan, x, bits=BITS,
+                                                         device=DEV))
         for k in replay_kernels:
             totals[k] += counts[k]
         check(q.dtype == torch.int32 and q.shape == x.shape, "q shape/type")
@@ -392,18 +469,56 @@ def phase_main_path(x: torch.Tensor, rows: dict) -> dict:
         check(torch.isfinite(out).all() and err <= tol,
               f"{label}: |result - float64 sum| {err} > {tol}")
         qs.append(q)
-        schedules.append(scheds)
+        plans.append(plan)
+        segs = [lv.num_segments for lv in plan.levels]
         print(f"{label}: record {t_rec:.2f} s, compile {t_comp:.2f} s, "
-              f"replay {t_rep:.3f} s, depth max {rep['depth_max']} mean "
-              f"{rep['depth_mean']:.3f}, fan-in max {rep['max_fanin']}, "
-              f"launches {counts}, |result - f64 sum| {err:.3g} <= {tol:.3g}, "
-              f"peak {torch.cuda.max_memory_allocated() / 2**20:.0f} MiB",
+              f"lower {t_low * 1e3:.1f} ms ({segs} segments by level, "
+              f"{plan.num_sources} source rows, {plan.scratch_rows} scratch "
+              f"rows), replay {t_rep * 1e3:.2f} ms cold (plan copied to the "
+              f"card), {t_warm * 1e3:.2f} ms warm, depth max "
+              f"{rep['depth_max']} mean {rep['depth_mean']:.3f}, fan-in max "
+              f"{rep['max_fanin']}, launches {counts}, |result - f64 sum| "
+              f"{err:.3g} <= {tol:.3g}, peak "
+              f"{torch.cuda.max_memory_allocated() / 2**20:.0f} MiB",
               flush=True)
     check(torch.equal(qs[0], qs[1]), "q differs between the two traces")
     print(f"q bit-identical across {len(qs)} traces")
     for k, v in totals.items():
         rows[k]["launches"] = v
-    return schedules[0]
+    return plans[0]
+
+
+def phase_switch(rows: dict) -> None:
+    """fig6's software switch: 4096 packets of 32 float32 values summed
+    into 1024 descriptor slots by ``packet_accumulate``, one launch a
+    call, held against its plain version."""
+    print("== phase 4c: single-switch aggregation (fig6's software switch)",
+          flush=True)
+    from repro_torch.kernels import (launch_counts, packet_accumulate,
+                                     reset_launch_counts)
+    from repro_torch.kernels.ref import packet_accumulate_ref
+    n, d, slots = FIG6_SHAPE
+    gen = torch.Generator(device=DEV).manual_seed(6)
+    ids = torch.randint(0, slots, (n,), generator=gen, device=DEV,
+                        dtype=torch.int32)
+    pay = torch.randn((n, d), generator=gen, device=DEV)
+    reset_launch_counts()
+    outs = [packet_accumulate(ids, pay, slots) for _ in range(SWITCH_CALLS)]
+    counts = launch_counts()
+    check(counts == {"quantize": 0, "dequantize": 0,
+                     "packet_accumulate": SWITCH_CALLS,
+                     "packet_accumulate_gather": 0, "flash_attention": 0},
+          f"switch launches {counts}")
+    want = packet_accumulate_ref(ids, pay, slots)
+    for out in outs:
+        check(out.shape == (slots, d) and torch.isfinite(out).all()
+              and torch.equal(out, outs[0])
+              and torch.allclose(out, want, rtol=1e-5, atol=1e-5),
+              "switch aggregation differs from the plain version")
+    rows["packet_accumulate"]["launches"] = counts["packet_accumulate"]
+    print(f"switch: {SWITCH_CALLS} calls of (N, D, slots)={FIG6_SHAPE}, "
+          f"launches {counts}, max |diff| {max_abs(outs[0], want):.3g} "
+          f"(rtol=atol=1e-5), repeatable", flush=True)
 
 
 def phase_model(rows: dict, seed: int):
@@ -434,6 +549,7 @@ def phase_model(rows: dict, seed: int):
         lambda: engine.prefill_fn(engine.params, prompt, {}))
     counts = launch_counts()
     check(counts == {"quantize": 0, "dequantize": 0, "packet_accumulate": 0,
+                     "packet_accumulate_gather": 0,
                      "flash_attention": cfg.num_layers},
           f"prefill launches {counts}, want flash_attention x "
           f"{cfg.num_layers}")
@@ -536,31 +652,36 @@ def phase_profile_prefill(engine, prompt) -> None:
     sys.stdout.flush()
 
 
-def phase_profile(x: torch.Tensor, scheds) -> None:
+def phase_profile(x: torch.Tensor, plan) -> None:
     """One more replay of the first trace under ``torch.profiler``: device
     busy share of the host wall, and device time by kernel name."""
     print("== phase 5b: replay profile (torch.profiler)", flush=True)
     from repro_torch.core.trace import fixed_point_replay
-    wall, by_name = device_time_by_kernel(
-        lambda: fixed_point_replay(scheds, x, bits=BITS, device=DEV))
+
+    def replay():
+        return fixed_point_replay(plan, x, bits=BITS, device=DEV)
+
+    plain_wall = sorted(sync_wall(replay)[0] for _ in range(5))[2]
+    wall, by_name = device_time_by_kernel(replay)
     busy_us = sum(us for _, us in by_name.values())
     if busy_us:
-        print(f"profiled replay: wall {wall:.3f} s, device busy "
-              f"{busy_us / 1e3:.1f} ms ({busy_us / (wall * 1e6):.1%} of the "
-              f"wall)")
+        print(f"profiled replay: wall {wall * 1e3:.3f} ms, device busy "
+              f"{busy_us / 1e3:.3f} ms ({busy_us / (wall * 1e6):.1%} of the "
+              f"wall; estimate mixing runs: {busy_us / (plain_wall * 1e6):.1%}"
+              f" of the median wall of 5 unprofiled replays, "
+              f"{plain_wall * 1e3:.3f} ms)")
     else:
-        print(f"profiled replay: wall {wall:.3f} s; the profiler saw no "
-              f"device activity: busy share not measured")
+        print(f"profiled replay: wall {wall * 1e3:.3f} ms; the profiler saw "
+              f"no device activity: busy share not measured")
     for name, (n, us) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:10]:
-        print(f"  {n:6d} x {us / n:8.2f} us = {us / 1e3:8.2f} ms  {name[:90]}")
+        print(f"  {n:6d} x {us / n:8.2f} us = {us / 1e3:8.3f} ms  {name[:90]}")
     sys.stdout.flush()
 
 
-def phase_timing(x: torch.Tensor, rows: dict) -> None:
+def phase_timing(x: torch.Tensor, plan, rows: dict) -> None:
     print("== phase 5: timing (CUDA events, warm)", flush=True)
-    from repro_torch.kernels import (_build, dequantize, fixed_point_scale,
+    from repro_torch.kernels import (dequantize, fixed_point_scale,
                                      packet_accumulate, quantize)
-    from repro_torch.kernels.packet_accum import csr_by_slot
     from repro_torch.kernels.ref import (dequantize_ref,
                                          packet_accumulate_ref, quantize_ref)
     n = x.numel()
@@ -584,32 +705,45 @@ def phase_timing(x: torch.Tensor, rows: dict) -> None:
                               bound_by="bytes", library_ms=lib)
 
     gen = torch.Generator(device=DEV).manual_seed(2)
-    stream = torch.cuda.current_stream().cuda_stream
-    for shape in (ROUND_SHAPE, FIG6_SHAPE):
+    for shape, dtype in ((ROUND_SHAPE, torch.int32), (FIG6_SHAPE, torch.int32),
+                         (FIG6_SHAPE, torch.float32)):
         rn, d, slots = shape
+        ids = torch.randint(0, slots, (rn,), generator=gen, device=DEV,
+                            dtype=torch.int32)
+        if dtype == torch.int32:
+            pay = torch.randint(-1_000_000, 1_000_000, (rn, d), generator=gen,
+                                device=DEV, dtype=torch.int32)
+        else:
+            pay = torch.randn((rn, d), generator=gen, device=DEV)
+        k, p = in_turns(lambda: packet_accumulate_ref(ids, pay, slots),
+                        lambda: packet_accumulate(ids, pay, slots), 200)
+        lib = event_ms(lambda: torch.zeros((slots, d), dtype=dtype,
+                                           device=DEV).index_add_(0, ids,
+                                                                  pay), 200)
+        host = host_ms(lambda: packet_accumulate(ids, pay, slots), 200)
+        nbytes = 4 * (rn * d + rn + slots * d)
+        print(f"packet_accumulate {str(dtype)[6:]} (N, D, slots)={shape}: "
+              f"{k:.4f} ms (one launch; {host:.4f} ms a call with the host), "
+              f"plain {p:.4f}, zeros + index_add_ {lib:.4f}, bound "
+              f"{bound_ms(nbytes):.6f}")
+        if shape == FIG6_SHAPE and dtype == torch.float32:   # phase 4c's
+            rows["packet_accumulate"].update(
+                ms=k, plain_ms=p, bound_ms=bound_ms(nbytes), bound_by="bytes",
+                library_ms=lib)
+    for rn, d, slots in SWEEP_SHAPES:
         ids = torch.randint(0, slots, (rn,), generator=gen, device=DEV,
                             dtype=torch.int32)
         pay = torch.randint(-1_000_000, 1_000_000, (rn, d), generator=gen,
                             device=DEV, dtype=torch.int32)
-        k, p = in_turns(lambda: packet_accumulate_ref(ids, pay, slots),
-                        lambda: packet_accumulate(ids, pay, slots), 200)
+        k1 = event_ms(lambda: packet_accumulate(ids, pay, slots), 200)
         lib = event_ms(lambda: torch.zeros((slots, d), dtype=torch.int32,
                                            device=DEV).index_add_(0, ids,
-                                                                     pay), 200)
-        order, offsets = csr_by_slot(ids, slots)
-        out = torch.empty((slots, d), dtype=torch.int32, device=DEV)
-        fn = _build.library().repro_packet_accumulate_i32
-        kern = event_ms(lambda: fn(pay.data_ptr(), order.data_ptr(),
-                                   offsets.data_ptr(), out.data_ptr(), slots,
-                                   d, stream), 200)
-        nbytes = 4 * (rn * d + rn + slots * d)
-        print(f"packet_accumulate int32 (N, D, slots)={shape}: wrapper "
-              f"{k:.4f} ms, kernel alone {kern:.4f} ms, plain {p:.4f}, "
-              f"index_add_ {lib:.4f}, bound {bound_ms(nbytes):.6f}")
-        if shape == ROUND_SHAPE:
-            rows["packet_accumulate"].update(
-                ms=k, plain_ms=p, bound_ms=bound_ms(nbytes), bound_by="bytes",
-                library_ms=lib)
+                                                                  pay), 200)
+        k2 = event_ms(lambda: packet_accumulate(ids, pay, slots), 200)
+        print(f"  sweep packet_accumulate int32 (N, D, slots)="
+              f"{(rn, d, slots)}: {(k1 + k2) / 2:.4f} ms, zeros + index_add_ "
+              f"{lib:.4f} ms")
+    time_gather(q, plan, rows)
     for name in ("quantize", "dequantize"):
         r = rows[name]
         print(f"{name} {tuple(x.shape)}: {r['ms']:.4f} ms (plain "
@@ -617,6 +751,56 @@ def phase_timing(x: torch.Tensor, rows: dict) -> None:
               f"{r['library_ms']})")
     sys.stdout.flush()
     time_flash(rows)
+
+
+def time_gather(q: torch.Tensor, plan, rows: dict) -> None:
+    """The gathered segment-sum over the first trace's plan: the levels of
+    one replay summed, each level alone, beside the bytes bound, the plain
+    walk and ``torch.sum`` over participants (one PyTorch call for the same
+    sum, without the broadcast). The bound is the function's own, the input
+    read once and the result written once; the plan's, which also counts
+    the switch-node rows written and read back, is printed beside it."""
+    from repro_torch.core.trace.executor import run_plan
+    from repro_torch.kernels import packet_accumulate_gather
+    from repro_torch.kernels.ref import packet_accumulate_gather_ref
+    levels = plan.on(DEV)
+    k, p = in_turns(
+        lambda: run_plan(plan, q, gather=packet_accumulate_gather_ref),
+        lambda: run_plan(plan, q), 30)
+    host = host_ms(lambda: run_plan(plan, q), 30)
+    lib = event_ms(lambda: torch.sum(q, 0, dtype=torch.int32), 30)
+    lib_b = event_ms(lambda: torch.sum(q, 0, dtype=torch.int32).expand_as(q)
+                     .contiguous(), 30)
+    pb, nb, d = q.shape
+    index = sum(4 * t.numel() for lv in levels for t in lv)
+    nbytes = 8 * d * pb * nb + index
+    roots = sum(int((lv.dst < 0).sum()) for lv in plan.levels)
+    plan_bytes = (4 * d * (plan.num_sources + plan.scratch_rows + roots * pb)
+                  + index)
+    rows["packet_accumulate_gather"].update(
+        ms=k, plain_ms=p, bound_ms=bound_ms(nbytes), bound_by="bytes",
+        library_ms=lib)
+    print(f"packet_accumulate_gather, the {len(levels)} levels of one replay "
+          f"(P, B, D)={tuple(q.shape)}: {k:.4f} ms, bound {bound_ms(nbytes):.4f}"
+          f" ms ({nbytes / 1e6:.1f} MB: the input read once, the result "
+          f"written once, {index / 1e6:.2f} MB of index) = "
+          f"{bound_ms(nbytes) / k:.1%} of the bound; the plan's bound "
+          f"{bound_ms(plan_bytes):.4f} ms ({plan_bytes / 1e6:.1f} MB: "
+          f"{plan.num_sources} source rows, {plan.scratch_rows} switch-node "
+          f"rows, {roots} roots x {pb}); {host:.4f} ms with the host; plain "
+          f"{p:.4f} ms; torch.sum over participants {lib:.4f} ms, with the "
+          f"broadcast copied {lib_b:.4f} ms")
+    out = torch.empty_like(q)
+    scratch = torch.empty((plan.scratch_rows, d), dtype=q.dtype, device=DEV)
+    for i, (lv, t) in enumerate(zip(plan.levels, levels)):
+        ms = event_ms(lambda: packet_accumulate_gather(
+            q.view(pb * nb, d), scratch, out, *t), 30)
+        r = int((lv.dst < 0).sum())
+        lbytes = 4 * d * (len(lv.src) + lv.num_segments - r + r * pb)
+        print(f"  level {i}: {ms:.4f} ms, {lv.num_segments} segments, "
+              f"{len(lv.src)} source rows, {r} roots; bound "
+              f"{bound_ms(lbytes):.4f} ms")
+    sys.stdout.flush()
 
 
 def time_flash(rows: dict) -> None:
@@ -670,6 +854,9 @@ def main() -> int:
         "packet_accumulate": dict(
             source="src/repro_torch/kernels/csrc/packet_accum.cu",
             replaces="src/repro/kernels/packet_accum.py:31"),
+        "packet_accumulate_gather": dict(
+            source="src/repro_torch/kernels/csrc/packet_accum.cu",
+            replaces="src/repro/kernels/packet_accum.py:31"),
         "flash_attention": dict(
             source="src/repro_torch/kernels/csrc/flash_attention.cu",
             replaces="src/repro/kernels/flash_attention.py:27"),
@@ -678,10 +865,11 @@ def main() -> int:
     x = torch.randn((P, MSG_BYTES // BLOCK_BYTES, D), generator=gen,
                     device=DEV)
     phase_kernels(x, rows)
-    scheds = phase_main_path(x, rows)
+    plan = phase_main_path(x, rows)
+    phase_switch(rows)
     engine, prompt = phase_model(rows, args.seed)
-    phase_timing(x, rows)
-    phase_profile(x, scheds)
+    phase_timing(x, plan, rows)
+    phase_profile(x, plan)
     phase_profile_prefill(engine, prompt)
 
     for r in rows.values():

@@ -1,12 +1,13 @@
 """Tensor executor: replay compiled schedules on the card (port of
 ``repro/core/trace/executor.py``).
 
-Each reduce round of a :class:`~.schedule.Schedule` is one segment-sum:
-every step's source buffers are stacked into a packet matrix and
-accumulated into per-destination slots by
-:func:`repro_torch.kernels.packet_accumulate`, the per-switch aggregation of
-§3.1.1. The broadcast phase replicates the root buffer down the mirrored
-tree (§3.1.2).
+The schedules are lowered once into a :class:`~.plan.ReplayPlan`, which
+merges the same reduce round (height level) of every block into one
+gathered segment-sum: :func:`repro_torch.kernels.packet_accumulate_gather`
+sums each switch node's children into a scratch table, the per-switch
+aggregation of §3.1.1, one launch per level for the whole app. A root's sum
+is written to every participant's row, the broadcast down the mirrored
+tree (§3.1.2). Nothing per round reaches the host.
 
 Two numeric modes:
 
@@ -17,59 +18,50 @@ Two numeric modes:
   addition is associative, so the result is **bit-identical for every tree
   shape the timeouts produced**.
 
-The entry points take ``device=None``, which means ``"cuda"``; inputs may be
-numpy arrays or tensors and are moved there.
+``replay_app`` and ``fixed_point_replay`` take the schedules or their plan
+(:func:`~.plan.lower_schedules`); given schedules they lower them on every
+call. The entry points take ``device=None``, which means ``"cuda"``; inputs
+may be numpy arrays or tensors and are moved there.
 """
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Sequence, Union
 
 import torch
 
 from ...kernels.fixedpoint import dequantize, quantize
 from ...kernels.ops import fixed_point_scale, resolve_device
-from ...kernels.packet_accum import accumulate_dtype, packet_accumulate
+from ...kernels.packet_accum import accumulate_dtype, packet_accumulate_gather
+from .plan import ReplayPlan, lower_schedules
 from .schedule import Schedule
 
+Replayable = Union[ReplayPlan, Sequence[Schedule]]
 
-def _replay_block(schedule: Schedule, inputs: torch.Tensor) -> torch.Tensor:
-    hosts = schedule.hosts
-    if inputs.dim() != 2 or inputs.shape[0] != len(hosts):
+
+def _plan(schedules: Replayable) -> ReplayPlan:
+    if isinstance(schedules, ReplayPlan):
+        return schedules
+    return lower_schedules(schedules)
+
+
+def run_plan(plan: ReplayPlan, inputs: torch.Tensor, *,
+             gather=packet_accumulate_gather) -> torch.Tensor:
+    """Every level of ``plan`` over ``inputs`` ``(P, B, D)`` through
+    ``gather`` (the wrapper by default; the checks on the card hand in its
+    plain version); returns the ``(P, B, D)`` result."""
+    if inputs.dim() != 3 or inputs.shape[:2] != (plan.hosts, plan.blocks):
         raise ValueError(f"inputs of shape {tuple(inputs.shape)} for "
-                         f"{len(hosts)} participants; need (P, D)")
-    rank = {h: r for r, h in enumerate(hosts)}
-    inputs = inputs.to(accumulate_dtype(inputs.dtype))
-
-    buffers = {}
-    for nid, host in schedule.leaf_host.items():
-        buffers[nid] = inputs[rank[host]]
-
-    for rnd in schedule.reduce_rounds:
-        slot_ids = []
-        payloads = []
-        for slot, step in enumerate(rnd):
-            for src in step.srcs:
-                slot_ids.append(slot)
-                payloads.append(buffers[src])
-        acc = packet_accumulate(
-            torch.tensor(slot_ids, dtype=torch.int32, device=inputs.device),
-            torch.stack(payloads), len(rnd))
-        for slot, step in enumerate(rnd):
-            buffers[step.dst] = acc[slot]
-
-    # broadcast: every step of the mirrored tree is a copy of the root
-    # buffer, so the per-host rows materialize directly
-    total = buffers[schedule.root]
-    return total.expand((len(hosts),) + tuple(total.shape))
-
-
-def _replay_app(schedules: Sequence[Schedule],
-                inputs: torch.Tensor) -> torch.Tensor:
-    if inputs.dim() != 3 or inputs.shape[1] != len(schedules):
-        raise ValueError(f"inputs of shape {tuple(inputs.shape)} for "
-                         f"{len(schedules)} schedules; need (P, B, D)")
-    outs = [_replay_block(s, inputs[:, b]) for b, s in enumerate(schedules)]
-    return torch.stack(outs, dim=1)
+                         f"{plan.blocks} schedules of {plan.hosts} "
+                         f"participants; need (P, B, D)")
+    p, nb, d = inputs.shape
+    leaf = inputs.to(accumulate_dtype(inputs.dtype)).contiguous()
+    scratch = torch.empty((plan.scratch_rows, d), dtype=leaf.dtype,
+                          device=leaf.device)
+    out = torch.empty_like(leaf)
+    leaf = leaf.view(p * nb, d)
+    for level in plan.on(leaf.device):
+        gather(leaf, scratch, out, *level)
+    return out
 
 
 def replay_block(schedule: Schedule, inputs, *, device=None) -> torch.Tensor:
@@ -81,22 +73,28 @@ def replay_block(schedule: Schedule, inputs, *, device=None) -> torch.Tensor:
     accumulated in int32 (associative), floats in float32.
     """
     dev = resolve_device(device)
-    return _replay_block(schedule, torch.as_tensor(inputs, device=dev))
+    inputs = torch.as_tensor(inputs, device=dev)
+    if inputs.dim() != 2 or inputs.shape[0] != len(schedule.hosts):
+        raise ValueError(f"inputs of shape {tuple(inputs.shape)} for "
+                         f"{len(schedule.hosts)} participants; need (P, D)")
+    return run_plan(lower_schedules([schedule]), inputs[:, None])[:, 0]
 
 
-def replay_app(schedules: Sequence[Schedule], inputs, *,
+def replay_app(schedules: Replayable, inputs, *,
                device=None) -> torch.Tensor:
     """Replay a whole app: ``inputs`` is ``(P, B, D)`` (one row of blocks per
-    participant, in ``schedules[b].hosts`` order); returns ``(P, B, D)``."""
+    participant, in ``schedules[b].hosts`` order); returns ``(P, B, D)``.
+    ``schedules`` may be their :class:`~.plan.ReplayPlan`."""
     dev = resolve_device(device)
-    return _replay_app(schedules, torch.as_tensor(inputs, device=dev))
+    return run_plan(_plan(schedules), torch.as_tensor(inputs, device=dev))
 
 
-def fixed_point_replay(schedules: Sequence[Schedule], x, *, bits: int = 24,
+def fixed_point_replay(schedules: Replayable, x, *, bits: int = 24,
                        device=None):
     """Fixed-point replay: quantize -> int32 tree accumulation -> dequantize.
 
-    ``x``: ``(P, B, D)`` float inputs. Returns ``(result, q_result)`` where
+    ``x``: ``(P, B, D)`` float inputs; ``schedules`` may be their
+    :class:`~.plan.ReplayPlan`. Returns ``(result, q_result)`` where
     ``q_result`` is the raw ``(P, B, D)`` int32 accumulation — bit-identical
     across any set of recorded tree shapes for the same ``x`` — and
     ``result`` is its dequantized float32 view. The scale is the shared
@@ -105,11 +103,13 @@ def fixed_point_replay(schedules: Sequence[Schedule], x, *, bits: int = 24,
     pointer), so the host never waits for it.
     """
     dev = resolve_device(device)
+    plan = _plan(schedules)
     x = torch.as_tensor(x, device=dev).contiguous()
-    gmax = torch.max(torch.abs(x.to(torch.float32)))
+    lo, hi = torch.aminmax(x.to(torch.float32))  # max |x| in one pass
+    gmax = torch.maximum(hi, -lo)
     scale = fixed_point_scale(gmax, bits=bits, world=x.shape[0])
     q = quantize(x, scale)
-    q_result = _replay_app(schedules, q)
+    q_result = run_plan(plan, q)
     return dequantize(q_result, scale), q_result
 
 

@@ -34,6 +34,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+# payload, ids, id bytes, N, slots, D, out, stream
+_ACCUM_ARGS = (_P, _P, _I, ctypes.c_int64, _I, _I, _P, _P)
+# leaf, scratch, out, segment offsets, src, dst, segments, D, P, B, stream
+_GATHER_ARGS = (_P, _P, _P, _P, _P, _P, _I, _I, _I, ctypes.c_int64, _P)
 # q, k, v, out, strides (host int64[12]), B, H, KV, S, D, causal, window,
 # scale, stream
 _FLASH_ARGS = (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
@@ -42,12 +46,11 @@ _SIGNATURES = {
     "repro_quantize_f32": (_P, _P, _P, ctypes.c_int64, _P),
     "repro_quantize_bf16": (_P, _P, _P, ctypes.c_int64, _P),
     "repro_dequantize": (_P, _P, _P, ctypes.c_int64, _P),
-    "repro_packet_accumulate_i32": (_P, _P, _P, _P, ctypes.c_int, ctypes.c_int,
-                                    _P),
-    "repro_packet_accumulate_f32": (_P, _P, _P, _P, ctypes.c_int, ctypes.c_int,
-                                    _P),
-    "repro_packet_accumulate_bf16": (_P, _P, _P, _P, ctypes.c_int,
-                                     ctypes.c_int, _P),
+    "repro_packet_accumulate_i32": _ACCUM_ARGS,
+    "repro_packet_accumulate_f32": _ACCUM_ARGS,
+    "repro_packet_accumulate_bf16": _ACCUM_ARGS,
+    "repro_packet_accumulate_gather_i32": _GATHER_ARGS,
+    "repro_packet_accumulate_gather_f32": _GATHER_ARGS,
     "repro_flash_attention_bf16": _FLASH_ARGS,
     "repro_flash_attention_f32": _FLASH_ARGS,
 }

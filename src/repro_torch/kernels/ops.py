@@ -38,8 +38,8 @@ def fixed_point_scale(gmax, *, bits: int, world: int) -> torch.Tensor:
     scale is.
     """
     gmax = torch.as_tensor(gmax, dtype=torch.float32)
-    num = torch.tensor(2.0 ** bits - 1.0, dtype=torch.float32,
-                       device=gmax.device)
+    num = torch.full((), 2.0 ** bits - 1.0, dtype=torch.float32,
+                     device=gmax.device)      # filled there: no host copy
     return torch.div(num, gmax * world + 1e-30)
 
 

@@ -52,6 +52,31 @@ def packet_accumulate_ref(slot_ids: torch.Tensor, payloads: torch.Tensor,
     return out.index_add_(0, ids[keep], payloads[keep].to(acc))
 
 
+def packet_accumulate_gather_ref(leaf: torch.Tensor, scratch: torch.Tensor,
+                                 out: torch.Tensor, seg_offsets: torch.Tensor,
+                                 src: torch.Tensor, dst: torch.Tensor) -> None:
+    """One level of a replay plan, in place (the plain version of
+    ``packet_accumulate_gather``): segment ``s`` sums the rows
+    ``src[seg_offsets[s]:seg_offsets[s + 1]]``, each a row of ``leaf``
+    (``>= 0``) or of ``scratch`` (``-1 - r``), in ``src`` order, and writes
+    ``scratch[dst[s]]``, or every ``out[:, b]`` where ``dst[s] = -1 - b``."""
+    dev = leaf.device
+    seg_offsets, src, dst = (t.to(device=dev, dtype=torch.int64)
+                             for t in (seg_offsets, src, dst))
+    rows = torch.empty((src.shape[0], leaf.shape[1]), dtype=leaf.dtype,
+                       device=dev)
+    from_leaf = src >= 0
+    rows[from_leaf] = leaf[src[from_leaf]]
+    rows[~from_leaf] = scratch[-1 - src[~from_leaf]]
+    seg = torch.repeat_interleave(torch.arange(dst.shape[0], device=dev),
+                                  seg_offsets.diff())
+    sums = torch.zeros((dst.shape[0], leaf.shape[1]), dtype=leaf.dtype,
+                       device=dev).index_add_(0, seg, rows)
+    to_scratch = dst >= 0
+    scratch[dst[to_scratch]] = sums[to_scratch]
+    out[:, -1 - dst[~to_scratch]] = sums[~to_scratch]
+
+
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         causal: bool = True, window: int = 0) -> torch.Tensor:
     """GQA attention with materialised float32 logits.

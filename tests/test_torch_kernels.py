@@ -24,13 +24,17 @@ try:  # the card's machine has no JAX: only the ``cuda`` test runs there
 except ImportError:
     jnp = None
 
+from repro_torch.core.trace.executor import run_plan
+from repro_torch.core.trace.plan import lower_schedules
+from repro_torch.core.trace.synthetic import random_schedules
 from repro_torch.kernels import (dequantize, fixed_point_allreduce_wrap,
                                  fixed_point_scale, flash_attention,
                                  launch_counts,
-                                 packet_accumulate, quantize,
-                                 reset_launch_counts)
-from repro_torch.kernels.ref import (dequantize_ref, packet_accumulate_ref,
-                                     quantize_ref)
+                                 packet_accumulate, packet_accumulate_gather,
+                                 quantize, reset_launch_counts)
+from repro_torch.kernels.ref import (dequantize_ref,
+                                     packet_accumulate_gather_ref,
+                                     packet_accumulate_ref, quantize_ref)
 
 ACCUM_CASES = [(10, 8, 4), (128, 128, 16), (1000, 64, 32), (77, 200, 7)]
 
@@ -165,8 +169,14 @@ def test_wrappers_take_plain_versions_on_cpu():
     packet_accumulate(torch.zeros(8, dtype=torch.int32), x, 1)
     qkv = x.reshape(1, 2, 4, 16)
     flash_attention(qkv, qkv, qkv)
+    plan = lower_schedules(random_schedules(8, 1, seed=0))
+    out = torch.empty((8, 1, 16))
+    packet_accumulate_gather(x, torch.empty((plan.scratch_rows, 16)), out,
+                             *plan.on(torch.device("cpu"))[0])
     assert launch_counts() == {"quantize": 0, "dequantize": 0,
-                               "packet_accumulate": 0, "flash_attention": 0}
+                               "packet_accumulate": 0,
+                               "packet_accumulate_gather": 0,
+                               "flash_attention": 0}
 
 
 def test_wrappers_reject_devices_other_than_cpu_and_cuda():
@@ -196,8 +206,10 @@ def test_build_without_nvcc_raises(monkeypatch):
 @pytest.mark.cuda
 def test_kernels_match_plain_versions_on_cuda():
     """Each CUDA kernel against its plain version on the card, at the
-    shapes of a replay round and at ragged ones: int32 exact, f32
-    segment-sums within 1e-5 and the same bits from launch to launch."""
+    shapes of the main path and at ragged ones: int32 exact, f32
+    segment-sums within 1e-5 and the same bits from launch to launch. The
+    standalone segment-sum is one launch a call (int32 and int64 ids); the
+    gathered one runs synthetic plans of fan-in 1 to P level by level."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     dev = torch.device("cuda")
@@ -209,19 +221,40 @@ def test_kernels_match_plain_versions_on_cuda():
             q = quantize(xin.contiguous(), scale)
             assert torch.equal(q, quantize_ref(xin, scale))
         assert torch.equal(dequantize(q, scale), dequantize_ref(q, scale))
-    for n, d, slots in ACCUM_CASES + [(128, 256, 8), (4096, 32, 1024)]:
+    for n, d, slots in ACCUM_CASES + [(128, 256, 8), (4096, 32, 1024),
+                                      (300, 30, 50)]:
         ids = torch.from_numpy(_ids(2, n, slots)).to(dev)
         ids[::7] = slots                               # these hit nothing
+        ids[3::11] = -1
         qi = torch.from_numpy(_ints(9, (n, d))).to(dev)
-        assert torch.equal(packet_accumulate(ids, qi, slots),
-                           packet_accumulate_ref(ids, qi, slots))
+        for id_t in (ids, ids.long()):
+            before = launch_counts()["packet_accumulate"]
+            got = packet_accumulate(id_t, qi, slots)
+            assert launch_counts()["packet_accumulate"] == before + 1
+            assert torch.equal(got, packet_accumulate_ref(id_t, qi, slots))
         pf = torch.from_numpy(_normal(3, (n, d))).to(dev)
-        a, b = packet_accumulate(ids, pf, slots), packet_accumulate(ids, pf,
-                                                                    slots)
+        for pay in (pf, pf.to(torch.bfloat16), pf[:, 1:]):
+            a = packet_accumulate(ids, pay.contiguous(), slots)
+            b = packet_accumulate(ids, pay.contiguous(), slots)
+            assert torch.equal(a, b)
+            torch.testing.assert_close(a, packet_accumulate_ref(ids, pay,
+                                                                slots),
+                                       rtol=1e-5, atol=1e-5)
+    for hosts, blocks, d in [(128, 256, 256), (10, 7, 32), (33, 5, 30)]:
+        plan = lower_schedules(random_schedules(hosts, blocks, seed=hosts))
+        qi = torch.from_numpy(_ints(4, (hosts, blocks, d))).to(dev)
+        got = run_plan(plan, qi)
+        assert torch.equal(got, run_plan(
+            plan, qi, gather=packet_accumulate_gather_ref))
+        assert torch.equal(got, qi.sum(0, dtype=torch.int32).expand_as(qi))
+        pf = torch.from_numpy(_normal(5, (hosts, blocks, d))).to(dev)
+        a, b = run_plan(plan, pf), run_plan(plan, pf)
         assert torch.equal(a, b)
-        torch.testing.assert_close(a, packet_accumulate_ref(ids, pf, slots),
-                                   rtol=1e-5, atol=1e-5)
+        torch.testing.assert_close(
+            a, run_plan(plan, pf, gather=packet_accumulate_gather_ref),
+            rtol=1e-5, atol=1e-5)
     torch.cuda.synchronize()
     counts = launch_counts()
     assert all(counts[k] > 0 for k in ("quantize", "dequantize",
-                                       "packet_accumulate"))
+                                       "packet_accumulate",
+                                       "packet_accumulate_gather"))
