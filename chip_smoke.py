@@ -9,16 +9,18 @@ printed:
 1. device   — the card's name and count, ``nvidia-smi``'s name and power
               limit, the CUDA, nvcc and Triton versions;
 2. build    — builds the kernels from ``src/repro_torch/kernels/csrc``
-              (seconds, and ``-Xptxas -v``: registers and spills);
+              (seconds, and ``-Xptxas -v``: registers and spills; a bf16
+              flash kernel that spills fails);
 3. kernels  — each kernel against its plain PyTorch version on the card, at
               the main path's shapes and at ragged ones (the gathered
               segment-sum on a synthetic plan of fan-in 1 to 128 at the
-              replay's width; flash attention:
-              the llama3.2-1b prefill head layout, also read through the
+              replay's width; flash attention: the llama3.2-1b and
+              qwen2-7b prefill head layouts, each also read through the
               strides of a (B, S, H, D) transpose as the prefill hands it
-              over, the qwen2-7b one, ragged S, non-causal, a sliding
-              window; peaked softmax, each element and each row held to
-              its tolerance), and the same bits twice;
+              over, S = 1, 65 and 1000, non-causal, windows of 512 and
+              300, head_dim 192 in both dtypes; peaked softmax, each
+              element and each row held to its tolerance), and the same
+              bits twice;
 4. main path — records two congested 256-host fat-tree runs (128
               participants allreducing 1 MiB each) with the port's
               simulator, compiles the dynamic trees, lowers each into a
@@ -42,7 +44,8 @@ printed:
               (the gathered segment-sum: the levels of one replay summed;
               the standalone one also at a few shapes off the paths);
               then one replay and one prefill under ``torch.profiler``
-              (device busy share, device time by kernel);
+              (device busy share, device time by kernel; every flash
+              launch of the prefill must be the ``wgmma`` kernel);
 6. summary  — one ``{"kernels": [...]}`` JSON line, the card line, and last
               ``{"ok": true, "device": {...}}``.
 
@@ -93,9 +96,21 @@ FLASH_CASES = [
      torch.bfloat16, True, 0, 2e-2, "bshd"),
     ("qwen2-7b heads", 1, 28, 4, 4096, 128, torch.bfloat16, True, 0, 2e-2,
      "bhsd"),
+    ("qwen2-7b heads, (B, S, H, D) transposed", 1, 28, 4, 4096, 128,
+     torch.bfloat16, True, 0, 2e-2, "bshd"),
     ("ragged S", 2, 4, 2, 1000, 64, torch.float32, True, 0, 2e-5, "bhsd"),
+    ("ragged S, bf16", 2, 4, 2, 1000, 64, torch.bfloat16, True, 0, 2e-2,
+     "bhsd"),
+    ("S = 1", 1, 32, 8, 1, 64, torch.bfloat16, True, 0, 2e-2, "bshd"),
+    ("S = 65", 1, 32, 8, 65, 128, torch.bfloat16, True, 0, 2e-2, "bhsd"),
     ("non-causal", 1, 2, 2, 512, 64, torch.float32, False, 0, 2e-5, "bhsd"),
     ("sliding window", 1, 8, 2, 2048, 64, torch.bfloat16, True, 512, 2e-2,
+     "bhsd"),
+    ("window 300", 1, 8, 2, 2048, 64, torch.bfloat16, True, 300, 2e-2,
+     "bshd"),
+    ("head_dim 192", 1, 4, 2, 512, 192, torch.bfloat16, True, 0, 2e-2,
+     "bhsd"),
+    ("head_dim 192, f32", 1, 4, 2, 512, 192, torch.float32, True, 0, 2e-5,
      "bhsd"),
 ]
 # q and k are drawn at QK_SCALE and v at 1: the logits q.k/sqrt(D) then
@@ -269,8 +284,17 @@ def phase_build():
     print(f"built {b.path.relative_to(ROOT)} in {b.seconds:.2f} s "
           f"(wall {time.perf_counter() - t0:.2f} s)")
     for line in b.log.splitlines():
-        if "ptxas info" in line or "spill" in line or line.startswith("=="):
+        if ("ptxas info" in line or "spill" in line or "warning" in line
+                or line.startswith("==")):
             print("  " + line.strip())
+    wgmma = _build.ptxas_resources(b.log, "flash_attention_wgmma_kernel")
+    for d, (regs, spills) in sorted(wgmma.items()):
+        print(f"flash_attention_wgmma_kernel<{d}>: {regs} registers a thread "
+              f"at launch, {spills} bytes of spill stores and loads")
+    check(sorted(wgmma) == [64, 128, 192],
+          f"the bf16 flash kernel was built for head sizes {sorted(wgmma)}")
+    check(all(sp == 0 for _, sp in wgmma.values()),
+          "a bf16 flash kernel spills registers")
     sys.stdout.flush()
 
 
@@ -635,6 +659,11 @@ def phase_profile_prefill(engine, prompt) -> None:
         lambda: engine.prefill_fn(engine.params, prompt, {})[0].shape)
     busy_us = sum(us for _, us in by_name.values())
     check(busy_us > 0, "the profiler saw no device activity in the prefill")
+    flash = {name: n for name, (n, _) in by_name.items()
+             if "flash_attention" in name}
+    check(sum(flash.values()) == engine.sc.model.num_layers
+          and all("flash_attention_wgmma_kernel" in name for name in flash),
+          f"the prefill's flash launches by kernel name: {flash}")
     flash_us = sum(us for name, (_, us) in by_name.items()
                    if "flash_attention" in name)
     gemm_us = sum(us for name, (_, us) in by_name.items()
@@ -645,7 +674,8 @@ def phase_profile_prefill(engine, prompt) -> None:
           f"wall); flash_attention {flash_us / 1e3:.2f} ms "
           f"({flash_us / busy_us:.1%} of busy), matrix products "
           f"{gemm_us / 1e3:.2f} ms ({gemm_us / busy_us:.1%}), the rest "
-          f"{(busy_us - flash_us - gemm_us) / 1e3:.2f} ms")
+          f"{(busy_us - flash_us - gemm_us) / 1e3:.2f} ms; flash launches by "
+          f"kernel name {flash}")
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:12]
     for name, (n, us) in top:
         print(f"  {n:6d} x {us / n:9.2f} us = {us / 1e3:8.2f} ms  {name[:90]}")

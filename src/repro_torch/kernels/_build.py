@@ -15,6 +15,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -156,6 +157,24 @@ def build() -> Build:
         _build = Build(lib=_load(final / LIB_NAME), path=final / LIB_NAME,
                        seconds=seconds, log=(final / LOG_NAME).read_text())
         return _build
+
+
+def ptxas_resources(log: str, kernel: str) -> dict:
+    """``{template argument: (registers, spill bytes)}`` of each
+    instantiation ``kernel<N>`` that ``-Xptxas -v`` reports in ``log``."""
+    out, arg = {}, None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            m = re.search(rf"{kernel}ILi(\d+)E", line)
+            arg = int(m.group(1)) if m else None
+        elif arg is not None and "spill stores" in line:
+            spills = sum(int(x) for x in re.findall(r"(\d+) bytes spill", line))
+            out[arg] = (None, spills)
+        elif arg is not None and "Used" in line and "registers" in line:
+            regs = int(re.search(r"Used (\d+) registers", line).group(1))
+            out[arg] = (regs, out.get(arg, (None, 0))[1])
+            arg = None
+    return out
 
 
 def library() -> ctypes.CDLL:

@@ -4,13 +4,15 @@
 The compute hot spot of every attention architecture: the port's
 ``chunked_attention`` (a prefill of at least ``attn_chunk_threshold``
 tokens) goes through it. On a CUDA tensor the wrapper launches the kernel of
-``csrc/flash_attention.cu`` (bf16 on the tensor cores, f32 on FP32 FMA); on
-a CPU tensor it runs :func:`.ref.flash_attention_ref`.
+``csrc/flash_attention.cu`` (bf16 on the tensor cores through ``wgmma``,
+fed by TMA; f32 on FP32 FMA); on a CPU tensor it runs
+:func:`.ref.flash_attention_ref`.
 
-The kernel picks its own tiles (64 q rows by 64 keys), takes any sequence
-length and reads q, k, v through their strides, so a ``(B, S, H, D)``
-activation transposed to ``(B, H, S, D)`` is not copied. It has no backward:
-inputs that require a gradient are refused on CUDA.
+The kernel picks its own tiles (bf16: 192 q rows at head_dim 64, else 128,
+by 128 keys, 64 at head_dim 192; f32: 64 by 64), takes any sequence length
+and reads q, k, v through their strides (TMA tensor maps for bf16), so a
+``(B, S, H, D)`` activation transposed to ``(B, H, S, D)`` is not copied.
+It has no backward: inputs that require a gradient are refused on CUDA.
 """
 from __future__ import annotations
 
@@ -24,7 +26,7 @@ from .ref import flash_attention_ref
 
 _FLASH_FN = {torch.bfloat16: "repro_flash_attention_bf16",
              torch.float32: "repro_flash_attention_f32"}
-HEAD_DIMS = (64, 128)          # the head sizes the kernel is built for
+HEAD_DIMS = (64, 128, 192)     # the head sizes the kernel is built for
 
 
 def _check_shapes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
@@ -40,11 +42,14 @@ def _check_shapes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
 
 
 def _kernel_view(t: torch.Tensor) -> torch.Tensor:
-    """``t`` itself where the kernel can read it through its strides (unit
-    head_dim stride, rows on 16 bytes), else a contiguous copy."""
+    """``t`` itself where the kernel can read it through its strides, else a
+    contiguous copy. The strides are those of a TMA tensor map: a unit
+    head_dim stride, the base on 16 bytes, and every other stride of an
+    extent above 1 a positive multiple of 16 bytes (so no broadcast)."""
+    size = t.element_size()
     ok = (t.stride(-1) == 1 and t.data_ptr() % 16 == 0
-          and all(s % 8 == 0 for s, n in zip(t.stride()[:3], t.shape[:3])
-                  if n > 1))
+          and all(s > 0 and s * size % 16 == 0
+                  for s, n in zip(t.stride()[:3], t.shape[:3]) if n > 1))
     return t if ok else t.clone(memory_format=torch.contiguous_format)
 
 

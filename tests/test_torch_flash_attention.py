@@ -174,6 +174,46 @@ def test_flash_attention_on_cpu_launches_nothing():
     assert launch_counts()["flash_attention"] == 0
 
 
+def _views():
+    """(name, tensor, read in place?) for the TMA rules of ``_kernel_view``:
+    a unit head_dim stride, the base on 16 bytes, and every other stride of
+    an extent above 1 a positive multiple of 16 bytes."""
+    bf = torch.zeros((2, 8, 4, 64), dtype=torch.bfloat16)   # (B, S, H, D)
+    wide = torch.zeros((1, 4, 16, 72), dtype=torch.bfloat16)
+    odd = torch.zeros((1, 4, 16, 68), dtype=torch.bfloat16)
+    f32 = torch.zeros((1, 4, 16, 68), dtype=torch.float32)
+    flat = torch.zeros(4 * 16 * 64 + 8, dtype=torch.bfloat16)
+    return [
+        ("contiguous", bf.transpose(1, 2).contiguous(), True),
+        ("(B, S, H, D) transposed", bf.transpose(1, 2), True),
+        ("rows of 144 bytes", wide[..., :64], True),
+        ("float32 rows of 272 bytes", f32[..., :64], True),
+        ("extent-1 batch, odd stride",
+         flat[:4 * 16 * 64].as_strided((1, 4, 16, 64), (3, 1024, 64, 1)),
+         True),
+        ("rows of 136 bytes", odd[..., :64], False),
+        ("base off 16 bytes", flat[1:1 + 4 * 16 * 64].view(1, 4, 16, 64),
+         False),
+        ("base on 16 bytes", flat[8:].view(1, 4, 16, 64), True),
+        ("kv heads broadcast (stride 0)",
+         bf[:, :, :1].expand(2, 8, 4, 64).transpose(1, 2), False),
+        ("head_dim strided", bf.transpose(1, 2).transpose(2, 3), False),
+    ]
+
+
+@pytest.mark.parametrize("name,t,in_place", _views(),
+                         ids=[v[0] for v in _views()])
+def test_kernel_view_follows_tma_rules(name, t, in_place):
+    """Which views the wrapper hands the kernel as they are, and which it
+    copies (contiguous, same values)."""
+    from repro_torch.kernels.flash_attention import _kernel_view
+    got = _kernel_view(t)
+    assert (got is t) == in_place, name
+    assert torch.equal(got, t)
+    if not in_place:
+        assert got.is_contiguous() and got.data_ptr() % 16 == 0
+
+
 # ------------------------------------------------------------------ the card
 CUDA_CASES = [
     # (B, H, KV, S, D, dtype, causal, window)
@@ -186,16 +226,25 @@ CUDA_CASES = [
     (1, 2, 2, 512, 64, "float32", False, 0),
     (1, 4, 1, 700, 128, "float32", True, 100),
     (1, 2, 2, 1, 64, "float32", True, 0),
+    # the bf16 body's edges: shorter than one 128-row tile, a window that is
+    # no multiple of the key tile, head_dim 192 (64-key tiles, three
+    # 64-column boxes a row) in both bodies
+    (1, 4, 2, 1, 64, "bfloat16", True, 0),
+    (1, 4, 2, 65, 128, "bfloat16", True, 0),
+    (1, 8, 2, 1500, 64, "bfloat16", True, 300),
+    (1, 4, 2, 512, 192, "bfloat16", True, 0),
+    (1, 4, 2, 300, 192, "bfloat16", False, 0),
+    (1, 4, 2, 512, 192, "float32", True, 0),
 ]
 
 
 @pytest.mark.cuda
 def test_flash_attention_kernel_matches_plain_on_cuda():
     """The CUDA kernel against its plain version on the card: causal and
-    full, GQA, windows, ragged S, head_dim 64 and 128, both dtypes, flat and
-    peaked softmax, inputs read through the strides of a (B, S, H, D)
-    transpose; each element and each row within tolerance, the output in
-    q's layout, the same bits from launch to launch."""
+    full, GQA, windows, ragged S, head_dim 64, 128 and 192, both dtypes,
+    flat and peaked softmax, inputs read through the strides of a
+    (B, S, H, D) transpose; each element and each row within tolerance, the
+    output in q's layout, the same bits from launch to launch."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     dev = torch.device("cuda")
