@@ -39,6 +39,20 @@ printed:
               plain full attention; then ``Engine.generate`` answers 4
               requests (16-token prompts, 32 new tokens), and a forward over
               prompt + answer must agree with the decode logits;
+4d. train   — llama3.2-1b at full width trained by the port's ``Trainer``
+              (B = 4, S = 2048, remat, AdamW with float32 moments, data
+              from ``batch_at`` with seed 0) in a one-rank NCCL group,
+              ``TRAIN_STEPS`` steps of ``grad_sync="auto"``, then as many
+              of ``"canary_fp"`` from the same initial state: every loss
+              finite, the step-0 losses equal, quantize and dequantize
+              launched once a gradient leaf a ``canary_fp`` step (146 a
+              step); the first step's sync held against the plain versions
+              (bit for bit on the embedding and a ``w_down``, within
+              0.5 / scale plus one rounding on every leaf); step walls,
+              tokens/s, model-FLOP share of the bf16 peak, peak memory; one
+              more step profiled (busy share, the sync's device time by part
+              beside its bytes bound), and the two kernels timed at the
+              embedding gradient's shape;
 5. timing   — CUDA events over warm launches: each kernel beside its bound,
               its plain version and one PyTorch call for the same function
               (the gathered segment-sum: the levels of one replay summed;
@@ -46,7 +60,9 @@ printed:
               then one replay and one prefill under ``torch.profiler``
               (device busy share, device time by kernel; every flash
               launch of the prefill must be the ``wgmma`` kernel);
-6. summary  — one ``{"kernels": [...]}`` JSON line, the card line, and last
+6. summary  — one ``{"kernels": [...]}`` JSON line (quantize and dequantize
+              also give their launches by path and their times at the
+              training shape), the card line, and last
               ``{"ok": true, "device": {...}}``.
 
 It imports nothing of the JAX package. Where ``torch.cuda.is_available()``
@@ -59,6 +75,7 @@ import copy
 import json
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -127,6 +144,12 @@ DECODE_BATCH, PROMPT_LEN, NEW_TOKENS, MAX_LEN = 4, 16, 32, 256
 # bf16 logits of two routes through 16 random layers: the bounds are about
 # twice the differences of the first card run (0.119, 94.9 %; PERF.md)
 MAX_DLOGIT, MIN_ARGMAX_AGREE = 0.25, 0.90
+# training: Llama 3.2's published context is 8192; S is cut to 2048, below
+# attn_chunk_threshold, because the flash kernel has no backward yet
+TRAIN_B, TRAIN_S, TRAIN_STEPS, TRAIN_LR = 4, 2048, 4, 1e-4
+TRAIN_MODES = ("auto", "canary_fp")
+CHECKED_LEAVES = ("embed.tok", "layers.0.mlp.w_down")
+UNIT_ROUNDOFF = {torch.bfloat16: 2.0 ** -8, torch.float32: 2.0 ** -24}
 
 
 def fail(msg: str) -> None:
@@ -273,7 +296,7 @@ def phase_device():
     print(f"torch {torch.__version__}, torch.version.cuda {torch.version.cuda},"
           f" triton {triton_ver}")
     print(f"nvcc ({nvcc}): {nvcc_ver.splitlines()[-1]}", flush=True)
-    return name, count, smi
+    return smi
 
 
 def phase_build():
@@ -866,12 +889,292 @@ def time_flash(rows: dict) -> None:
         del q, k, v
 
 
+def train_flops(cfg, tokens: int) -> float:
+    """Model FLOPs of one training step (PaLM, Chowdhery et al. 2022, app.
+    B): 6 N per token for the parameters' products, forward and backward,
+    plus 12 L H hd S per token for attention's; remat's recomputation is
+    not counted."""
+    n = cfg.param_count()
+    attn = 12 * cfg.num_layers * cfg.num_heads * cfg.resolved_head_dim \
+        * TRAIN_S
+    return float(tokens * (6 * n + attn))
+
+
+def sync_bytes(grads: dict) -> dict:
+    """Bytes each part of the fixed-point sync must move in one step, every
+    input read once and every output written once: the max |g| (g read),
+    quantize (g read, int32 written), dequantize (int32 read, float32
+    written) and the cast back (float32 read, g's dtype written)."""
+    out = dict.fromkeys(("max", "quantize", "dequantize", "cast"), 0)
+    for g in grads.values():
+        n, e = g.numel(), g.element_size()
+        out["max"] += n * e
+        out["quantize"] += n * (e + 4)
+        out["dequantize"] += n * 8
+        out["cast"] += n * (4 + e)
+    return out
+
+
+def phase_train(rows: dict, seed: int) -> None:
+    """llama3.2-1b at full width trained on the card through the port's
+    trainer, ``TRAIN_STEPS`` steps of ``grad_sync="auto"`` and of
+    ``"canary_fp"`` from the same initial state, in a one-rank NCCL group:
+    every ``canary_fp`` step quantizes and dequantizes every gradient leaf
+    once through the kernels; the first one is held against the plain
+    versions."""
+    print("== phase 4d: training (llama3.2-1b, full width, one-rank NCCL "
+          "group)", flush=True)
+    import torch.distributed as dist
+
+    from repro_torch.models import get_config
+    from repro_torch.train import make_mesh
+
+    cfg = get_config(MODEL_ARCH, "full")
+    check(cfg.remat and cfg.dtype == "bfloat16"
+          and TRAIN_S < cfg.attn_chunk_threshold,
+          f"training config: remat {cfg.remat}, {cfg.dtype}, S {TRAIN_S}")
+    tokens = TRAIN_B * TRAIN_S
+    flops = train_flops(cfg, tokens)
+    losses = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        t_init, _ = sync_wall(lambda: dist.init_process_group(
+            "nccl", init_method=f"file://{tmp}/rendezvous", world_size=1,
+            rank=0))
+        try:
+            mesh = make_mesh()
+            check(dist.get_backend(mesh.inner) == "nccl" and mesh.size == 1,
+                  "the mesh is not a one-rank NCCL group")
+            print(f"one-rank NCCL group up in {t_init:.2f} s; {cfg.name}: "
+                  f"B {TRAIN_B}, S {TRAIN_S} ({tokens} tokens a step), remat "
+                  f"on, AdamW float32 moments, lr {TRAIN_LR}; model FLOPs a "
+                  f"step {flops / 1e12:.2f} T", flush=True)
+            for mode in TRAIN_MODES:
+                losses[mode] = train_mode(cfg, mode, mesh, seed, rows, flops)
+        finally:
+            dist.destroy_process_group()
+    a, c = losses["auto"], losses["canary_fp"]
+    check(abs(a[0] - c[0]) <= 1e-6 * abs(a[0]),
+          f"step 0 losses differ between the modes: {a[0]} {c[0]}")
+    print("losses by step, auto: " + ", ".join(f"{x:.6f}" for x in a)
+          + "; canary_fp: " + ", ".join(f"{x:.6f}" for x in c)
+          + " (step 0: the same weights and batch, before any sync)",
+          flush=True)
+
+
+def train_mode(cfg, mode: str, mesh, seed: int, rows: dict,
+               flops: float) -> list:
+    """One mode's run of ``Trainer.run``; returns its losses. For
+    ``canary_fp`` the first step's sync is checked, the launches of every
+    step counted, one more step profiled and the kernels timed at the
+    largest leaf."""
+    from repro_torch.data import DataConfig
+    from repro_torch.kernels import (WRAPPERS, fixed_point_scale,
+                                     launch_counts, reset_launch_counts)
+    from repro_torch.kernels.ref import dequantize_ref, quantize_ref
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import (TrainConfig, Trainer, TrainerConfig,
+                                   make_train_step)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    tc = TrainConfig(model=cfg, optimizer=AdamWConfig(lr=TRAIN_LR),
+                     grad_sync=mode)
+    data = DataConfig(vocab_size=cfg.vocab_size, global_batch=TRAIN_B,
+                      seq_len=TRAIN_S, seed=0)
+    t_init, trainer = sync_wall(lambda: Trainer(TrainerConfig(
+        train=tc, data=data, steps=TRAIN_STEPS, log_every=0), mesh=mesh,
+        seed=seed, device=DEV))
+    leaves = dict(trainer.params.named_parameters())
+    n_params = sum(p.numel() for p in leaves.values())
+    check(len(leaves) == 9 * cfg.num_layers + 2,
+          f"{len(leaves)} parameter leaves")
+    seen = {}
+
+    def verify(raw, synced):
+        """The sync against its own input: bit for bit on two leaves, within
+        0.5 / scale plus one rounding of the gradient on every leaf."""
+        check(list(raw) == list(leaves) == list(synced), "sync leaves")
+        worst = 0.0
+        for name, g in raw.items():
+            s = fixed_point_scale(g.abs().max().float(), bits=BITS, world=1)
+            y = synced[name]
+            check(y.dtype == g.dtype and y.shape == g.shape
+                  and bool(torch.isfinite(y).all()), f"synced {name}")
+            if name in CHECKED_LEAVES:
+                want = dequantize_ref(quantize_ref(g, s), s).to(g.dtype)
+                check(torch.equal(y, want), f"synced {name} is not the "
+                      f"plain quantize -> dequantize of its gradient")
+            # 0.5 / s from the rounding to an integer, one rounding to g's
+            # dtype, and 2**-22 for the float32 product and quotient
+            gabs = g.float().abs()
+            err = (y.float() - g.float()).abs()
+            bound = 0.5 / s * (1 + 2.0 ** -22) \
+                + (UNIT_ROUNDOFF[g.dtype] + 2.0 ** -22) * gabs
+            check(bool((err <= bound).all()), f"synced {name}: |synced - g| "
+                  f"above 0.5 / scale + one rounding of g")
+            worst = max(worst, float((err * s).max()))
+        seen.update(raw=raw, tok=raw["embed.tok"], worst=worst)
+
+    if mode == "canary_fp":     # the run's first step is checked
+        plain = trainer.step_fn
+        checked = make_train_step(trainer.tc, mesh=mesh, on_sync=verify)
+
+        def first_step(*args):
+            trainer.step_fn = plain
+            out = checked(*args)
+            counted = launch_counts()    # the measurement's launches are
+            profile_sync(seen.pop("raw"), trainer.tc, mesh)  # not the path's
+            for fn in WRAPPERS:
+                fn.launches = counted[fn.__name__]
+            return out
+        trainer.step_fn = first_step
+    reset_launch_counts()
+    hist = trainer.run()
+    counts = launch_counts()
+    losses = [h["loss"] for h in hist]
+    check(all(np.isfinite(losses)), f"{mode}: a loss is not finite: {losses}")
+    fp = TRAIN_STEPS * len(leaves) if mode == "canary_fp" else 0
+    check(counts == {"quantize": fp, "dequantize": fp,
+                     "packet_accumulate": 0, "packet_accumulate_gather": 0,
+                     "flash_attention": 0},
+          f"{mode}: launches over {TRAIN_STEPS} steps {counts}, want "
+          f"quantize and dequantize x {fp}")
+    walls = [h["step_time_s"] for h in hist]
+    warm = sorted(walls[1:])[len(walls[1:]) // 2]
+    peak = torch.cuda.max_memory_allocated()
+    print(f"{mode}: {n_params / 1e9:.3f} B parameters in {len(leaves)} "
+          f"leaves, init {t_init:.2f} s; step walls "
+          + ", ".join(f"{w * 1e3:.1f}" for w in walls)
+          + f" ms (the first cold); warm median {warm * 1e3:.1f} ms = "
+          f"{TRAIN_B * TRAIN_S / warm:.0f} tokens/s, model FLOPs "
+          f"{flops / warm / BF16_FLOPS:.1%} of the bf16 dense peak "
+          f"({BF16_FLOPS / 1e12:.0f} TFLOP/s, NVIDIA H100 SXM data sheet); "
+          f"peak device memory {peak / 2**30:.2f} GiB; launches over the "
+          f"{TRAIN_STEPS} steps {counts}", flush=True)
+    if mode == "canary_fp":
+        for name in ("quantize", "dequantize"):
+            rows[name]["train_launches"] = counts[name]
+        print(f"canary_fp sync checked on step 0: {', '.join(CHECKED_LEAVES)}"
+              f" bit for bit against dequantize_ref(quantize_ref(g, s), s); "
+              f"every leaf within 0.5/s + one rounding of g (worst "
+              f"|synced - g| * s {seen['worst']:.4g})", flush=True)
+        profile_train_step(trainer, leaves)
+        time_train_shape(seen["tok"], rows)
+    return losses
+
+
+def profile_sync(grads: dict, tc, mesh) -> None:
+    """The sync alone, inside the first step, on its 146 raw gradients: its
+    host wall (median of 3) and, under ``torch.profiler``, its device busy
+    time (within a step the host issues it while the card still runs the
+    backward pass)."""
+    from repro_torch.core.collective import canary_allreduce_tree
+
+    def sync():
+        return canary_allreduce_tree(
+            grads, group=mesh.inner, axis_size=mesh.inner_size,
+            roots=tc.canary_roots, num_blocks=tc.canary_blocks,
+            fixed_point=True)
+    walls = sorted(sync_wall(sync)[0] for _ in range(3))
+    wall, by_name = device_time_by_kernel(sync)
+    busy_us = sum(us for _, us in by_name.values())
+    launches = sum(n for n, _ in by_name.values())
+    print(f"the sync alone on step 0's {len(grads)} gradients: wall "
+          f"{walls[1] * 1e3:.2f} ms (median of 3); profiled, wall "
+          f"{wall * 1e3:.2f} ms, {launches} device launches, busy "
+          f"{busy_us / 1e3:.2f} ms ({busy_us / (wall * 1e6):.1%} of the "
+          f"wall)", flush=True)
+
+
+def profile_train_step(trainer, leaves: dict) -> None:
+    """One more canary_fp step under ``torch.profiler``: the device busy
+    share and the sync's device time by part beside its bytes bound."""
+    batch = trainer.make_batch(TRAIN_STEPS)
+    state = {}
+
+    def step():
+        state["out"] = trainer.step_fn(trainer.params, trainer.opt_state,
+                                       batch)
+    wall, by_name = device_time_by_kernel(step)
+    trainer.params, trainer.opt_state, _ = state["out"]
+    busy_us = sum(us for _, us in by_name.values())
+    check(busy_us > 0, "the profiler saw no device activity in the step")
+    parts = {
+        "quantize": lambda n: ("quantize_bf16_kernel" in n
+                               or "quantize_f32_kernel" in n),
+        "dequantize": lambda n: "dequantize_kernel" in n,
+        "max |g|": lambda n: "MinMax" in n,
+        "all-reduce of the max (NCCL)": lambda n: "nccl" in n.lower(),
+    }
+    nbytes = sync_bytes(leaves)
+    bound = {"quantize": nbytes["quantize"], "dequantize": nbytes["dequantize"],
+             "max |g|": nbytes["max"], "all-reduce of the max (NCCL)": 0}
+    print(f"profiled canary_fp step: wall {wall * 1e3:.1f} ms, device busy "
+          f"{busy_us / 1e3:.2f} ms ({busy_us / (wall * 1e6):.1%} of the "
+          f"wall)")
+    launches = {}
+    for part, match in parts.items():
+        hits = [v for name, v in by_name.items() if match(name)]
+        launches[part] = sum(n for n, _ in hits)
+        us = sum(t for _, t in hits)
+        print(f"  sync {part}: {launches[part]} launches, {us / 1e3:.3f} ms "
+              f"of device time; bytes bound {bound_ms(bound[part]):.3f} ms "
+              f"({bound[part] / 1e9:.2f} GB)")
+    print(f"  sync cast back to the gradients' dtype: not told apart from "
+          f"other copies; bytes bound {bound_ms(nbytes['cast']):.3f} ms "
+          f"({nbytes['cast'] / 1e9:.2f} GB); the whole sync's bound "
+          f"{bound_ms(sum(nbytes.values())):.3f} ms "
+          f"({sum(nbytes.values()) / 1e9:.2f} GB)")
+    check(launches["quantize"] == launches["dequantize"] == len(leaves),
+          f"the profiled step's quantize and dequantize launches by kernel "
+          f"name: {launches}")
+    gemm_us = sum(us for name, (_, us) in by_name.items()
+                  if "gemm" in name.lower() or "sm90_xmma" in name
+                  or "cutlass" in name.lower() or "nvjet" in name)
+    soft_us = sum(us for name, (_, us) in by_name.items()
+                  if "softmax" in name.lower())
+    rest_ms = (busy_us - gemm_us - soft_us) / 1e3
+    print(f"  matrix products {gemm_us / 1e3:.2f} ms ({gemm_us / busy_us:.1%}"
+          f" of busy), softmax forward and backward {soft_us / 1e3:.2f} ms "
+          f"({soft_us / busy_us:.1%}), the rest {rest_ms:.2f} ms; by kernel:")
+    for name, (n, us) in sorted(by_name.items(),
+                                key=lambda kv: -kv[1][1])[:10]:
+        print(f"  {n:6d} x {us / n:9.2f} us = {us / 1e3:8.2f} ms  {name[:90]}")
+    sys.stdout.flush()
+
+
+def time_train_shape(g: torch.Tensor, rows: dict) -> None:
+    """quantize and dequantize at the training path's largest leaf, the
+    tied embedding's bf16 gradient, beside their bound and plain versions."""
+    from repro_torch.kernels import dequantize, fixed_point_scale, quantize
+    from repro_torch.kernels.ref import dequantize_ref, quantize_ref
+    n = g.numel()
+    scale = fixed_point_scale(g.abs().max().float(), bits=BITS, world=1)
+    q = quantize(g, scale)
+    kq, pq = in_turns(lambda: quantize_ref(g, scale),
+                      lambda: quantize(g, scale), 10)
+    kd, pd = in_turns(lambda: dequantize_ref(q, scale),
+                      lambda: dequantize(q, scale), 10)
+    lib = event_ms(lambda: torch.div(q, scale), 10)
+    for name, dtype, ms, plain, nb, library in (
+            ("quantize", str(g.dtype).removeprefix("torch."), kq, pq,
+             (g.element_size() + 4) * n, None),
+            ("dequantize", "int32", kd, pd, 8 * n, lib)):
+        rows[name]["train"] = dict(
+            shape=list(g.shape), dtype=dtype,
+            launches=rows[name]["train_launches"], ms=ms, plain_ms=plain,
+            bound_ms=bound_ms(nb), bound_by="bytes", library_ms=library)
+        print(f"{name} at the embedding gradient {tuple(g.shape)} {dtype}"
+              f" ({n / 1e6:.1f} M elements): {ms:.4f} ms, bound "
+              f"{bound_ms(nb):.4f} ms ({bound_ms(nb) / ms:.1%} of it), plain "
+              f"{plain:.4f} ms, library {library}", flush=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
 
-    name, count, smi = phase_device()
+    smi = phase_device()
     # float32 references in full float32: no TF32 in matmuls or cuDNN
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -898,23 +1201,35 @@ def main() -> int:
     plan = phase_main_path(x, rows)
     phase_switch(rows)
     engine, prompt = phase_model(rows, args.seed)
+    phase_train(rows, args.seed)
     phase_timing(x, plan, rows)
     phase_profile(x, plan)
     phase_profile_prefill(engine, prompt)
 
     for r in rows.values():
         check(r["launches"] > 0, "a kernel of the main path never launched")
-    kernels = [dict(name=k, route="cuda", source=r["source"],
-                    replaces=r["replaces"], launches=r["launches"],
-                    max_abs_err=r["max_abs_err"], ms=r["ms"],
-                    plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
-                    bound_by=r["bound_by"], library_ms=r["library_ms"])
-               for k, r in rows.items()]
+    for k in ("quantize", "dequantize"):
+        check(rows[k]["train"]["launches"] > 0,
+              f"{k} never launched on the training path")
+    kernels = []
+    for k, r in rows.items():
+        row = dict(name=k, route="cuda", source=r["source"],
+                   replaces=r["replaces"], launches=r["launches"],
+                   max_abs_err=r["max_abs_err"], ms=r["ms"],
+                   plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+                   bound_by=r["bound_by"], library_ms=r["library_ms"])
+        if "train" in r:   # the training path's launches and largest leaf
+            row["paths"] = {"replay": r["launches"],
+                            "train_canary_fp": r["train"]["launches"]}
+            row["launches"] += r["train"]["launches"]
+            row["train"] = r["train"]
+        kernels.append(row)
     print("== phase 6: summary")
     print(json.dumps({"kernels": kernels}))
     print(smi)
-    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
-                                             "count": count}}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
     return 0
 
 

@@ -1,10 +1,11 @@
 """Carry state across from the reference package.
 
-Two kinds of state cross: the recorded schedule, whose public fields are
+Three kinds of state cross: the recorded schedule, whose public fields are
 read by attribute to build the port's
 :class:`~repro_torch.core.trace.schedule.Schedule` (so both executors
-replay the identical tree), and a model's weights, handed over as the
-reference's parameter pytree of numpy arrays. This module imports nothing
+replay the identical tree), a model's weights, handed over as the
+reference's parameter pytree of numpy arrays, and an AdamW state, its
+moments shaped like those weights. This module imports nothing
 of the reference and nothing of JAX.
 """
 from __future__ import annotations
@@ -19,6 +20,7 @@ from .core.trace.schedule import CopyStep, ReduceStep, Schedule
 from .kernels.ops import resolve_device
 from .models.config import ModelConfig
 from .models.transformer import Transformer, layer_period
+from .optim.adamw import AdamWState
 
 
 def schedule_from_reference(obj) -> Schedule:
@@ -64,38 +66,63 @@ def _flatten(tree: Mapping, prefix: str = "") -> dict:
     return out
 
 
-def params_from_reference(np_params: Mapping, cfg: ModelConfig,
-                          device=None) -> Transformer:
-    """The port's :class:`Transformer` holding the reference's weights.
-
-    ``np_params`` is the reference's ``init_params`` pytree after
-    ``jax.tree.map(np.asarray, params)``: ``embed``, ``final_norm`` and
-    ``layers``, a list (one entry per layer period) of leaves stacked with
-    a leading ``num_layers // period`` axis. Each leaf keeps its dtype and
-    bits. Every parameter of the module must be given, and nothing else.
-    ``device=None`` means CUDA.
-    """
-    dev = resolve_device(device)
-    model = Transformer(cfg, device="meta")
+def _reference_leaves(np_tree: Mapping, cfg: ModelConfig) -> dict:
+    """``{port parameter name: array}`` of a pytree shaped like the
+    reference's parameters (``embed``, ``final_norm`` and ``layers``, a list
+    with one entry per layer period of leaves stacked with a leading
+    ``num_layers // period`` axis); it must hold every parameter of the
+    port's :class:`Transformer` and nothing else."""
     per = layer_period(cfg)
-    leaves = {f"embed.{k}": v for k, v in _flatten(np_params["embed"]).items()}
+    leaves = {f"embed.{k}": v for k, v in _flatten(np_tree["embed"]).items()}
     leaves.update({f"final_norm.{k}": v
-                   for k, v in _flatten(np_params["final_norm"]).items()})
-    for j, stacked in enumerate(np_params["layers"]):
+                   for k, v in _flatten(np_tree["final_norm"]).items()})
+    for j, stacked in enumerate(np_tree["layers"]):
         for name, a in _flatten(stacked).items():
             for i in range(a.shape[0]):
                 leaves[f"layers.{i * per + j}.{name}"] = a[i]
-    expected = dict(model.named_parameters())
+    expected = dict(Transformer(cfg, device="meta").named_parameters())
     if set(leaves) != set(expected):
         raise KeyError(f"reference leaves and {cfg.name}'s parameters differ:"
                        f" missing {sorted(set(expected) - set(leaves))}, "
                        f"unexpected {sorted(set(leaves) - set(expected))}")
     for name, a in leaves.items():
-        t = tensor_from_numpy(a)
-        if tuple(t.shape) != tuple(expected[name].shape):
-            raise ValueError(f"{name}: reference shape {tuple(t.shape)}, "
+        if tuple(a.shape) != tuple(expected[name].shape):
+            raise ValueError(f"{name}: reference shape {tuple(a.shape)}, "
                              f"port {tuple(expected[name].shape)}")
+    return leaves
+
+
+def params_from_reference(np_params: Mapping, cfg: ModelConfig,
+                          device=None) -> Transformer:
+    """The port's :class:`Transformer` holding the reference's weights.
+
+    ``np_params`` is the reference's ``init_params`` pytree after
+    ``jax.tree.map(np.asarray, params)``. Each leaf keeps its dtype and
+    bits. ``device=None`` means CUDA.
+    """
+    dev = resolve_device(device)
+    model = Transformer(cfg, device="meta")
+    for name, a in _reference_leaves(np_params, cfg).items():
         *path, leaf = name.split(".")
         owner = model.get_submodule(".".join(path))
-        setattr(owner, leaf, nn.Parameter(t.to(dev), requires_grad=False))
+        setattr(owner, leaf, nn.Parameter(tensor_from_numpy(a).to(dev),
+                                          requires_grad=False))
     return model
+
+
+def opt_state_from_reference(np_state, cfg: ModelConfig,
+                             device=None) -> AdamWState:
+    """The port's :class:`~repro_torch.optim.AdamWState` holding the
+    reference's (``jax.tree.map(np.asarray, state)`` of its ``AdamWState``:
+    ``step`` and the moments ``m`` and ``v``, shaped like the parameters).
+    The moments are keyed by the port's parameter names and keep their
+    dtype and bits. ``device=None`` means CUDA."""
+    dev = resolve_device(device)
+
+    def moments(tree):
+        return {k: tensor_from_numpy(a).to(dev)
+                for k, a in _reference_leaves(tree, cfg).items()}
+
+    step = torch.tensor(int(np_state.step), dtype=torch.int32, device=dev)
+    return AdamWState(step=step, m=moments(np_state.m),
+                      v=moments(np_state.v))

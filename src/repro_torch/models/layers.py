@@ -16,8 +16,12 @@ hand-written flash-attention kernel (:mod:`repro_torch.kernels`), which is
 the same online-softmax recurrence with a float32 accumulator where the
 reference's jnp scan keeps it in the activations' dtype.
 
-Parameters never require a gradient in this slice: nothing here has a
-backward, and the flash kernel refuses inputs that want one.
+Parameters are created with ``requires_grad=False``: serving needs no
+gradient, and the train step turns gradients on for what it trains. The
+gradient flows through ``full_attention`` (plain products and softmax,
+as the reference differentiates its jnp attention); the flash kernel has no
+backward and refuses inputs that want one, so training runs below
+``attn_chunk_threshold``.
 """
 from __future__ import annotations
 

@@ -12,8 +12,10 @@ The reference's pytree becomes ``nn.Module``s whose parameter names are its
 keys (:class:`Transformer` holds ``embed``, ``layers`` and ``final_norm``; a
 :class:`DecoderLayer` holds ``norm1``, ``attn``, ``norm2``, ``mlp``). Its
 ``lax.scan`` over stacked layer periods becomes a Python loop over
-``layers`` (layer ``i`` is period ``i // per``, sub-layer ``i % per``), and
-``remat`` has nothing to do without gradients.
+``layers`` (layer ``i`` is period ``i // per``, sub-layer ``i % per``).
+With ``cfg.remat`` and gradients enabled, each period runs under
+``torch.utils.checkpoint`` (the reference's ``jax.checkpoint(period_body)``):
+its activations are recomputed in the backward pass instead of stored.
 
 The functions keep the reference's names and signatures, with ``params`` a
 :class:`Transformer`. Entry points that create tensors (``init_params``,
@@ -27,6 +29,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..kernels.ops import resolve_device
 from .config import ModelConfig
@@ -132,6 +135,13 @@ def _decoder_sublayer(p: DecoderLayer, x, positions,
     return x
 
 
+def _period_body(period: nn.ModuleList, x, positions,
+                 cfg: ModelConfig) -> torch.Tensor:
+    for layer in period:
+        x = _decoder_sublayer(layer, x, positions, cfg)
+    return x
+
+
 def forward(params: Transformer, tokens: torch.Tensor, cfg: ModelConfig, *,
             positions=None, extra_embeds: Optional[torch.Tensor] = None,
             frames: Optional[torch.Tensor] = None
@@ -158,8 +168,15 @@ def forward(params: Transformer, tokens: torch.Tensor, cfg: ModelConfig, *,
     # The reference pins activations to batch-over-data sharding at each
     # layer period (``_activation_constraint``); one card has no sharding.
     # Sharded execution is ROADMAP.md queue 1, item 12 (parallel).
-    for layer in params.layers:
-        x = _decoder_sublayer(layer, x, positions, cfg)
+    per = layer_period(cfg)
+    remat = cfg.remat and torch.is_grad_enabled()
+    for i in range(0, cfg.num_layers, per):
+        period = params.layers[i:i + per]
+        if remat:
+            x = checkpoint(_period_body, period, x, positions, cfg,
+                           use_reentrant=False)
+        else:
+            x = _period_body(period, x, positions, cfg)
     x = rmsnorm(params.final_norm, x, cfg.norm_eps)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return unembed(params.embed, x), aux
