@@ -10,7 +10,7 @@ printed:
               limit, the CUDA, nvcc and Triton versions;
 2. build    — builds the kernels from ``src/repro_torch/kernels/csrc``
               (seconds, and ``-Xptxas -v``: registers and spills; a bf16
-              flash kernel that spills fails);
+              flash kernel, forward or backward, that spills fails);
 3. kernels  — each kernel against its plain PyTorch version on the card, at
               the main path's shapes and at ragged ones (the gathered
               segment-sum on a synthetic plan of fan-in 1 to 128 at the
@@ -20,7 +20,12 @@ printed:
               over, S = 1, 65 and 1000, non-causal, windows of 512 and
               300, head_dim 192 in both dtypes; peaked softmax, each
               element and each row held to its tolerance), and the same
-              bits twice;
+              bits twice; the flash backward (three kernels) on the same
+              cases against its plain version (each row of dq, dk and dv
+              held to its tolerance) and at the training shape (1, 8192,
+              32 / 8, 64) against autograd of float32 full attention (at
+              most twice the plain backward's distance plus 1e-2), and the
+              forward's log-sum-exp against the plain one;
 4. main path — records two congested 256-host fat-tree runs (128
               participants allreducing 1 MiB each) with the port's
               simulator, compiles the dynamic trees, lowers each into a
@@ -40,23 +45,33 @@ printed:
               requests (16-token prompts, 32 new tokens), and a forward over
               prompt + answer must agree with the decode logits;
 4d. train   — llama3.2-1b at full width trained by the port's ``Trainer``
-              (B = 4, S = 2048, remat, AdamW with float32 moments, data
-              from ``batch_at`` with seed 0) in a one-rank NCCL group,
-              ``TRAIN_STEPS`` steps of ``grad_sync="auto"``, then as many
-              of ``"canary_fp"`` from the same initial state: every loss
-              finite, the step-0 losses equal, quantize and dequantize
-              launched once a gradient leaf a ``canary_fp`` step (146 a
-              step); the first step's sync held against the plain versions
-              (bit for bit on the embedding and a ``w_down``, within
-              0.5 / scale plus one rounding on every leaf); step walls,
-              tokens/s, model-FLOP share of the bf16 peak, peak memory; one
-              more step profiled (busy share, the sync's device time by part
-              beside its bytes bound), and the two kernels timed at the
-              embedding gradient's shape;
+              at its published context (B = 1, S = 8192, the chunked
+              attention route: the flash forward twice a layer under remat
+              and the flash backward once; remat, AdamW with float32
+              moments, data from ``batch_at`` with seed 0) in a one-rank
+              NCCL group, ``TRAIN_STEPS`` steps of ``grad_sync="auto"``,
+              then as many of ``"canary_fp"`` from the same initial state:
+              every loss finite, the step-0 losses equal, the flash launches
+              counted, quantize and dequantize launched once a gradient
+              tensor a ``canary_fp`` step (146 a step) and one
+              ``all_reduce(MAX)`` a step for the scales of the reference's
+              11 stacked leaves; the first step's sync held against the
+              plain versions with each leaf's scale (bit for bit on the
+              embedding and a ``w_down``, within 0.5 / scale plus one
+              rounding on every tensor); step walls, tokens/s, model-FLOP
+              share of the bf16 peak, peak memory; one more step profiled
+              (busy share, flash forward and backward device time, the
+              sync's device time by part beside its bytes bound), and the
+              two kernels timed at the embedding gradient's shape; then
+              ``SHORT_STEPS`` ``auto`` steps at B = 4, S = 2048, the plain
+              ``full_attention`` route below ``attn_chunk_threshold``;
 5. timing   — CUDA events over warm launches: each kernel beside its bound,
               its plain version and one PyTorch call for the same function
               (the gathered segment-sum: the levels of one replay summed;
-              the standalone one also at a few shapes off the paths);
+              the standalone one also at a few shapes off the paths; the
+              flash backward at the training shape beside the backward of
+              ``scaled_dot_product_attention``, and the forward with and
+              without its log-sum-exp store);
               then one replay and one prefill under ``torch.profiler``
               (device busy share, device time by kernel; every flash
               launch of the prefill must be the ``wgmma`` kernel);
@@ -73,6 +88,7 @@ from __future__ import annotations
 import argparse
 import copy
 import json
+import re
 import subprocess
 import sys
 import tempfile
@@ -138,15 +154,21 @@ FLASH_CASES = [
 # late tiles moves whole rows.
 QK_SCALE = 2.0
 ROW_REL_TOL = {torch.bfloat16: 1e-2, torch.float32: 1e-4}
+# the forward's log-sum-exp: s is float32 from the inputs' values in both
+LSE_TOL = {torch.bfloat16: 1e-3, torch.float32: 1e-4}
+GRAD_ROW_FLOOR = 1e-2
 MODEL_ARCH = "llama3.2-1b"
 PREFILL_LEN = 4096               # = attn_chunk_threshold: the chunked route
 DECODE_BATCH, PROMPT_LEN, NEW_TOKENS, MAX_LEN = 4, 16, 32, 256
 # bf16 logits of two routes through 16 random layers: the bounds are about
 # twice the differences of the first card run (0.119, 94.9 %; PERF.md)
 MAX_DLOGIT, MIN_ARGMAX_AGREE = 0.25, 0.90
-# training: Llama 3.2's published context is 8192; S is cut to 2048, below
-# attn_chunk_threshold, because the flash kernel has no backward yet
-TRAIN_B, TRAIN_S, TRAIN_STEPS, TRAIN_LR = 4, 2048, 4, 1e-4
+# training at Llama 3.2's published context, 8192 tokens (the chunked
+# route); B = 1 keeps the float32 cross-entropy over the 128,256-token
+# vocabulary inside 80 GB. The plain full_attention route below
+# attn_chunk_threshold runs a few steps at B = 4, S = 2048.
+TRAIN_B, TRAIN_S, TRAIN_STEPS, TRAIN_LR = 1, 8192, 4, 1e-4
+SHORT_B, SHORT_S, SHORT_STEPS = 4, 2048, 2
 TRAIN_MODES = ("auto", "canary_fp")
 CHECKED_LEAVES = ("embed.tok", "layers.0.mlp.w_down")
 UNIT_ROUNDOFF = {torch.bfloat16: 2.0 ** -8, torch.float32: 2.0 ** -24}
@@ -318,6 +340,15 @@ def phase_build():
           f"the bf16 flash kernel was built for head sizes {sorted(wgmma)}")
     check(all(sp == 0 for _, sp in wgmma.values()),
           "a bf16 flash kernel spills registers")
+    for kernel in ("flash_bwd_dkdv_mma_kernel", "flash_bwd_dq_mma_kernel"):
+        res = _build.ptxas_resources(b.log, kernel)
+        for d, (regs, spills) in sorted(res.items()):
+            print(f"{kernel}<{d}>: {regs} registers a thread, {spills} bytes "
+                  f"of spill stores and loads")
+        check(sorted(res) == [64, 128, 192],
+              f"{kernel} was built for head sizes {sorted(res)}")
+        check(all(sp == 0 for _, sp in res.values()),
+              f"{kernel} spills registers")
     sys.stdout.flush()
 
 
@@ -382,6 +413,7 @@ def phase_kernels(x: torch.Tensor, rows: dict) -> None:
     rows["packet_accumulate"]["max_abs_err"] = err_a
     rows["packet_accumulate_gather"]["max_abs_err"] = phase_gather_kernel()
     rows["flash_attention"]["max_abs_err"] = phase_flash_kernel()
+    rows["flash_attention_bwd"]["max_abs_err"] = phase_flash_bwd_kernel()
 
 
 def phase_gather_kernel() -> float:
@@ -457,6 +489,114 @@ def phase_flash_kernel() -> float:
     return worst
 
 
+def grad_row_rel(got, want) -> list:
+    """``max_row_rel`` of each of dq, dk and dv, a row's norm floored at
+    ``GRAD_ROW_FLOOR`` of the largest row norm of the three: a row whose
+    sum cancels below that (a causal q row 0 attends one key with p = 1,
+    so its dq is exactly 0 in the plain version) is rounding noise of terms
+    of the gradient's scale on both sides, and is held to the floor."""
+    norms = [w.double().norm(dim=-1) for w in want]
+    floor = GRAD_ROW_FLOOR * max(float(n.max()) for n in norms if n.numel())
+    return [float(((g.double() - w.double()).norm(dim=-1)
+                   / n.clamp_min(max(floor, 1e-30))).max()) if w.numel()
+            else 0.0 for g, w, n in zip(got, want, norms)]
+
+
+def phase_flash_bwd_kernel() -> float:
+    """The flash backward against its plain version on the forward's cases,
+    then at the training shape against autograd of full attention in
+    float32: every row of dq, dk and dv within ``ROW_REL_TOL`` (see
+    :func:`grad_row_rel`), the gradients in the inputs' dtypes and shapes,
+    three launches a call and the same bits twice; the forward's
+    log-sum-exp within ``LSE_TOL`` of the plain one."""
+    from repro_torch.kernels import flash_attention, flash_attention_bwd
+    from repro_torch.kernels.flash_attention import _forward
+    from repro_torch.kernels.ref import (flash_attention_bwd_ref,
+                                         flash_attention_ref)
+    from repro_torch.models.layers import full_attention
+    gen = torch.Generator(device=DEV).manual_seed(7)
+    worst = 0.0
+    for (name, B, H, KV, S, D, dtype, causal, window, _,
+         layout) in FLASH_CASES:
+        q, k, v = random_qkv(gen, B, H, KV, S, D, dtype, layout)
+        g = torch.randn(q.shape, generator=gen, device=DEV).to(dtype)
+        out, lse = _forward(q, k, v, causal, window, with_lse=True)
+        want_out, want_lse = flash_attention_ref(
+            q, k, v, causal=causal, window=window, return_lse=True)
+        lse_err = max_abs(lse, want_lse)
+        check(torch.allclose(lse, want_lse, rtol=LSE_TOL[dtype],
+                             atol=LSE_TOL[dtype]),
+              f"flash_attention {name}: lse max |diff| {lse_err}")
+        before = flash_attention_bwd.launches
+        got = flash_attention_bwd(q, k, v, out, lse, g, causal=causal,
+                                  window=window)
+        check(flash_attention_bwd.launches == before + 3,
+              "flash_attention_bwd is not three launches a call")
+        again = flash_attention_bwd(q, k, v, out, lse, g, causal=causal,
+                                    window=window)
+        want = flash_attention_bwd_ref(q, k, v, out, want_lse, g,
+                                       causal=causal, window=window)
+        torch.cuda.synchronize()
+        rels = grad_row_rel(got, want)
+        for t, a, b, c, rel in zip("qkv", got, want, again, rels):
+            ref_in = {"q": q, "k": k, "v": v}[t]
+            check(a.dtype == dtype and a.shape == ref_in.shape,
+                  f"flash_attention_bwd {name}: d{t} {a.dtype} "
+                  f"{tuple(a.shape)}")
+            check(torch.equal(a, c), f"flash_attention_bwd {name}: d{t} not "
+                                     f"repeatable")
+            check(rel <= ROW_REL_TOL[dtype], f"flash_attention_bwd {name}: "
+                  f"d{t} row relative error {rel} > {ROW_REL_TOL[dtype]}")
+            worst = max(worst, max_abs(a, b))
+        print(f"flash_attention_bwd {name} q {(B, H, S, D)} kv {KV} "
+              f"{str(dtype)[6:]} causal={causal} window={window}: max row "
+              f"relative error dq {rels[0]:.3g}, dk {rels[1]:.3g}, dv "
+              f"{rels[2]:.3g} (<= {ROW_REL_TOL[dtype]}); lse max |diff| "
+              f"{lse_err:.3g}; repeatable", flush=True)
+        del q, k, v, g, out, lse, got, again, want, want_out, want_lse
+    # the training shape, (B, S, H, D) as the model hands it over, against
+    # the gradient of float32 full attention on the same bf16 values. The
+    # backward takes delta = rowsum(dO o) from the bf16 output, as the plain
+    # version does (and FlashAttention does): where p is peaked, a row of dq
+    # that cancels carries that rounding of o, so the kernel is held to the
+    # plain version's own distance from the float32 gradient: at most twice
+    # it plus the bf16 row tolerance.
+    B, H, KV, S, D = TRAIN_B, 32, 8, TRAIN_S, 64
+    q, k, v = (t.transpose(1, 2) for t in random_qkv(
+        gen, B, H, KV, S, D, torch.bfloat16, "bshd"))
+    g = torch.randn(q.shape, generator=gen, device=DEV).to(torch.bfloat16)
+    leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+    out = flash_attention(*(t.transpose(1, 2) for t in leaves),
+                          causal=True).transpose(1, 2)   # as the model calls
+    got = torch.autograd.grad(out, leaves, g)
+    leaves32 = [t.detach().float().requires_grad_(True) for t in (q, k, v)]
+    out32 = full_attention(*leaves32, causal=True)
+    want = torch.autograd.grad(out32, leaves32, g.float())
+    del out32, leaves32
+    tq, tk, tv, to, tg = (t.transpose(1, 2) for t in (q, k, v, out, g))
+    _, lse = flash_attention_ref(tq, tk, tv, causal=True, return_lse=True)
+    plain = [t.transpose(1, 2) for t in flash_attention_bwd_ref(
+        tq, tk, tv, to.detach(), lse, tg, causal=True)]
+    torch.cuda.synchronize()
+    rels, plain_rels = grad_row_rel(got, want), grad_row_rel(plain, want)
+    for t, rel, prel in zip("qkv", rels, plain_rels):
+        check(rel <= 2 * prel + ROW_REL_TOL[torch.bfloat16],
+              f"flash_attention_bwd at the training shape: d{t} row "
+              f"relative error {rel} against float32 full attention, the "
+              f"plain backward's {prel}")
+    print(f"flash_attention_bwd at the training shape (B, S, H, D) "
+          f"{(B, S, H, D)} kv {KV} bf16 causal, through the autograd "
+          f"Function, against autograd of float32 full_attention: max row "
+          f"relative error dq {rels[0]:.3g}, dk {rels[1]:.3g}, dv "
+          f"{rels[2]:.3g}; the plain backward from the same bf16 output "
+          f"{plain_rels[0]:.3g}, {plain_rels[1]:.3g}, {plain_rels[2]:.3g} "
+          f"(held: at most twice the plain one + "
+          f"{ROW_REL_TOL[torch.bfloat16]})", flush=True)
+    del q, k, v, g, leaves, out, got, want, plain, lse
+    torch.cuda.empty_cache()
+    return worst
+
+
 def phase_main_path(x: torch.Tensor, rows: dict) -> dict:
     """Record -> compile -> fixed-point replay, for both variants."""
     print("== phase 4: main path (record -> compile -> fixed-point replay)",
@@ -500,7 +640,7 @@ def phase_main_path(x: torch.Tensor, rows: dict) -> dict:
         check(counts == {"quantize": 1, "dequantize": 1,
                          "packet_accumulate": 0,
                          "packet_accumulate_gather": levels,
-                         "flash_attention": 0},
+                         "flash_attention": 0, "flash_attention_bwd": 0},
               f"{label}: launches {counts}, the plan has {levels} levels "
               f"with segments (depth {depth})")
         t_warm, _ = sync_wall(lambda: fixed_point_replay(plan, x, bits=BITS,
@@ -554,7 +694,8 @@ def phase_switch(rows: dict) -> None:
     counts = launch_counts()
     check(counts == {"quantize": 0, "dequantize": 0,
                      "packet_accumulate": SWITCH_CALLS,
-                     "packet_accumulate_gather": 0, "flash_attention": 0},
+                     "packet_accumulate_gather": 0, "flash_attention": 0,
+                     "flash_attention_bwd": 0},
           f"switch launches {counts}")
     want = packet_accumulate_ref(ids, pay, slots)
     for out in outs:
@@ -597,7 +738,8 @@ def phase_model(rows: dict, seed: int):
     counts = launch_counts()
     check(counts == {"quantize": 0, "dequantize": 0, "packet_accumulate": 0,
                      "packet_accumulate_gather": 0,
-                     "flash_attention": cfg.num_layers},
+                     "flash_attention": cfg.num_layers,
+                     "flash_attention_bwd": 0},
           f"prefill launches {counts}, want flash_attention x "
           f"{cfg.num_layers}")
     rows["flash_attention"]["launches"] = counts["flash_attention"]
@@ -804,6 +946,7 @@ def phase_timing(x: torch.Tensor, plan, rows: dict) -> None:
               f"{r['library_ms']})")
     sys.stdout.flush()
     time_flash(rows)
+    time_flash_bwd(rows)
 
 
 def time_gather(q: torch.Tensor, plan, rows: dict) -> None:
@@ -889,14 +1032,73 @@ def time_flash(rows: dict) -> None:
         del q, k, v
 
 
-def train_flops(cfg, tokens: int) -> float:
+def time_flash_bwd(rows: dict) -> None:
+    """The flash backward at the training shape, (1, 32 / 8, 8192, 64) bf16
+    causal as the model hands it over, beside its operations bound (five
+    products: 2.5x the forward's), its plain version and the backward of
+    ``scaled_dot_product_attention`` (timed only; the port never calls
+    it); device time by kernel under ``torch.profiler``; and the forward
+    with and without its log-sum-exp store, in turns."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention_bwd
+    from repro_torch.kernels.flash_attention import _forward
+    from repro_torch.kernels.ref import flash_attention_bwd_ref
+    B, H, KV, S, D = TRAIN_B, 32, 8, TRAIN_S, 64
+    gen = torch.Generator(device=DEV).manual_seed(8)
+    q, k, v = random_qkv(gen, B, H, KV, S, D, torch.bfloat16, "bshd")
+    g = torch.randn(q.shape, generator=gen, device=DEV).to(torch.bfloat16)
+    out, lse = _forward(q, k, v, True, 0, with_lse=True)
+    k_ms, p_ms = in_turns(
+        lambda: flash_attention_bwd_ref(q, k, v, out, lse, g),
+        lambda: flash_attention_bwd(q, k, v, out, lse, g), 3)
+    fwd_flops, _ = flash_work(B, H, KV, S, D, torch.bfloat16, True, 0)
+    flops = 2.5 * fwd_flops
+    nbytes = 2 * B * S * D * (4 * H + 4 * KV) + 4 * B * H * S
+    b_ms, b_by = flash_bound_ms(flops, nbytes, torch.bfloat16)
+    # the yardstick: SDPA's own forward on the same (B, H, S, D) values,
+    # then its backward alone
+    qs, ks, vs = (t.contiguous().requires_grad_(True) for t in (q, k, v))
+    o_sdpa = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True,
+                                            enable_gqa=True)
+    check(o_sdpa.shape == g.shape, f"SDPA output {tuple(o_sdpa.shape)}")
+    lib = event_ms(lambda: torch.autograd.grad(o_sdpa, (qs, ks, vs), g,
+                                               retain_graph=True), 10)
+    del o_sdpa, qs, ks, vs
+    _, by_name = device_time_by_kernel(
+        lambda: flash_attention_bwd(q, k, v, out, lse, g))
+    split = ", ".join(
+        f"{re.search(r'flash_bwd_[a-z0-9_]+', name).group(0)} "
+        f"{us / 1e3:.4f} ms" for name, (_, us) in
+        sorted(by_name.items(), key=lambda kv: -kv[1][1])
+        if "flash_bwd_" in name)
+    no_lse, with_lse = in_turns(
+        lambda: _forward(q, k, v, True, 0, with_lse=False),
+        lambda: _forward(q, k, v, True, 0, with_lse=True), 20)
+    rows["flash_attention_bwd"].update(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
+                                       bound_by=b_by, library_ms=lib)
+    rows["flash_attention"]["lse_store"] = dict(
+        shape=[B, H, S, D], dtype="bfloat16", ms=with_lse, ms_without=no_lse)
+    print(f"flash_attention_bwd at the training shape q {(B, H, S, D)} kv "
+          f"{KV} bf16 causal ((B, S, H, D) transposes): {k_ms:.4f} ms = "
+          f"{flops / k_ms / 1e9:.1f} TFLOP/s ({flops / 1e9:.1f} GFLOP, five "
+          f"products); bound {b_ms:.4f} ms ({b_by}) = {b_ms / k_ms:.1%} of "
+          f"it; plain {p_ms:.4f} ms; scaled_dot_product_attention's backward "
+          f"{lib:.4f} ms; by kernel: {split}", flush=True)
+    print(f"flash_attention forward at the same shape: {with_lse:.4f} ms "
+          f"storing the log-sum-exp, {no_lse:.4f} ms without "
+          f"({(with_lse - no_lse) * 1e3:+.1f} us)", flush=True)
+    del q, k, v, g, out, lse
+    torch.cuda.empty_cache()
+
+
+def train_flops(cfg, tokens: int, seq: int) -> float:
     """Model FLOPs of one training step (PaLM, Chowdhery et al. 2022, app.
     B): 6 N per token for the parameters' products, forward and backward,
     plus 12 L H hd S per token for attention's; remat's recomputation is
     not counted."""
     n = cfg.param_count()
-    attn = 12 * cfg.num_layers * cfg.num_heads * cfg.resolved_head_dim \
-        * TRAIN_S
+    attn = 12 * cfg.num_layers * cfg.num_heads * cfg.resolved_head_dim * seq
     return float(tokens * (6 * n + attn))
 
 
@@ -915,13 +1117,31 @@ def sync_bytes(grads: dict) -> dict:
     return out
 
 
+MAX_REDUCES = {"calls": 0}   # all_reduce(MAX) calls since the last reset
+
+
+def count_max_all_reduces() -> None:
+    """Count every ``torch.distributed.all_reduce`` with op MAX (the
+    fixed-point scales') in ``MAX_REDUCES``."""
+    import torch.distributed as dist
+    real = dist.all_reduce
+
+    def counting(tensor, op=dist.ReduceOp.SUM, group=None, async_op=False):
+        if op == dist.ReduceOp.MAX:
+            MAX_REDUCES["calls"] += 1
+        return real(tensor, op=op, group=group, async_op=async_op)
+    dist.all_reduce = counting
+
+
 def phase_train(rows: dict, seed: int) -> None:
     """llama3.2-1b at full width trained on the card through the port's
-    trainer, ``TRAIN_STEPS`` steps of ``grad_sync="auto"`` and of
-    ``"canary_fp"`` from the same initial state, in a one-rank NCCL group:
-    every ``canary_fp`` step quantizes and dequantizes every gradient leaf
-    once through the kernels; the first one is held against the plain
-    versions."""
+    trainer at its published context, ``TRAIN_STEPS`` steps of
+    ``grad_sync="auto"`` and of ``"canary_fp"`` from the same initial
+    state, in a one-rank NCCL group: every step runs the flash forward and
+    backward kernels on every layer, and every ``canary_fp`` step quantizes
+    and dequantizes every gradient tensor once through the kernels with one
+    scale a reference leaf; the first one is held against the plain
+    versions. Then a few steps of the plain route at S = 2048."""
     print("== phase 4d: training (llama3.2-1b, full width, one-rank NCCL "
           "group)", flush=True)
     import torch.distributed as dist
@@ -931,10 +1151,15 @@ def phase_train(rows: dict, seed: int) -> None:
 
     cfg = get_config(MODEL_ARCH, "full")
     check(cfg.remat and cfg.dtype == "bfloat16"
-          and TRAIN_S < cfg.attn_chunk_threshold,
-          f"training config: remat {cfg.remat}, {cfg.dtype}, S {TRAIN_S}")
+          and TRAIN_S >= cfg.attn_chunk_threshold
+          and TRAIN_S % cfg.attn_chunk == 0
+          and SHORT_S < cfg.attn_chunk_threshold,
+          f"training config: remat {cfg.remat}, {cfg.dtype}, S {TRAIN_S} "
+          f"and {SHORT_S} against attn_chunk_threshold "
+          f"{cfg.attn_chunk_threshold}")
     tokens = TRAIN_B * TRAIN_S
-    flops = train_flops(cfg, tokens)
+    flops = train_flops(cfg, tokens, TRAIN_S)
+    count_max_all_reduces()
     losses = {}
     with tempfile.TemporaryDirectory() as tmp:
         t_init, _ = sync_wall(lambda: dist.init_process_group(
@@ -945,11 +1170,13 @@ def phase_train(rows: dict, seed: int) -> None:
             check(dist.get_backend(mesh.inner) == "nccl" and mesh.size == 1,
                   "the mesh is not a one-rank NCCL group")
             print(f"one-rank NCCL group up in {t_init:.2f} s; {cfg.name}: "
-                  f"B {TRAIN_B}, S {TRAIN_S} ({tokens} tokens a step), remat "
-                  f"on, AdamW float32 moments, lr {TRAIN_LR}; model FLOPs a "
-                  f"step {flops / 1e12:.2f} T", flush=True)
+                  f"B {TRAIN_B}, S {TRAIN_S} ({tokens} tokens a step, the "
+                  f"chunked attention route), remat on, AdamW float32 "
+                  f"moments, lr {TRAIN_LR}; model FLOPs a step "
+                  f"{flops / 1e12:.2f} T", flush=True)
             for mode in TRAIN_MODES:
                 losses[mode] = train_mode(cfg, mode, mesh, seed, rows, flops)
+            train_short_route(cfg, mesh, seed)
         finally:
             dist.destroy_process_group()
     a, c = losses["auto"], losses["canary_fp"]
@@ -961,57 +1188,70 @@ def phase_train(rows: dict, seed: int) -> None:
           flush=True)
 
 
+def make_trainer(cfg, mode: str, mesh, seed: int, batch: int, seq: int,
+                 steps: int):
+    from repro_torch.data import DataConfig
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import TrainConfig, Trainer, TrainerConfig
+    tc = TrainConfig(model=cfg, optimizer=AdamWConfig(lr=TRAIN_LR),
+                     grad_sync=mode)
+    data = DataConfig(vocab_size=cfg.vocab_size, global_batch=batch,
+                      seq_len=seq, seed=0)
+    return sync_wall(lambda: Trainer(TrainerConfig(
+        train=tc, data=data, steps=steps, log_every=0), mesh=mesh,
+        seed=seed, device=DEV))
+
+
 def train_mode(cfg, mode: str, mesh, seed: int, rows: dict,
                flops: float) -> list:
     """One mode's run of ``Trainer.run``; returns its losses. For
-    ``canary_fp`` the first step's sync is checked, the launches of every
-    step counted, one more step profiled and the kernels timed at the
-    largest leaf."""
-    from repro_torch.data import DataConfig
+    ``canary_fp`` the first step's sync is checked, the launches and the
+    scales' all-reduces of every step counted, one more step profiled and
+    the kernels timed at the largest tensor."""
+    from repro_torch.convert import reference_leaves
     from repro_torch.kernels import (WRAPPERS, fixed_point_scale,
                                      launch_counts, reset_launch_counts)
     from repro_torch.kernels.ref import dequantize_ref, quantize_ref
-    from repro_torch.optim import AdamWConfig
-    from repro_torch.train import (TrainConfig, Trainer, TrainerConfig,
-                                   make_train_step)
+    from repro_torch.train import make_train_step
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    tc = TrainConfig(model=cfg, optimizer=AdamWConfig(lr=TRAIN_LR),
-                     grad_sync=mode)
-    data = DataConfig(vocab_size=cfg.vocab_size, global_batch=TRAIN_B,
-                      seq_len=TRAIN_S, seed=0)
-    t_init, trainer = sync_wall(lambda: Trainer(TrainerConfig(
-        train=tc, data=data, steps=TRAIN_STEPS, log_every=0), mesh=mesh,
-        seed=seed, device=DEV))
+    t_init, trainer = make_trainer(cfg, mode, mesh, seed, TRAIN_B, TRAIN_S,
+                                   TRAIN_STEPS)
     leaves = dict(trainer.params.named_parameters())
     n_params = sum(p.numel() for p in leaves.values())
     check(len(leaves) == 9 * cfg.num_layers + 2,
-          f"{len(leaves)} parameter leaves")
+          f"{len(leaves)} parameter tensors")
+    groups = [leaf.names for leaf in reference_leaves(cfg)]
+    check(len(groups) == 11, f"{len(groups)} reference leaves")
     seen = {}
 
     def verify(raw, synced):
-        """The sync against its own input: bit for bit on two leaves, within
-        0.5 / scale plus one rounding of the gradient on every leaf."""
-        check(list(raw) == list(leaves) == list(synced), "sync leaves")
+        """The sync against its own input, with the scale of each tensor's
+        reference leaf: bit for bit on two tensors, within 0.5 / scale plus
+        one rounding of the gradient on every tensor."""
+        check(list(raw) == list(leaves) == list(synced), "sync tensors")
         worst = 0.0
-        for name, g in raw.items():
-            s = fixed_point_scale(g.abs().max().float(), bits=BITS, world=1)
-            y = synced[name]
-            check(y.dtype == g.dtype and y.shape == g.shape
-                  and bool(torch.isfinite(y).all()), f"synced {name}")
-            if name in CHECKED_LEAVES:
-                want = dequantize_ref(quantize_ref(g, s), s).to(g.dtype)
-                check(torch.equal(y, want), f"synced {name} is not the "
-                      f"plain quantize -> dequantize of its gradient")
-            # 0.5 / s from the rounding to an integer, one rounding to g's
-            # dtype, and 2**-22 for the float32 product and quotient
-            gabs = g.float().abs()
-            err = (y.float() - g.float()).abs()
-            bound = 0.5 / s * (1 + 2.0 ** -22) \
-                + (UNIT_ROUNDOFF[g.dtype] + 2.0 ** -22) * gabs
-            check(bool((err <= bound).all()), f"synced {name}: |synced - g| "
-                  f"above 0.5 / scale + one rounding of g")
-            worst = max(worst, float((err * s).max()))
+        for names in groups:
+            gmax = torch.stack([raw[n].abs().max().float() for n in names])
+            s = fixed_point_scale(gmax.max(), bits=BITS, world=1)
+            for name in names:
+                g, y = raw[name], synced[name]
+                check(y.dtype == g.dtype and y.shape == g.shape
+                      and bool(torch.isfinite(y).all()), f"synced {name}")
+                if name in CHECKED_LEAVES:
+                    want = dequantize_ref(quantize_ref(g, s), s).to(g.dtype)
+                    check(torch.equal(y, want), f"synced {name} is not the "
+                          f"plain quantize -> dequantize of its gradient "
+                          f"with its leaf's scale")
+                # 0.5 / s from the rounding to an integer, one rounding to
+                # g's dtype, and 2**-22 for the float32 product and quotient
+                gabs = g.float().abs()
+                err = (y.float() - g.float()).abs()
+                bound = 0.5 / s * (1 + 2.0 ** -22) \
+                    + (UNIT_ROUNDOFF[g.dtype] + 2.0 ** -22) * gabs
+                check(bool((err <= bound).all()), f"synced {name}: |synced "
+                      f"- g| above 0.5 / scale + one rounding of g")
+                worst = max(worst, float((err * s).max()))
         seen.update(raw=raw, tok=raw["embed.tok"], worst=worst)
 
     if mode == "canary_fp":     # the run's first step is checked
@@ -1021,66 +1261,110 @@ def train_mode(cfg, mode: str, mesh, seed: int, rows: dict,
         def first_step(*args):
             trainer.step_fn = plain
             out = checked(*args)
-            counted = launch_counts()    # the measurement's launches are
-            profile_sync(seen.pop("raw"), trainer.tc, mesh)  # not the path's
+            counted = launch_counts()    # the measurement's launches and
+            reduces = MAX_REDUCES["calls"]  # all-reduces are not the path's
+            profile_sync(seen.pop("raw"), trainer.tc, mesh, groups)
             for fn in WRAPPERS:
                 fn.launches = counted[fn.__name__]
+            MAX_REDUCES["calls"] = reduces
             return out
         trainer.step_fn = first_step
     reset_launch_counts()
+    MAX_REDUCES["calls"] = 0
     hist = trainer.run()
     counts = launch_counts()
+    max_reduces = MAX_REDUCES["calls"]
     losses = [h["loss"] for h in hist]
     check(all(np.isfinite(losses)), f"{mode}: a loss is not finite: {losses}")
     fp = TRAIN_STEPS * len(leaves) if mode == "canary_fp" else 0
-    check(counts == {"quantize": fp, "dequantize": fp,
-                     "packet_accumulate": 0, "packet_accumulate_gather": 0,
-                     "flash_attention": 0},
-          f"{mode}: launches over {TRAIN_STEPS} steps {counts}, want "
-          f"quantize and dequantize x {fp}")
+    want = {"quantize": fp, "dequantize": fp, "packet_accumulate": 0,
+            "packet_accumulate_gather": 0,
+            "flash_attention": TRAIN_STEPS * 2 * cfg.num_layers,
+            "flash_attention_bwd": TRAIN_STEPS * 3 * cfg.num_layers}
+    check(counts == want, f"{mode}: launches over {TRAIN_STEPS} steps "
+                          f"{counts}, want {want} (the flash forward twice a "
+                          f"layer under remat, three backward launches a "
+                          f"layer)")
+    want_reduces = TRAIN_STEPS if mode == "canary_fp" else 0
+    check(max_reduces == want_reduces, f"{mode}: {max_reduces} "
+          f"all_reduce(MAX) calls over {TRAIN_STEPS} steps, want "
+          f"{want_reduces}")
+    for k, n in counts.items():
+        if n:
+            rows[k].setdefault("paths", {})[f"train_{mode}"] = n
     walls = [h["step_time_s"] for h in hist]
     warm = sorted(walls[1:])[len(walls[1:]) // 2]
     peak = torch.cuda.max_memory_allocated()
     print(f"{mode}: {n_params / 1e9:.3f} B parameters in {len(leaves)} "
-          f"leaves, init {t_init:.2f} s; step walls "
-          + ", ".join(f"{w * 1e3:.1f}" for w in walls)
+          f"tensors ({len(groups)} reference leaves), init {t_init:.2f} s; "
+          f"step walls " + ", ".join(f"{w * 1e3:.1f}" for w in walls)
           + f" ms (the first cold); warm median {warm * 1e3:.1f} ms = "
           f"{TRAIN_B * TRAIN_S / warm:.0f} tokens/s, model FLOPs "
           f"{flops / warm / BF16_FLOPS:.1%} of the bf16 dense peak "
           f"({BF16_FLOPS / 1e12:.0f} TFLOP/s, NVIDIA H100 SXM data sheet); "
           f"peak device memory {peak / 2**30:.2f} GiB; launches over the "
-          f"{TRAIN_STEPS} steps {counts}", flush=True)
+          f"{TRAIN_STEPS} steps {counts}; all_reduce(MAX) calls "
+          f"{max_reduces}", flush=True)
     if mode == "canary_fp":
-        for name in ("quantize", "dequantize"):
-            rows[name]["train_launches"] = counts[name]
         print(f"canary_fp sync checked on step 0: {', '.join(CHECKED_LEAVES)}"
-              f" bit for bit against dequantize_ref(quantize_ref(g, s), s); "
-              f"every leaf within 0.5/s + one rounding of g (worst "
-              f"|synced - g| * s {seen['worst']:.4g})", flush=True)
+              f" bit for bit against dequantize_ref(quantize_ref(g, s), s) "
+              f"with s the scale of the tensor's reference leaf; every "
+              f"tensor within 0.5/s + one rounding of g (worst |synced - g| "
+              f"* s {seen['worst']:.4g})", flush=True)
         profile_train_step(trainer, leaves)
         time_train_shape(seen["tok"], rows)
     return losses
 
 
-def profile_sync(grads: dict, tc, mesh) -> None:
-    """The sync alone, inside the first step, on its 146 raw gradients: its
-    host wall (median of 3) and, under ``torch.profiler``, its device busy
-    time (within a step the host issues it while the card still runs the
-    backward pass)."""
+def train_short_route(cfg, mesh, seed: int) -> None:
+    """``SHORT_STEPS`` ``auto`` steps at B = SHORT_B, S = SHORT_S, below
+    ``attn_chunk_threshold``: the reference's plain ``full_attention``
+    route, which launches no flash kernel."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t_init, trainer = make_trainer(cfg, "auto", mesh, seed, SHORT_B, SHORT_S,
+                                   SHORT_STEPS)
+    reset_launch_counts()
+    hist = trainer.run()
+    counts = launch_counts()
+    losses = [h["loss"] for h in hist]
+    check(all(np.isfinite(losses)), f"short route: a loss is not finite: "
+                                    f"{losses}")
+    check(not any(counts.values()), f"short route launches {counts}")
+    walls = [h["step_time_s"] for h in hist]
+    tokens = SHORT_B * SHORT_S
+    print(f"auto at B {SHORT_B}, S {SHORT_S} (plain full_attention route): "
+          f"init {t_init:.2f} s; step walls "
+          + ", ".join(f"{w * 1e3:.1f}" for w in walls) + f" ms (the first "
+          f"cold); last {tokens / walls[-1]:.0f} tokens/s, model FLOPs "
+          f"{train_flops(cfg, tokens, SHORT_S) / walls[-1] / BF16_FLOPS:.1%}"
+          f" of the bf16 dense peak; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; losses "
+          + ", ".join(f"{x:.6f}" for x in losses) + f"; launches {counts}",
+          flush=True)
+    del trainer
+
+
+def profile_sync(grads: dict, tc, mesh, groups) -> None:
+    """The sync alone, inside the first step, on its 146 raw gradients with
+    the 11 reference-leaf groups: its host wall (median of 3) and, under
+    ``torch.profiler``, its device busy time (within a step the host issues
+    it while the card still runs the backward pass)."""
     from repro_torch.core.collective import canary_allreduce_tree
 
     def sync():
         return canary_allreduce_tree(
             grads, group=mesh.inner, axis_size=mesh.inner_size,
             roots=tc.canary_roots, num_blocks=tc.canary_blocks,
-            fixed_point=True)
+            fixed_point=True, groups=groups)
     walls = sorted(sync_wall(sync)[0] for _ in range(3))
     wall, by_name = device_time_by_kernel(sync)
     busy_us = sum(us for _, us in by_name.values())
     launches = sum(n for n, _ in by_name.values())
-    print(f"the sync alone on step 0's {len(grads)} gradients: wall "
-          f"{walls[1] * 1e3:.2f} ms (median of 3); profiled, wall "
-          f"{wall * 1e3:.2f} ms, {launches} device launches, busy "
+    print(f"the sync alone on step 0's {len(grads)} gradients ({len(groups)} "
+          f"scales): wall {walls[1] * 1e3:.2f} ms (median of 3); profiled, "
+          f"wall {wall * 1e3:.2f} ms, {launches} device launches, busy "
           f"{busy_us / 1e3:.2f} ms ({busy_us / (wall * 1e6):.1%} of the "
           f"wall)", flush=True)
 
@@ -1127,6 +1411,13 @@ def profile_train_step(trainer, leaves: dict) -> None:
     check(launches["quantize"] == launches["dequantize"] == len(leaves),
           f"the profiled step's quantize and dequantize launches by kernel "
           f"name: {launches}")
+    for part, match in (("flash forward", lambda n: "flash_attention_" in n),
+                        ("flash backward", lambda n: "flash_bwd_" in n)):
+        hits = [v for name, v in by_name.items() if match(name)]
+        us = sum(t for _, t in hits)
+        print(f"  {part}: {sum(n for n, _ in hits)} launches, "
+              f"{us / 1e3:.2f} ms of device time ({us / busy_us:.1%} of "
+              f"busy)")
     gemm_us = sum(us for name, (_, us) in by_name.items()
                   if "gemm" in name.lower() or "sm90_xmma" in name
                   or "cutlass" in name.lower() or "nvjet" in name)
@@ -1161,7 +1452,8 @@ def time_train_shape(g: torch.Tensor, rows: dict) -> None:
             ("dequantize", "int32", kd, pd, 8 * n, lib)):
         rows[name]["train"] = dict(
             shape=list(g.shape), dtype=dtype,
-            launches=rows[name]["train_launches"], ms=ms, plain_ms=plain,
+            launches=rows[name]["paths"]["train_canary_fp"], ms=ms,
+            plain_ms=plain,
             bound_ms=bound_ms(nb), bound_by="bytes", library_ms=library)
         print(f"{name} at the embedding gradient {tuple(g.shape)} {dtype}"
               f" ({n / 1e6:.1f} M elements): {ms:.4f} ms, bound "
@@ -1193,6 +1485,11 @@ def main() -> int:
         "flash_attention": dict(
             source="src/repro_torch/kernels/csrc/flash_attention.cu",
             replaces="src/repro/kernels/flash_attention.py:27"),
+        # no Pallas kernel: the gradient of the jnp recurrence the reference
+        # differentiates when it trains at S >= attn_chunk_threshold
+        "flash_attention_bwd": dict(
+            source="src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+            replaces="src/repro/models/layers.py:131", launches=0),
     }
     gen = torch.Generator(device=DEV).manual_seed(args.seed)
     x = torch.randn((P, MSG_BYTES // BLOCK_BYTES, D), generator=gen,
@@ -1206,23 +1503,31 @@ def main() -> int:
     phase_profile(x, plan)
     phase_profile_prefill(engine, prompt)
 
-    for r in rows.values():
-        check(r["launches"] > 0, "a kernel of the main path never launched")
-    for k in ("quantize", "dequantize"):
-        check(rows[k]["train"]["launches"] > 0,
+    # launches by path: the replay, switch or prefill run ("launches" so
+    # far), then the training runs
+    first_path = {"quantize": "replay", "dequantize": "replay",
+                  "packet_accumulate": "switch",
+                  "packet_accumulate_gather": "replay",
+                  "flash_attention": "prefill"}
+    for k in ("quantize", "dequantize", "flash_attention",
+              "flash_attention_bwd"):
+        check(rows[k].get("paths", {}).get("train_canary_fp", 0) > 0,
               f"{k} never launched on the training path")
     kernels = []
     for k, r in rows.items():
+        paths = {first_path[k]: r["launches"]} if k in first_path else {}
+        paths.update(r.get("paths", {}))
+        check(all(n > 0 for n in paths.values()),
+              f"{k}: a path never launched it: {paths}")
         row = dict(name=k, route="cuda", source=r["source"],
-                   replaces=r["replaces"], launches=r["launches"],
+                   replaces=r["replaces"], launches=sum(paths.values()),
                    max_abs_err=r["max_abs_err"], ms=r["ms"],
                    plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
-                   bound_by=r["bound_by"], library_ms=r["library_ms"])
-        if "train" in r:   # the training path's launches and largest leaf
-            row["paths"] = {"replay": r["launches"],
-                            "train_canary_fp": r["train"]["launches"]}
-            row["launches"] += r["train"]["launches"]
-            row["train"] = r["train"]
+                   bound_by=r["bound_by"], library_ms=r["library_ms"],
+                   paths=paths)
+        for extra in ("train", "lse_store"):   # timings at other shapes
+            if extra in r:
+                row[extra] = r[extra]
         kernels.append(row)
     print("== phase 6: summary")
     print(json.dumps({"kernels": kernels}))

@@ -5,12 +5,15 @@ read by attribute to build the port's
 :class:`~repro_torch.core.trace.schedule.Schedule` (so both executors
 replay the identical tree), a model's weights, handed over as the
 reference's parameter pytree of numpy arrays, and an AdamW state, its
-moments shaped like those weights. This module imports nothing
-of the reference and nothing of JAX.
+moments shaped like those weights. :func:`reference_leaves` maps each leaf
+of the reference's parameter pytree to the port's parameters it stacks;
+the fixed-point sync takes one scale a reference leaf through it, and the
+checkpointer reads and writes the reference's files through it. This
+module imports nothing of the reference and nothing of JAX.
 """
 from __future__ import annotations
 
-from typing import Iterable, List, Mapping
+from typing import Iterable, List, Mapping, NamedTuple, Tuple
 
 import numpy as np
 import torch
@@ -64,6 +67,44 @@ def _flatten(tree: Mapping, prefix: str = "") -> dict:
         else:
             out[f"{prefix}{k}"] = v
     return out
+
+
+class ReferenceLeaf(NamedTuple):
+    """One leaf of the reference's parameter pytree: its ``path`` of keys
+    and list indices (``("layers", 0, "attn", "wq")``), the port's
+    parameter ``names`` it holds, in stacking order, and whether it stacks
+    them along a new leading axis (every leaf under ``layers``, one entry a
+    layer period) or holds the one parameter as it is."""
+
+    path: Tuple
+    names: Tuple[str, ...]
+    stacked: bool
+
+
+def reference_leaves(cfg: ModelConfig) -> List[ReferenceLeaf]:
+    """The leaves of the reference's ``init_params`` pytree for ``cfg``, in
+    ``jax.tree_util`` order (dict keys sorted, list entries in order), each
+    with the port's parameter names it holds.
+
+    The reference stacks the layers of each position ``j`` of the layer
+    period into one leaf with a leading ``num_layers // period`` axis:
+    the port's layer ``i * period + j`` is entry ``i`` of period entry
+    ``j``. For llama3.2-1b (period 1, tied embeddings): 11 leaves over the
+    port's 146 parameters.
+    """
+    per = layer_period(cfg)
+    by_path: dict = {}
+    for name, _ in Transformer(cfg, device="meta").named_parameters():
+        parts = name.split(".")
+        if parts[0] == "layers":
+            i = int(parts[1])
+            path = ("layers", i % per, *parts[2:])
+            by_path.setdefault(path, []).append((i // per, name))
+        else:
+            by_path[tuple(parts)] = [(0, name)]
+    return [ReferenceLeaf(path, tuple(n for _, n in sorted(entries)),
+                          path[0] == "layers")
+            for path, entries in sorted(by_path.items())]
 
 
 def _reference_leaves(np_tree: Mapping, cfg: ModelConfig) -> dict:

@@ -7,13 +7,13 @@ tensor it launches its kernel (built from ``csrc/`` at first use by
 ``launches`` attribute.
 """
 from .fixedpoint import dequantize, quantize
-from .flash_attention import flash_attention
+from .flash_attention import flash_attention, flash_attention_bwd
 from .ops import fixed_point_allreduce_wrap, fixed_point_scale, on_cuda
 from .packet_accum import (accumulate_dtype, packet_accumulate,
                            packet_accumulate_gather)
 
 WRAPPERS = (quantize, dequantize, packet_accumulate, packet_accumulate_gather,
-            flash_attention)
+            flash_attention, flash_attention_bwd)
 
 
 def reset_launch_counts() -> None:
@@ -29,5 +29,6 @@ def launch_counts() -> dict:
 
 __all__ = ["WRAPPERS", "accumulate_dtype", "dequantize",
            "fixed_point_allreduce_wrap", "fixed_point_scale",
-           "flash_attention", "launch_counts", "on_cuda", "packet_accumulate",
-           "packet_accumulate_gather", "quantize", "reset_launch_counts"]
+           "flash_attention", "flash_attention_bwd", "launch_counts",
+           "on_cuda", "packet_accumulate", "packet_accumulate_gather",
+           "quantize", "reset_launch_counts"]

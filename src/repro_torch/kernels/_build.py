@@ -25,7 +25,8 @@ from dataclasses import dataclass
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().with_name("csrc")
-SOURCES = ("fixedpoint.cu", "packet_accum.cu", "flash_attention.cu")
+SOURCES = ("fixedpoint.cu", "packet_accum.cu", "flash_attention.cu",
+           "flash_attention_bwd.cu")
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 LIB_NAME = "librepro_torch_kernels.so"
 LOG_NAME = "nvcc.log"
@@ -39,10 +40,13 @@ _I = ctypes.c_int
 _ACCUM_ARGS = (_P, _P, _I, ctypes.c_int64, _I, _I, _P, _P)
 # leaf, scratch, out, segment offsets, src, dst, segments, D, P, B, stream
 _GATHER_ARGS = (_P, _P, _P, _P, _P, _P, _I, _I, _I, ctypes.c_int64, _P)
-# q, k, v, out, strides (host int64[12]), B, H, KV, S, D, causal, window,
-# scale, stream
-_FLASH_ARGS = (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+# q, k, v, out, lse (or null), strides (host int64[12]), B, H, KV, S, D,
+# causal, window, scale, stream
+_FLASH_ARGS = (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                ctypes.c_float, _P)
+# q, k, v, out, dout, lse, delta, dq, dk, dv, strides (host int64[24]), B, H,
+# KV, S, D, causal, window, scale, stream
+_FLASH_BWD_ARGS = (_P,) * 11 + (_I,) * 7 + (ctypes.c_float, _P)
 _SIGNATURES = {
     "repro_quantize_f32": (_P, _P, _P, ctypes.c_int64, _P),
     "repro_quantize_bf16": (_P, _P, _P, ctypes.c_int64, _P),
@@ -54,6 +58,8 @@ _SIGNATURES = {
     "repro_packet_accumulate_gather_f32": _GATHER_ARGS,
     "repro_flash_attention_bf16": _FLASH_ARGS,
     "repro_flash_attention_f32": _FLASH_ARGS,
+    "repro_flash_attention_bwd_bf16": _FLASH_BWD_ARGS,
+    "repro_flash_attention_bwd_f32": _FLASH_BWD_ARGS,
 }
 
 

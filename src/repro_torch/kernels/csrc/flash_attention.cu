@@ -13,7 +13,10 @@
 // correction exp(-1e30 - m) = 0 washes them out, where -inf would give NaN),
 // m starts at -1e30, the correction is exp(m_prev - m_new), and the end
 // divides by max(l, 1e-20). Key and value rows past S are read as zeros and
-// masked, so S need not be a multiple of the tile.
+// masked, so S need not be a multiple of the tile. Given an `lse` pointer,
+// the epilogue also stores each row's float32 log-sum-exp, m + log(l) in the
+// natural base, from the m and l it already holds, for the backward pass
+// (csrc/flash_attention_bwd.cu); the prefill passes null and stores nothing.
 //
 // The TPU kernel walks a sequential grid and carries (m, l, acc) in VMEM
 // scratch across its kv axis. Here a block loops over the key tiles of its
@@ -77,12 +80,14 @@ namespace {
 constexpr int kBQ = 64;  // f32 body: q rows per block
 constexpr int kBK = 64;  // f32 body: keys per tile
 constexpr float kMaskValue = -1e30f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 struct Params {
   const void* q;
   const void* k;
   const void* v;
   void* o;
+  float* lse;  // (B, H, S) float32 log-sum-exp of each row, or null
   int64_t q_sb, q_sh, q_ss;  // strides in elements; the D stride is 1
   int64_t k_sb, k_sh, k_ss;
   int64_t v_sb, v_sh, v_ss;
@@ -684,6 +689,11 @@ __global__ void __launch_bounds__(128 * (1 + Bf16Tiles<D>::kConsumers), 1)
       __nv_bfloat16* og = static_cast<__nv_bfloat16*>(p.o) + b * p.o_sb +
                           h * p.o_sh;
       const float den_lo = fmaxf(l_lo, 1e-20f), den_hi = fmaxf(l_hi, 1e-20f);
+      if (p.lse != nullptr && t == 0) {  // m is in the log2 domain
+        float* lg = p.lse + (static_cast<long>(b) * p.h + h) * p.s;
+        if (r_lo < p.s) lg[r_lo] = (m_lo + log2f(den_lo)) * kLn2;
+        if (r_hi < p.s) lg[r_hi] = (m_hi + log2f(den_hi)) * kLn2;
+      }
 #pragma unroll
       for (int j = 0; j < D / 8; ++j) {
         const int col = 8 * j + 2 * t;
@@ -825,6 +835,8 @@ __global__ void __launch_bounds__(256)
     const int row = q0 + ty * 4 + i;
     if (row >= p.s) continue;
     const float den = fmaxf(l[i], 1e-20f);
+    if (p.lse != nullptr && tx == 0)
+      p.lse[(static_cast<long>(b) * p.h + h) * p.s + row] = m[i] + logf(den);
 #pragma unroll
     for (int c = 0; c < DC; ++c)
       og[row * p.o_ss + tx + 16 * c] = acc[i][c] / den;
@@ -833,13 +845,14 @@ __global__ void __launch_bounds__(256)
 
 // --------------------------------------------------------------- launchers
 Params make_params(const void* q, const void* k, const void* v, void* o,
-                   const int64_t* strides, int h, int kv, int s, int causal,
-                   int window, float scale) {
+                   float* lse, const int64_t* strides, int h, int kv, int s,
+                   int causal, int window, float scale) {
   Params p;
   p.q = q;
   p.k = k;
   p.v = v;
   p.o = o;
+  p.lse = lse;
   p.q_sb = strides[0];
   p.q_sh = strides[1];
   p.q_ss = strides[2];
@@ -960,21 +973,24 @@ int launch_f32(const Params& p, int b, cudaStream_t stream) {
 
 }  // namespace
 
-// Plain C interface, loaded with ctypes. `strides` is a host array of 12
-// element strides: (batch, head, sequence) of q, k, v and out; the head_dim
-// stride is 1, every base lies on 16 bytes and every stride of an extent
-// above 1 is a positive multiple of 16 bytes (the wrapper checks all three:
-// TMA's rules). Launches on `stream`, does not synchronise, returns the
-// launch's cudaError_t (cudaErrorInvalidValue for a head_dim other than 64,
-// 128 or 192, or a tensor map the driver refuses).
+// Plain C interface, loaded with ctypes. `lse`, when not null, receives the
+// float32 log-sum-exp of every row, (B, H, S) contiguous, for the backward
+// (csrc/flash_attention_bwd.cu); null stores nothing. `strides` is a host
+// array of 12 element strides: (batch, head, sequence) of q, k, v and out;
+// the head_dim stride is 1, every base lies on 16 bytes and every stride of
+// an extent above 1 is a positive multiple of 16 bytes (the wrapper checks
+// all three: TMA's rules). Launches on `stream`, does not synchronise,
+// returns the launch's cudaError_t (cudaErrorInvalidValue for a head_dim
+// other than 64, 128 or 192, or a tensor map cuTensorMapEncodeTiled
+// refuses).
 extern "C" {
 
 int repro_flash_attention_bf16(const void* q, const void* k, const void* v,
-                               void* o, const int64_t* strides, int b, int h,
-                               int kv, int s, int d, int causal, int window,
-                               float scale, void* stream) {
-  const Params p = make_params(q, k, v, o, strides, h, kv, s, causal, window,
-                               scale);
+                               void* o, float* lse, const int64_t* strides,
+                               int b, int h, int kv, int s, int d, int causal,
+                               int window, float scale, void* stream) {
+  const Params p = make_params(q, k, v, o, lse, strides, h, kv, s, causal,
+                               window, scale);
   auto st = static_cast<cudaStream_t>(stream);
   if (d == 64) return launch_bf16<64>(p, b, st);
   if (d == 128) return launch_bf16<128>(p, b, st);
@@ -983,11 +999,11 @@ int repro_flash_attention_bf16(const void* q, const void* k, const void* v,
 }
 
 int repro_flash_attention_f32(const void* q, const void* k, const void* v,
-                              void* o, const int64_t* strides, int b, int h,
-                              int kv, int s, int d, int causal, int window,
-                              float scale, void* stream) {
-  const Params p = make_params(q, k, v, o, strides, h, kv, s, causal, window,
-                               scale);
+                              void* o, float* lse, const int64_t* strides,
+                              int b, int h, int kv, int s, int d, int causal,
+                              int window, float scale, void* stream) {
+  const Params p = make_params(q, k, v, o, lse, strides, h, kv, s, causal,
+                               window, scale);
   auto st = static_cast<cudaStream_t>(stream);
   if (d == 64) return launch_f32<64>(p, b, st);
   if (d == 128) return launch_f32<128>(p, b, st);

@@ -1,18 +1,24 @@
-"""Causal / full GQA flash attention (port of
+"""Causal / full GQA flash attention and its gradient (port of
 ``repro/kernels/flash_attention.py``).
 
 The compute hot spot of every attention architecture: the port's
-``chunked_attention`` (a prefill of at least ``attn_chunk_threshold``
-tokens) goes through it. On a CUDA tensor the wrapper launches the kernel of
-``csrc/flash_attention.cu`` (bf16 on the tensor cores through ``wgmma``,
-fed by TMA; f32 on FP32 FMA); on a CPU tensor it runs
-:func:`.ref.flash_attention_ref`.
+``chunked_attention`` (a sequence of at least ``attn_chunk_threshold``
+tokens, in a prefill or a training step) goes through it. On a CUDA tensor
+the wrapper launches the kernel of ``csrc/flash_attention.cu`` (bf16 on the
+tensor cores through ``wgmma``, fed by TMA; f32 on FP32 FMA); on a CPU
+tensor it runs :func:`.ref.flash_attention_ref`.
 
 The kernel picks its own tiles (bf16: 192 q rows at head_dim 64, else 128,
 by 128 keys, 64 at head_dim 192; f32: 64 by 64), takes any sequence length
 and reads q, k, v through their strides (TMA tensor maps for bf16), so a
 ``(B, S, H, D)`` activation transposed to ``(B, H, S, D)`` is not copied.
-It has no backward: inputs that require a gradient are refused on CUDA.
+
+Where q, k or v needs a gradient, the call goes through
+:class:`FlashAttentionFunction`: its forward also stores each row's float32
+log-sum-exp, and its backward is :func:`flash_attention_bwd`, the three
+kernels of ``csrc/flash_attention_bwd.cu`` on CUDA (the Pallas kernel has no
+backward; the reference differentiates its jnp ``chunked_attention``), or
+:func:`.ref.flash_attention_bwd_ref` on the CPU.
 """
 from __future__ import annotations
 
@@ -22,10 +28,12 @@ import math
 import torch
 
 from . import _build
-from .ref import flash_attention_ref
+from .ref import flash_attention_bwd_ref, flash_attention_ref
 
 _FLASH_FN = {torch.bfloat16: "repro_flash_attention_bf16",
              torch.float32: "repro_flash_attention_f32"}
+_FLASH_BWD_FN = {torch.bfloat16: "repro_flash_attention_bwd_bf16",
+                 torch.float32: "repro_flash_attention_bwd_f32"}
 HEAD_DIMS = (64, 128, 192)     # the head sizes the kernel is built for
 
 
@@ -53,6 +61,132 @@ def _kernel_view(t: torch.Tensor) -> torch.Tensor:
     return t if ok else t.clone(memory_format=torch.contiguous_format)
 
 
+def _check_cuda(q: torch.Tensor, *others: torch.Tensor) -> None:
+    """Every tensor on q's CUDA device, in q's dtype, which the kernels
+    take; a head_dim they are built for; a shape inside their grid."""
+    if q.device.type != "cuda":
+        raise ValueError(f"q must be on the CPU or a CUDA device, not "
+                         f"{q.device}")
+    for t in others:
+        if t.device != q.device:
+            raise ValueError(f"q on {q.device}, another input on {t.device}")
+        if t.dtype != q.dtype:
+            raise TypeError(f"flash attention takes tensors of one dtype, "
+                            f"got {q.dtype} and {t.dtype}")
+    if q.dtype not in _FLASH_FN:
+        raise TypeError(f"flash attention takes float32 or bfloat16 on "
+                        f"CUDA, got {q.dtype}")
+    B, H, S, D = q.shape
+    if D not in HEAD_DIMS:
+        raise ValueError(f"the CUDA kernels take head_dim in {HEAD_DIMS}, "
+                         f"got {D}")
+    if S >= 2 ** 31 or H >= 65536 or B >= 65536:
+        raise ValueError(f"shape {tuple(q.shape)} exceeds the kernels' grid")
+
+
+def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
+             window: int, with_lse: bool):
+    """``(out, lse)``: the forward kernel's output in q's layout and, with
+    ``with_lse``, the float32 ``(B, H, S)`` log-sum-exp of every row (else
+    ``None``, and the kernel stores none)."""
+    if q.device.type == "cpu":
+        if with_lse:
+            return flash_attention_ref(q, k, v, causal=causal, window=window,
+                                       return_lse=True)
+        return flash_attention_ref(q, k, v, causal=causal,
+                                   window=window), None
+    _check_cuda(q, k, v)
+    B, H, S, D = q.shape
+    q, k, v = _kernel_view(q), _kernel_view(k), _kernel_view(v)
+    out = torch.empty_like(q)
+    lse = (torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+           if with_lse else None)
+    if out.numel() == 0:
+        return out, lse
+    strides = (ctypes.c_int64 * 12)(*(s for t in (q, k, v, out)
+                                      for s in t.stride()[:3]))
+    with torch.cuda.device(q.device):
+        fn = getattr(_build.library(), _FLASH_FN[q.dtype])
+        lse_ptr = None if lse is None else lse.data_ptr()   # null: no store
+        _build.check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                        out.data_ptr(), lse_ptr, strides, B, H, k.shape[1],
+                        S, D, int(causal), int(window), 1.0 / math.sqrt(D),
+                        torch.cuda.current_stream().cuda_stream),
+                     "flash_attention")
+    flash_attention.launches += 1
+    return out, lse
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        out: torch.Tensor, lse: torch.Tensor,
+                        dout: torch.Tensor, *, causal: bool = True,
+                        window: int = 0):
+    """``(dq, dk, dv)`` of :func:`flash_attention` from its output ``out``,
+    its float32 ``(B, H, S)`` log-sum-exp ``lse`` and the output's gradient
+    ``dout``, each in the layout of q, k and v.
+
+    On CUDA: three launches of ``csrc/flash_attention_bwd.cu`` (the row
+    sums delta, then dk and dv, then dq), each counted in
+    ``flash_attention_bwd.launches``; on the CPU,
+    :func:`.ref.flash_attention_bwd_ref`.
+    """
+    _check_shapes(q, k, v)
+    if out.shape != q.shape or dout.shape != q.shape \
+            or lse.shape != q.shape[:3]:
+        raise ValueError(f"out {tuple(out.shape)}, dout {tuple(dout.shape)} "
+                         f"and lse {tuple(lse.shape)} do not fit q "
+                         f"{tuple(q.shape)}")
+    if q.device.type == "cpu":
+        return flash_attention_bwd_ref(q, k, v, out, lse, dout, causal=causal,
+                                       window=window)
+    _check_cuda(q, k, v, out, dout)
+    if lse.device != q.device or lse.dtype != torch.float32:
+        raise TypeError(f"lse must be float32 on {q.device}, got "
+                        f"{lse.dtype} on {lse.device}")
+    B, H, S, D = q.shape
+    q, k, v, out, dout = (_kernel_view(t) for t in (q, k, v, out, dout))
+    lse = lse.contiguous()
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    if dq.numel() == 0:
+        return dq, dk, dv
+    delta = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+    tensors = (q, k, v, out, dout, dq, dk, dv)
+    strides = (ctypes.c_int64 * 24)(*(s for t in tensors
+                                      for s in t.stride()[:3]))
+    with torch.cuda.device(q.device):
+        fn = getattr(_build.library(), _FLASH_BWD_FN[q.dtype])
+        _build.check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                        out.data_ptr(), dout.data_ptr(), lse.data_ptr(),
+                        delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+                        dv.data_ptr(), strides, B, H, k.shape[1], S, D,
+                        int(causal), int(window), 1.0 / math.sqrt(D),
+                        torch.cuda.current_stream().cuda_stream),
+                     "flash_attention_bwd")
+    flash_attention_bwd.launches += 3
+    return dq, dk, dv
+
+
+class FlashAttentionFunction(torch.autograd.Function):
+    """Flash attention with its gradient: the forward saves q, k, v, the
+    output and the log-sum-exp; the backward is :func:`flash_attention_bwd`.
+    Under ``torch.utils.checkpoint`` the forward runs again in the backward
+    pass to rebuild what it saved."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, window: int):
+        out, lse = _forward(q, k, v, causal, window, with_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal, ctx.window = causal, window
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, dout,
+                                         causal=ctx.causal, window=ctx.window)
+        return dq, dk, dv, None, None
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0) -> torch.Tensor:
     """q: ``(B, H, S, D)``; k, v: ``(B, KV, S, D)``, ``H % KV == 0`` ->
@@ -60,46 +194,19 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
     ``window > 0`` also masks keys at or before ``qpos - window``. On CUDA
     the output has q's memory layout (``empty_like``), so the transpose of a
-    ``(B, S, H, D)`` activation comes back as one.
+    ``(B, S, H, D)`` activation comes back as one. Where an input needs a
+    gradient (and gradients are on), the call records
+    :class:`FlashAttentionFunction` for the backward pass.
     """
     _check_shapes(q, k, v)
-    if q.device.type == "cpu":
-        return flash_attention_ref(q, k, v, causal=causal, window=window)
-    if q.device.type != "cuda":
+    if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"q must be on the CPU or a CUDA device, not "
                          f"{q.device}")
-    if k.device != q.device or v.device != q.device:
-        raise ValueError(f"q on {q.device}, k on {k.device}, v on {v.device}")
-    if q.dtype not in _FLASH_FN or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError(f"flash_attention takes float32 or bfloat16 q, k, v "
-                        f"of one dtype on CUDA, got {q.dtype}, {k.dtype}, "
-                        f"{v.dtype}")
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
-        raise NotImplementedError("flash_attention has no backward kernel "
-                                  "(the reference's has none either); the "
-                                  "train slice decides the gradient path")
-    B, H, S, D = q.shape
-    if D not in HEAD_DIMS:
-        raise ValueError(f"the CUDA kernel takes head_dim in {HEAD_DIMS}, "
-                         f"got {D}")
-    if S >= 2 ** 31 or H >= 65536 or B >= 65536:
-        raise ValueError(f"shape {tuple(q.shape)} exceeds the kernel's grid")
-    q, k, v = _kernel_view(q), _kernel_view(k), _kernel_view(v)
-    out = torch.empty_like(q)
-    if out.numel() == 0:
-        return out
-    strides = (ctypes.c_int64 * 12)(*(s for t in (q, k, v, out)
-                                      for s in t.stride()[:3]))
-    with torch.cuda.device(q.device):
-        fn = getattr(_build.library(), _FLASH_FN[q.dtype])
-        _build.check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                        out.data_ptr(), strides, B, H, k.shape[1], S, D,
-                        int(causal), int(window), 1.0 / math.sqrt(D),
-                        torch.cuda.current_stream().cuda_stream),
-                     "flash_attention")
-    flash_attention.launches += 1
-    return out
+        return FlashAttentionFunction.apply(q, k, v, causal, window)
+    return _forward(q, k, v, causal, window, with_lse=False)[0]
 
 
 flash_attention.launches = 0
+flash_attention_bwd.launches = 0

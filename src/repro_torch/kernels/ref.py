@@ -77,15 +77,12 @@ def packet_accumulate_gather_ref(leaf: torch.Tensor, scratch: torch.Tensor,
     out[:, -1 - dst[~to_scratch]] = sums[~to_scratch]
 
 
-def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        causal: bool = True, window: int = 0) -> torch.Tensor:
-    """GQA attention with materialised float32 logits.
-
-    q: ``(B, H, S, D)``; k, v: ``(B, KV, S, D)`` with ``H % KV == 0``.
-    Masked logits are ``-1e30``: ``kpos <= qpos`` when ``causal``, and
-    ``kpos > qpos - window`` when ``window > 0`` (the sliding-window term of
-    ``chunked_attention``). Returns ``(B, H, S, D)`` in q's dtype.
-    """
+def _attention_logits(q: torch.Tensor, k: torch.Tensor, causal: bool,
+                      window: int) -> torch.Tensor:
+    """Float32 logits ``(B, KV, H // KV, S, S)`` of q ``(B, H, S, D)`` and k
+    ``(B, KV, S, D)``, ``-1e30`` where masked: ``kpos <= qpos`` when
+    ``causal``, and ``kpos > qpos - window`` when ``window > 0`` (the
+    sliding-window term of ``chunked_attention``)."""
     B, H, S, D = q.shape
     KV = k.shape[1]
     qg = q.reshape(B, KV, H // KV, S, D).to(torch.float32)
@@ -98,7 +95,54 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         mask &= kpos <= qpos
     if window > 0:
         mask &= kpos > qpos - window
-    logits = torch.where(mask, logits, -1e30)
+    return torch.where(mask, logits, -1e30)
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        causal: bool = True, window: int = 0,
+                        return_lse: bool = False):
+    """GQA attention with materialised float32 logits.
+
+    q: ``(B, H, S, D)``; k, v: ``(B, KV, S, D)`` with ``H % KV == 0``.
+    Masked logits are ``-1e30`` (see :func:`_attention_logits`). Returns
+    ``(B, H, S, D)`` in q's dtype and, with ``return_lse``, also each row's
+    float32 log-sum-exp of the logits, ``(B, H, S)``.
+    """
+    B, H, S, D = q.shape
+    logits = _attention_logits(q, k, causal, window)
     probs = torch.softmax(logits, dim=-1)
     out = torch.einsum("bkgqs,bksd->bkgqd", probs, v.to(torch.float32))
-    return out.reshape(B, H, S, D).to(q.dtype)
+    out = out.reshape(B, H, S, D).to(q.dtype)
+    if return_lse:
+        return out, torch.logsumexp(logits, dim=-1).reshape(B, H, S)
+    return out
+
+
+def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, out: torch.Tensor,
+                            lse: torch.Tensor, dout: torch.Tensor,
+                            causal: bool = True, window: int = 0):
+    """The gradient of :func:`flash_attention_ref` from its output and
+    log-sum-exp: ``(dq, dk, dv)`` in the dtypes of q, k and v.
+
+    In float32: ``p = exp(s - lse)`` (0 where masked), ``delta =
+    rowsum(dout * out)``, ``ds = p * (dout v^T - delta)``, ``dq = ds k /
+    sqrt(D)``, ``dk = ds^T q / sqrt(D)`` and ``dv = p^T dout``, dk and dv
+    summed over the ``H // KV`` query heads of each key head.
+    """
+    B, H, S, D = q.shape
+    KV = k.shape[1]
+    G = H // KV
+    s = _attention_logits(q, k, causal, window)
+    p = torch.exp(s - lse.reshape(B, KV, G, S, 1).to(torch.float32))
+    g = dout.reshape(B, KV, G, S, D).to(torch.float32)
+    delta = (g * out.reshape(B, KV, G, S, D).to(torch.float32)).sum(-1)
+    dp = torch.einsum("bkgqd,bksd->bkgqs", g, v.to(torch.float32))
+    ds = p * (dp - delta[..., None])
+    qg = q.reshape(B, KV, G, S, D).to(torch.float32)
+    dq = torch.einsum("bkgqs,bksd->bkgqd", ds,
+                      k.to(torch.float32)) / math.sqrt(D)
+    dk = torch.einsum("bkgqs,bkgqd->bksd", ds, qg) / math.sqrt(D)
+    dv = torch.einsum("bkgqs,bkgqd->bksd", p, g)
+    return (dq.reshape(B, H, S, D).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))

@@ -17,11 +17,13 @@ the same online-softmax recurrence with a float32 accumulator where the
 reference's jnp scan keeps it in the activations' dtype.
 
 Parameters are created with ``requires_grad=False``: serving needs no
-gradient, and the train step turns gradients on for what it trains. The
-gradient flows through ``full_attention`` (plain products and softmax,
-as the reference differentiates its jnp attention); the flash kernel has no
-backward and refuses inputs that want one, so training runs below
-``attn_chunk_threshold``.
+gradient, and the train step turns gradients on for what it trains. Below
+``attn_chunk_threshold`` the gradient flows through ``full_attention``
+(plain products and softmax, as the reference differentiates its jnp
+attention); from it on, through ``chunked_attention``'s
+:class:`~repro_torch.kernels.flash_attention.FlashAttentionFunction`, whose
+backward is the hand-written flash backward (the reference differentiates
+its jnp recurrence), so no (S, S) logits are formed at any length.
 """
 from __future__ import annotations
 
@@ -181,7 +183,9 @@ def chunked_attention(q, k, v, *, causal: bool, chunk: int = 1024,
     q: (B, S, H, D); k, v: (B, S, KV, D). The kernel reads the
     (B, H, S, D) transposes through their strides and picks its own tiles,
     so ``chunk`` sets nothing but the reference's divisibility rule; fully
-    masked tiles (causal or out of the window) are skipped.
+    masked tiles (causal or out of the window) are skipped. Where q, k or v
+    needs a gradient, the backward pass runs the flash backward kernels
+    (three launches).
     """
     S = q.shape[1]
     assert S % chunk == 0, (S, chunk)

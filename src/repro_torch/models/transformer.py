@@ -92,12 +92,14 @@ class Transformer(nn.Module):
     tied), ``layers`` (``num_layers`` :class:`DecoderLayer`s) and
     ``final_norm``. With ``gen`` the weights are drawn as ``init_params``
     draws them; without, they are left uninitialised for a loader to fill.
+    ``cfg`` is kept: the checkpointer reads the reference's layout from it.
     """
 
     def __init__(self, cfg: ModelConfig, device=None,
                  gen: Optional[torch.Generator] = None):
         super().__init__()
         check_supported(cfg)
+        self.cfg = cfg
         dtype = torch_dtype(cfg.dtype)
         self.embed = Embeddings(cfg, dtype, device, gen)
         self.layers = nn.ModuleList(DecoderLayer(cfg, dtype, device, gen)

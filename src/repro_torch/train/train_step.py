@@ -15,7 +15,11 @@
                       pod-local all-gather (two-level meshes).
 * ``canary_fp``     — canary + fixed-point (int32) blocks: bit-reproducible
                       sums regardless of tree shape, through the port's
-                      quantize and dequantize kernels.
+                      quantize and dequantize kernels, with one scale a
+                      leaf of the reference's stacked pytree (the port's
+                      per-layer tensors grouped by
+                      :func:`repro_torch.convert.reference_leaves`), so the
+                      int32 sums are the reference's.
 
 The reference runs one program over a JAX ``Mesh`` and slices the batch
 with ``shard_map``; here every data-parallel rank is a process, the
@@ -36,6 +40,7 @@ import torch
 import torch.distributed as dist
 from torch.distributed import ProcessGroup
 
+from ..convert import reference_leaves
 from ..core.collective import canary_allreduce_tree
 from ..models import forward, init_params
 from ..models.config import ModelConfig
@@ -228,13 +233,16 @@ def make_train_step(tc: TrainConfig, mesh: Optional[Mesh] = None,
             "hierarchical": "hierarchical"}[tc.grad_sync]
     fixed_point = tc.grad_sync == "canary_fp"
     roots = list(tc.canary_roots) if tc.canary_roots is not None else None
+    # one fixed-point scale a reference leaf: the layers it stacks share it
+    groups = [leaf.names for leaf in reference_leaves(tc.model)] \
+        if fixed_point else None
 
     def train_step(params, opt_state, batch):
         (_, metrics), grads = value_and_grad(loss_fn, params, batch)
         synced = canary_allreduce_tree(
             grads, group=mesh.inner, axis_size=mesh.inner_size, roots=roots,
             num_blocks=tc.canary_blocks, mode=mode, outer_group=mesh.outer,
-            fixed_point=fixed_point)
+            fixed_point=fixed_point, groups=groups)
         if on_sync is not None:
             on_sync(grads, synced)
         del grads

@@ -34,7 +34,7 @@ from repro_torch.core.collective import (CongestionOracle,
                                          multi_root_tree_allreduce,
                                          ring_allreduce, tree_link_load,
                                          tree_reduce_broadcast)
-from repro_torch.core.collective.api import global_abs_max
+from repro_torch.core.collective.api import fixed_point_scales
 from repro_torch.kernels import (fixed_point_scale, launch_counts, quantize,
                                  reset_launch_counts)
 from repro_torch.kernels.ref import dequantize_ref, quantize_ref
@@ -183,7 +183,7 @@ def _inputs() -> dict:
 
 
 def _fp_int(v, group, n, roots):
-    scale = fixed_point_scale(global_abs_max(v, [group]), bits=24, world=n)
+    scale, = fixed_point_scales(v, [group], bits=24, world=n)
     return multi_root_tree_allreduce(quantize(v, scale), group, n, roots)
 
 

@@ -169,6 +169,8 @@ def test_wrappers_take_plain_versions_on_cpu():
     packet_accumulate(torch.zeros(8, dtype=torch.int32), x, 1)
     qkv = x.reshape(1, 2, 4, 16)
     flash_attention(qkv, qkv, qkv)
+    qkv = qkv.clone().requires_grad_(True)
+    flash_attention(qkv, qkv, qkv).sum().backward()
     plan = lower_schedules(random_schedules(8, 1, seed=0))
     out = torch.empty((8, 1, 16))
     packet_accumulate_gather(x, torch.empty((plan.scratch_rows, 16)), out,
@@ -176,7 +178,8 @@ def test_wrappers_take_plain_versions_on_cpu():
     assert launch_counts() == {"quantize": 0, "dequantize": 0,
                                "packet_accumulate": 0,
                                "packet_accumulate_gather": 0,
-                               "flash_attention": 0}
+                               "flash_attention": 0,
+                               "flash_attention_bwd": 0}
 
 
 def test_wrappers_reject_devices_other_than_cpu_and_cuda():

@@ -19,6 +19,7 @@ tests use the reference tests' tolerances.
 import copy
 import dataclasses
 import datetime
+import importlib
 import json
 import os
 import subprocess
@@ -35,8 +36,13 @@ os.environ.setdefault("JAX_PLATFORMS", "cpu")
 from repro_torch.checkpoint import (latest_step, restore_checkpoint,
                                     save_checkpoint)
 from repro_torch.convert import (opt_state_from_reference,
-                                 params_from_reference)
+                                 params_from_reference, reference_leaves)
+from repro_torch.core.collective import (canary_allreduce_tree,
+                                         fixed_point_scales,
+                                         multi_root_tree_allreduce,
+                                         round_robin_roots)
 from repro_torch.data import DataConfig, batch_at
+from repro_torch.kernels import fixed_point_scale, quantize
 from repro_torch.models import get_config
 from repro_torch.optim import (AdamWConfig, AdamWState, cosine_with_warmup,
                                linear_warmup_constant)
@@ -233,6 +239,40 @@ def test_auto_step_matches_jax(ref, smoke_f32):
         for got, want_m in ((topt.m[name], conv.m[name]),
                             (topt.v[name], conv.v[name])):
             _leaf_close(got, want_m.numpy(), 1e-4, name)
+
+
+def test_chunked_route_step_matches_jax(ref, smoke_f32, monkeypatch):
+    """The float32 smoke llama with ``attn_chunk_threshold`` and
+    ``attn_chunk`` lowered so that its S = 16 sequence takes
+    ``chunked_attention``: the port's loss and gradients, through the flash
+    autograd Function and its plain backward on the CPU, against
+    ``jax.grad`` of the reference's loss through its jnp recurrence, to the
+    auto step's tolerances."""
+    # the module, which the package's ``flash_attention`` function shadows
+    tflash = importlib.import_module("repro_torch.kernels.flash_attention")
+    jcfg, jp, np_params, batch = smoke_f32
+    over = dict(attn_chunk_threshold=S, attn_chunk=S // 2)
+    jtc = ref.train.TrainConfig(model=jcfg.with_(**over), z_loss=1e-4)
+    tc = TrainConfig(model=_f32cfg().with_(**over), z_loss=1e-4)
+    jb = {k: ref.jnp.asarray(v) for k, v in batch.items()}
+    (jloss, _), jg = ref.jax.value_and_grad(ref.train.make_loss_fn(jtc),
+                                            has_aux=True)(jp, jb)
+    backward_calls = []
+    plain = tflash.flash_attention_bwd_ref
+    monkeypatch.setattr(tflash, "flash_attention_bwd_ref",
+                        lambda *a, **k: backward_calls.append(1) or plain(
+                            *a, **k))
+    params = params_from_reference(np_params, tc.model, device="cpu")
+    (tloss, _), tg = value_and_grad(make_loss_fn(tc), params,
+                                    {k: _t(v) for k, v in batch.items()})
+    assert len(backward_calls) == tc.model.num_layers
+    np.testing.assert_allclose(float(tloss), float(jloss), rtol=1e-5)
+    want = dict(params_from_reference(ref.jax.tree.map(np.asarray, jg),
+                                      tc.model, device="cpu")
+                .named_parameters())
+    assert set(tg) == set(want)
+    for name, g in tg.items():
+        _leaf_close(g, want[name].detach().numpy(), 1e-4, name)
 
 
 def test_microbatched_step_matches_full_batch(smoke_f32):
@@ -441,6 +481,218 @@ def test_trainer_replan_adopts_new_roots(canary_fp_step):
     for r in ranks:
         np.testing.assert_array_equal(r["roots_all"],
                                       np.stack([r0["roots_after"]] * DP))
+
+
+# ---------------------------- canary_fp sync: one scale a reference leaf
+FP_SYNC_SCRIPT = r"""
+import json, sys
+import numpy as np
+import jax
+import jax.numpy as jnp
+from jax import lax
+from jax.sharding import PartitionSpec as P
+
+from repro.core.collective import canary_allreduce_tree, round_robin_roots
+from repro.core.collective.api import _leaf_allreduce
+from repro.kernels.fixedpoint import quantize
+from repro.kernels.ops import fixed_point_scale
+
+d, C = sys.argv[1], json.loads(sys.argv[2])
+dp, blocks = C["dp"], C["blocks"]
+mesh = jax.make_mesh((dp,), ("data",),
+                     axis_types=(jax.sharding.AxisType.Auto,))
+roots = round_robin_roots(blocks, dp)
+for dtype in C["dtypes"]:
+    ranks = [np.load(f"{d}/grads_{dtype}_rank{r}.npz") for r in range(dp)]
+    dtypes = [str(t) for t in ranks[0]["dtypes"]]
+    stacked = [jnp.asarray(np.stack([r[f"g{i}"] for r in ranks]), t)
+               for i, t in enumerate(dtypes)]
+    n = len(stacked)
+
+    def sums(x):    # api.py:74-86's fixed-point path up to the dequantize
+        gmax = lax.pmax(jnp.max(jnp.abs(x.astype(jnp.float32))), "data")
+        scale = fixed_point_scale(gmax, bits=24, world=dp)
+        return _leaf_allreduce(quantize(x, scale), "data", dp, roots,
+                               "canary", None)
+
+    def both(*leaves):
+        leaves = [x[0] for x in leaves]
+        synced = canary_allreduce_tree(leaves, axis_name="data",
+                                       axis_size=dp, num_blocks=blocks,
+                                       fixed_point=True)
+        return [sums(x) for x in leaves], synced
+
+    specs = tuple(P("data") for _ in range(n))
+    q, y = jax.jit(jax.shard_map(both, mesh=mesh, in_specs=specs,
+                                 out_specs=P(), check_vma=False))(*stacked)
+    np.savez(f"{d}/jax_{dtype}.npz",
+             **{f"q{i}": np.asarray(a) for i, a in enumerate(q)},
+             ydtypes=np.array([str(a.dtype) for a in y]),
+             **{f"y{i}": np.asarray(a, np.float32) for i, a in enumerate(y)})
+print("JAX_OK")
+"""
+FP_DTYPES = ("float32", "bfloat16")
+FP_BLOCKS = 16
+
+
+def _fp_sync_rank(rank: int, init_file: str, out_dir: str):
+    """One gloo rank: this rank's (JAX) gradients through the port's
+    ``canary_fp`` sync with the reference-leaf groups, counting every
+    all-reduce; and the int32 sums from the same scales."""
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"file://{init_file}",
+                            world_size=DP, rank=rank,
+                            timeout=datetime.timedelta(seconds=120))
+    calls = []
+    real = dist.all_reduce
+
+    def counting(tensor, op=dist.ReduceOp.SUM, group=None, async_op=False):
+        calls.append(str(op))
+        return real(tensor, op=op, group=group, async_op=async_op)
+    try:
+        out = {}
+        for dtype in FP_DTYPES:
+            leaves = reference_leaves(_f32cfg())
+            data = np.load(os.path.join(out_dir,
+                                        f"grads_{dtype}_rank{rank}.npz"))
+            grads = {}
+            for i, leaf in enumerate(leaves):
+                a = torch.from_numpy(data[f"g{i}"]).to(
+                    getattr(torch, str(data["dtypes"][i])))
+                parts = a.unbind() if leaf.stacked else [a]
+                grads.update(zip(leaf.names, parts))
+            groups = [leaf.names for leaf in leaves]
+            W = dist.group.WORLD
+            dist.all_reduce = counting
+            calls.clear()
+            try:
+                synced = canary_allreduce_tree(
+                    grads, group=W, axis_size=DP, num_blocks=FP_BLOCKS,
+                    fixed_point=True, groups=groups)
+            finally:
+                dist.all_reduce = real
+            out[f"{dtype}.all_reduce_calls"] = np.array(calls)
+            scales = fixed_point_scales(grads, [W], bits=24, world=DP,
+                                        groups=groups)
+            roots = round_robin_roots(FP_BLOCKS, DP)
+            for (name, g), sc in zip(grads.items(), scales):
+                out[f"{dtype}.q.{name}"] = multi_root_tree_allreduce(
+                    quantize(g, sc), W, DP, roots).numpy()
+                y = synced[name]
+                out[f"{dtype}.y.{name}"] = y.float().numpy()
+                out[f"{dtype}.ydtype.{name}"] = np.array(str(y.dtype))
+        np.savez(os.path.join(out_dir, f"port_rank{rank}.npz"), **out)
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.fixture(scope="module")
+def fp_sync(ref, smoke_f32, tmp_path_factory):
+    """Each rank's JAX gradients of the smoke llama (its slice of the batch;
+    float32, and the bf16 model's), synced by JAX on 4 host devices
+    (subprocess) and by the port on 4 gloo ranks side by side:
+    ``(raw gradients by dtype, jax results, [port results by rank])``."""
+    jcfg, jp, _, batch = smoke_f32
+    d = tmp_path_factory.mktemp("fp_sync")
+    raw = {}
+    for dtype in FP_DTYPES:
+        cfg = jcfg.with_(dtype=dtype)
+        params = ref.models.init_params(cfg, ref.jax.random.PRNGKey(0))
+        loss_fn = ref.train.make_loss_fn(ref.train.TrainConfig(model=cfg))
+        grad = ref.jax.jit(ref.jax.grad(lambda p, b: loss_fn(p, b)[0]))
+        per = B // DP
+        raw[dtype] = []
+        for r in range(DP):
+            rows = {k: ref.jnp.asarray(v[r * per:(r + 1) * per])
+                    for k, v in batch.items()}
+            leaves = ref.jax.tree_util.tree_leaves(grad(params, rows))
+            as_f32 = [np.asarray(a, np.float32) for a in leaves]  # exact
+            raw[dtype].append(as_f32)
+            np.savez(d / f"grads_{dtype}_rank{r}.npz",
+                     dtypes=np.array([str(a.dtype) for a in leaves]),
+                     **{f"g{i}": a for i, a in enumerate(as_f32)})
+    env = dict(os.environ,
+               XLA_FLAGS=f"--xla_force_host_platform_device_count={DP}",
+               JAX_PLATFORMS="cpu",
+               PYTHONPATH="src" + os.pathsep + os.environ.get("PYTHONPATH",
+                                                              ""))
+    proc = subprocess.Popen(
+        [sys.executable, "-c", FP_SYNC_SCRIPT, str(d),
+         json.dumps(dict(dp=DP, blocks=FP_BLOCKS, dtypes=FP_DTYPES))],
+        env=env, cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True)
+    try:
+        mp.spawn(_fp_sync_rank, args=(str(d / "rendezvous"), str(d)),
+                 nprocs=DP, join=True)
+        out, err = proc.communicate(timeout=600)
+    finally:
+        proc.kill()
+    assert "JAX_OK" in out, out + "\n" + err
+    return (raw, {t: dict(np.load(d / f"jax_{t}.npz")) for t in FP_DTYPES},
+            [dict(np.load(d / f"port_rank{r}.npz")) for r in range(DP)])
+
+
+@pytest.mark.parametrize("dtype", FP_DTYPES)
+@pytest.mark.parametrize("what", ["int32 sums", "synced"])
+def test_canary_fp_sync_matches_jax_bit_for_bit(fp_sync, dtype, what):
+    """The same (JAX) gradients through both syncs: every rank's int32 sums
+    and synced gradients equal the reference's, bit for bit, leaf by
+    reference leaf; the port's scale is one a stacked leaf, not one a
+    layer (at least one stacked leaf has a layer whose own max is below
+    the leaf's, so a scale a layer would differ)."""
+    raw, jax_out, ranks = fp_sync
+    leaves = reference_leaves(_f32cfg())
+    key = "q" if what == "int32 sums" else "y"
+    narrower = 0
+    for i, leaf in enumerate(leaves):
+        want = jax_out[dtype][f"{key}{i}"]
+        if leaf.stacked:
+            layer_max = np.abs(np.stack([r[i] for r in raw[dtype]])).max(
+                axis=tuple(a for a in range(want.ndim + 1) if a != 1))
+            narrower += bool((layer_max < layer_max.max()).any())
+        for rank in ranks:
+            parts = [rank[f"{dtype}.{key}.{n}"] for n in leaf.names]
+            got = np.stack(parts) if leaf.stacked else parts[0]
+            if key == "q":
+                assert got.dtype == np.int32
+            else:   # the values as float32 (exact), beside their dtype
+                ydtype = str(jax_out[dtype]["ydtypes"][i])
+                assert {str(rank[f"{dtype}.ydtype.{n}"])
+                        for n in leaf.names} == {f"torch.{ydtype}"}
+            np.testing.assert_array_equal(got, want, err_msg=str(leaf.path))
+    assert narrower > 0
+
+
+def test_fixed_point_scales_one_a_group():
+    """One scale a group, from the max |x| over its tensors (each tensor
+    its own group without groups), the same bits as ``fixed_point_scale``
+    of that max; groups that do not partition the keys are refused."""
+    g = {"a": torch.tensor([1.0, -4.0]), "b": torch.tensor([2.0]),
+         "c": torch.tensor([-0.5], dtype=torch.bfloat16)}
+
+    def want(m):
+        return fixed_point_scale(torch.tensor(m), bits=24, world=4)
+    got = fixed_point_scales(g, [], bits=24, world=4,
+                             groups=[["a", "b"], ["c"]])
+    for s, m in zip(got, (4.0, 4.0, 0.5)):
+        assert s.dtype == torch.float32 and torch.equal(s, want(m))
+    alone = fixed_point_scales(g, [], bits=24, world=4)
+    for s, m in zip(alone, (4.0, 2.0, 0.5)):
+        assert torch.equal(s, want(m))
+    for bad in ([["a"], ["b"]], [["a", "b"], ["b", "c"]],
+                [["a", "b", "c"], []]):
+        with pytest.raises(ValueError, match="partition"):
+            fixed_point_scales(g, [], bits=24, world=4, groups=bad)
+
+
+def test_canary_fp_sync_makes_one_max_all_reduce(fp_sync):
+    """One ``all_reduce(MAX)`` for the whole sync (the vector of the 11
+    leaves' maxima), where a scale a tensor made one a tensor."""
+    _, _, ranks = fp_sync
+    for rank in ranks:
+        for dtype in FP_DTYPES:
+            assert list(rank[f"{dtype}.all_reduce_calls"]) == [
+                str(dist.ReduceOp.MAX)]
 
 
 # ------------------------------------------------- trainer and checkpoint
