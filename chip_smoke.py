@@ -18,7 +18,8 @@ printed:
               qwen2-7b prefill head layouts, each also read through the
               strides of a (B, S, H, D) transpose as the prefill hands it
               over, S = 1, 65 and 1000, non-causal, windows of 512 and
-              300, head_dim 192 in both dtypes; peaked softmax, each
+              300, head_dim 128 non-causal and with a window of 200 in
+              bf16, head_dim 192 in both dtypes; peaked softmax, each
               element and each row held to its tolerance), and the same
               bits twice; the flash backward (three kernels) on the same
               cases against its plain version (each row of dq, dk and dv
@@ -70,8 +71,10 @@ printed:
               (the gathered segment-sum: the levels of one replay summed;
               the standalone one also at a few shapes off the paths; the
               flash backward at the training shape beside the backward of
-              ``scaled_dot_product_attention``, and the forward with and
-              without its log-sum-exp store);
+              ``scaled_dot_product_attention``, each of its three kernels
+              beside its own bound, and the forward with and without its
+              log-sum-exp store beside its plain version and SDPA's
+              forward);
               then one replay and one prefill under ``torch.profiler``
               (device busy share, device time by kernel; every flash
               launch of the prefill must be the ``wgmma`` kernel);
@@ -88,7 +91,6 @@ from __future__ import annotations
 import argparse
 import copy
 import json
-import re
 import subprocess
 import sys
 import tempfile
@@ -141,6 +143,10 @@ FLASH_CASES = [
      "bhsd"),
     ("window 300", 1, 8, 2, 2048, 64, torch.bfloat16, True, 300, 2e-2,
      "bshd"),
+    ("non-causal, bf16, head_dim 128", 1, 4, 2, 768, 128, torch.bfloat16,
+     False, 0, 2e-2, "bhsd"),
+    ("window 200, head_dim 128", 1, 8, 2, 1536, 128, torch.bfloat16, True,
+     200, 2e-2, "bshd"),
     ("head_dim 192", 1, 4, 2, 512, 192, torch.bfloat16, True, 0, 2e-2,
      "bhsd"),
     ("head_dim 192, f32", 1, 4, 2, 512, 192, torch.float32, True, 0, 2e-5,
@@ -153,6 +159,11 @@ FLASH_CASES = [
 # there.) Each row's ||got - want|| / ||want|| is held too: a fault in a few
 # late tiles moves whole rows.
 QK_SCALE = 2.0
+# the bf16 backward's two wgmma kernels (csrc/flash_attention_bwd.cu), each
+# built for head_dim 64, 128 and 192 with no spill, and the products each
+# runs (the two recompute s and dp: seven where the operations bound counts
+# five)
+BWD_KERNELS = {"flash_bwd_dkdv_wgmma_kernel": 4, "flash_bwd_dq_wgmma_kernel": 3}
 ROW_REL_TOL = {torch.bfloat16: 1e-2, torch.float32: 1e-4}
 # the forward's log-sum-exp: s is float32 from the inputs' values in both
 LSE_TOL = {torch.bfloat16: 1e-3, torch.float32: 1e-4}
@@ -340,11 +351,11 @@ def phase_build():
           f"the bf16 flash kernel was built for head sizes {sorted(wgmma)}")
     check(all(sp == 0 for _, sp in wgmma.values()),
           "a bf16 flash kernel spills registers")
-    for kernel in ("flash_bwd_dkdv_mma_kernel", "flash_bwd_dq_mma_kernel"):
+    for kernel in BWD_KERNELS:
         res = _build.ptxas_resources(b.log, kernel)
         for d, (regs, spills) in sorted(res.items()):
-            print(f"{kernel}<{d}>: {regs} registers a thread, {spills} bytes "
-                  f"of spill stores and loads")
+            print(f"{kernel}<{d}>: {regs} registers a thread at launch, "
+                  f"{spills} bytes of spill stores and loads")
         check(sorted(res) == [64, 128, 192],
               f"{kernel} was built for head sizes {sorted(res)}")
         check(all(sp == 0 for _, sp in res.values()),
@@ -1037,13 +1048,16 @@ def time_flash_bwd(rows: dict) -> None:
     causal as the model hands it over, beside its operations bound (five
     products: 2.5x the forward's), its plain version and the backward of
     ``scaled_dot_product_attention`` (timed only; the port never calls
-    it); device time by kernel under ``torch.profiler``; and the forward
-    with and without its log-sum-exp store, in turns."""
+    it); each of its three kernels under ``torch.profiler`` beside its own
+    bound (dk/dv four products, dq three, delta its bytes); and the forward
+    with and without its log-sum-exp store, in turns, beside its plain
+    version and SDPA's forward."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attention_bwd
     from repro_torch.kernels.flash_attention import _forward
-    from repro_torch.kernels.ref import flash_attention_bwd_ref
+    from repro_torch.kernels.ref import (flash_attention_bwd_ref,
+                                         flash_attention_ref)
     B, H, KV, S, D = TRAIN_B, 32, 8, TRAIN_S, 64
     gen = torch.Generator(device=DEV).manual_seed(8)
     q, k, v = random_qkv(gen, B, H, KV, S, D, torch.bfloat16, "bshd")
@@ -1052,8 +1066,9 @@ def time_flash_bwd(rows: dict) -> None:
     k_ms, p_ms = in_turns(
         lambda: flash_attention_bwd_ref(q, k, v, out, lse, g),
         lambda: flash_attention_bwd(q, k, v, out, lse, g), 3)
-    fwd_flops, _ = flash_work(B, H, KV, S, D, torch.bfloat16, True, 0)
-    flops = 2.5 * fwd_flops
+    fwd_flops, fwd_bytes = flash_work(B, H, KV, S, D, torch.bfloat16, True, 0)
+    product = fwd_flops / 2           # one (S, S) x D product, causal
+    flops = 5 * product
     nbytes = 2 * B * S * D * (4 * H + 4 * KV) + 4 * B * H * S
     b_ms, b_by = flash_bound_ms(flops, nbytes, torch.bfloat16)
     # the yardstick: SDPA's own forward on the same (B, H, S, D) values,
@@ -1064,30 +1079,61 @@ def time_flash_bwd(rows: dict) -> None:
     check(o_sdpa.shape == g.shape, f"SDPA output {tuple(o_sdpa.shape)}")
     lib = event_ms(lambda: torch.autograd.grad(o_sdpa, (qs, ks, vs), g,
                                                retain_graph=True), 10)
-    del o_sdpa, qs, ks, vs
+    del o_sdpa
+    with torch.no_grad():
+        lib_fwd = event_ms(lambda: F.scaled_dot_product_attention(
+            qs, ks, vs, is_causal=True, enable_gqa=True), 10)
+    del qs, ks, vs
+    reps = 5
     _, by_name = device_time_by_kernel(
-        lambda: flash_attention_bwd(q, k, v, out, lse, g))
-    split = ", ".join(
-        f"{re.search(r'flash_bwd_[a-z0-9_]+', name).group(0)} "
-        f"{us / 1e3:.4f} ms" for name, (_, us) in
-        sorted(by_name.items(), key=lambda kv: -kv[1][1])
-        if "flash_bwd_" in name)
+        lambda: [flash_attention_bwd(q, k, v, out, lse, g)
+                 for _ in range(reps)])
+    delta_bytes = 2 * B * H * S * D * 2 + 4 * B * H * S
+    bounds = {name: (n * product / BF16_FLOPS * 1e3, "operations", n)
+              for name, n in BWD_KERNELS.items()}
+    bounds["flash_bwd_delta_kernel"] = (bound_ms(delta_bytes), "bytes", 0)
+    by_kernel = {}
+    for kernel, (kb_ms, kb_by, n) in bounds.items():
+        # the profiler may drop the window's first launch: the mean is over
+        # the launches it recorded
+        seen = sum(c for name, (c, _) in by_name.items() if kernel in name)
+        check(1 <= seen <= reps, f"the profiler recorded {seen} launches of "
+                                 f"{kernel} in {reps} backward calls")
+        ms = sum(us for name, (_, us) in by_name.items()
+                 if kernel in name) / seen / 1e3
+        by_kernel[kernel] = dict(ms=ms, bound_ms=kb_ms, bound_by=kb_by,
+                                 products=n)
+        print(f"  {kernel}: {ms:.4f} ms (profiler, mean of {seen}), bound "
+              f"{kb_ms:.4f} ms ({kb_by}: "
+              + (f"{n} products, {n * product / 1e9:.1f} GFLOP"
+                 if n else f"{delta_bytes / 1e6:.1f} MB") + f") = "
+              f"{kb_ms / ms:.1%} of it", flush=True)
     no_lse, with_lse = in_turns(
         lambda: _forward(q, k, v, True, 0, with_lse=False),
         lambda: _forward(q, k, v, True, 0, with_lse=True), 20)
+    fwd_plain = event_ms(lambda: flash_attention_ref(
+        q, k, v, causal=True, return_lse=True), 3)
+    fb_ms, fb_by = flash_bound_ms(fwd_flops, fwd_bytes + 4 * B * H * S,
+                                  torch.bfloat16)
     rows["flash_attention_bwd"].update(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
-                                       bound_by=b_by, library_ms=lib)
+                                       bound_by=b_by, library_ms=lib,
+                                       by_kernel=by_kernel)
     rows["flash_attention"]["lse_store"] = dict(
-        shape=[B, H, S, D], dtype="bfloat16", ms=with_lse, ms_without=no_lse)
+        shape=[B, H, S, D], dtype="bfloat16", ms=with_lse, ms_without=no_lse,
+        plain_ms=fwd_plain, bound_ms=fb_ms, bound_by=fb_by,
+        library_ms=lib_fwd)
     print(f"flash_attention_bwd at the training shape q {(B, H, S, D)} kv "
           f"{KV} bf16 causal ((B, S, H, D) transposes): {k_ms:.4f} ms = "
           f"{flops / k_ms / 1e9:.1f} TFLOP/s ({flops / 1e9:.1f} GFLOP, five "
           f"products); bound {b_ms:.4f} ms ({b_by}) = {b_ms / k_ms:.1%} of "
           f"it; plain {p_ms:.4f} ms; scaled_dot_product_attention's backward "
-          f"{lib:.4f} ms; by kernel: {split}", flush=True)
+          f"{lib:.4f} ms ({k_ms / lib:.2f}x)", flush=True)
     print(f"flash_attention forward at the same shape: {with_lse:.4f} ms "
           f"storing the log-sum-exp, {no_lse:.4f} ms without "
-          f"({(with_lse - no_lse) * 1e3:+.1f} us)", flush=True)
+          f"({(with_lse - no_lse) * 1e3:+.1f} us); bound {fb_ms:.4f} ms "
+          f"({fb_by}); plain (with the log-sum-exp) {fwd_plain:.4f} ms; "
+          f"scaled_dot_product_attention's forward {lib_fwd:.4f} ms",
+          flush=True)
     del q, k, v, g, out, lse
     torch.cuda.empty_cache()
 
@@ -1525,7 +1571,7 @@ def main() -> int:
                    plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
                    bound_by=r["bound_by"], library_ms=r["library_ms"],
                    paths=paths)
-        for extra in ("train", "lse_store"):   # timings at other shapes
+        for extra in ("train", "lse_store", "by_kernel"):   # other shapes
             if extra in r:
                 row[extra] = r[extra]
         kernels.append(row)

@@ -4,8 +4,9 @@ The sources under ``csrc/`` are compiled for ``sm_90a`` at first use, one
 ``nvcc`` process per source, all started together, then linked into one
 ``.so`` that is loaded with :mod:`ctypes`. The library lands in
 ``build/repro_torch/<key>/`` at the root of the checkout, where ``key``
-hashes the sources and the flags, so a changed source builds anew and an
-unchanged one is loaded as it is.
+hashes the flags and every file under ``csrc/`` (sources and the headers
+they include, such as ``hopper.cuh``), so a changed file builds anew and an
+unchanged tree is loaded as it is.
 
 Nothing here runs at import: the CPU tests import every module of the
 package, and this machine may have no ``nvcc``.
@@ -91,10 +92,12 @@ def find_nvcc() -> str:
 
 
 def _key() -> str:
+    """Hash of the flags and of every file under ``csrc/`` (the compiled
+    sources and the headers they include), by path and content."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
-        h.update(name.encode())
-        h.update((CSRC / name).read_bytes())
+    for path in sorted(p for p in CSRC.rglob("*") if p.is_file()):
+        h.update(path.relative_to(CSRC).as_posix().encode() + b"\0")
+        h.update(hashlib.sha256(path.read_bytes()).digest())
     return h.hexdigest()[:16]
 
 

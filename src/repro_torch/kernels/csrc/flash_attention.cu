@@ -61,7 +61,9 @@
 //    heads, B) with the caller's strides, so the transpose of a
 //    (B, S, H, D) activation is read without a copy. Logits are scaled in
 //    f32 by log2(e) / sqrt(D) and exponentiated with `ex2`, which moves p by
-//    a few ulps of f32 against exp(): far inside the bf16 tolerance.
+//    a few ulps of f32 against exp(): far inside the bf16 tolerance. The
+//    PTX building blocks (mbarriers, TMA, descriptors, `wgmma`, the tensor
+//    maps) live in csrc/hopper.cuh, shared with the backward.
 //  * f32: FP32 FMA on the CUDA cores, never TF32 (TF32 keeps ~3 digits and
 //    cannot meet the reference's 2e-5). 256 threads as 16 x 16 over 64 q
 //    rows and 64-key tiles; a thread owns 4 rows x 4 keys of the score tile
@@ -69,11 +71,7 @@
 //    in f32 before the product, as the reference scales it. One block a
 //    (b, q-head, q tile), the longest q tiles first (blockIdx.x counts down
 //    the sequence).
-#include <cuda.h>
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-
-#include <cstdint>
+#include "hopper.cuh"
 
 namespace {
 
@@ -144,269 +142,6 @@ struct Bf16Tiles {
   static_assert(128 * (kProducerRegs + kConsumers * kConsumerRegs) <= 65536,
                 "registers do not fit");
 };
-
-__device__ __forceinline__ uint32_t smem_u32(const void* ptr) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-                   bar),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
-               : "memory");
-}
-
-// Waits until the phase of `bar` with this parity has completed. Right after
-// init, parity 1 names the phase before the first and passes at once.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-// One TMA box of a 4-D map into shared memory; completes on `bar`.
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         uint32_t bar, int c0, int c1, int c2,
-                                         int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::"
-      "bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
-      "r"(c2), "r"(c3)
-      : "memory");
-}
-
-// `wgmma` shared-memory descriptor of a 128-byte-swizzled tile (PTX ISA,
-// "Matrix Descriptor Format"): start address, leading and stride byte
-// offsets, each in 16-byte units, and layout type 1 (128-byte swizzle).
-// K-major (q, K): rows of 128 bytes, 8-row groups 1024 bytes apart (the
-// stride offset); the leading offset is unused, and a k-step of 16 values
-// moves the start by 32 bytes inside the swizzled row. MN-major (v): 8 keys
-// of 128-byte rows a group, groups 1024 bytes apart (stride offset), the
-// next 64 columns one box further on (leading offset).
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
-                                               uint32_t sbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         static_cast<uint64_t>(lbo >> 4) << 16 |
-         static_cast<uint64_t>(sbo >> 4) << 32 | 1ull << 62;
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-
-// Keeps the compiler from moving reads or writes of `r` across a `wgmma`
-// fence or wait (the asm statements do not name the accumulators).
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x is the low half
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// wgmma m64nNk16, f32 += bf16 x bf16. `wgmma_ss`: A and B from shared
-// memory, both K-major. `wgmma_rs`: A from registers (the mma.m16n8k16 A
-// fragment of each warp's 16 rows), B MN-major from shared memory. The
-// accumulator of m64nN: for column block j of 8, d[4j], d[4j+1] are row
-// 16 * warp + lane / 4, columns 8j + 2 (lane % 4) + {0, 1}; d[4j+2], d[4j+3]
-// the same columns 8 rows down. scale_d = 0 overwrites d.
-__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a, uint64_t b,
-                                         int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(a), "l"(b), "r"(scale_d));
-}
-
-__device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t a, uint64_t b,
-                                         int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(a), "l"(b), "r"(scale_d));
-}
-
-__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
-                                         uint64_t b, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),
-        "r"(scale_d));
-}
-
-__device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4],
-                                         uint64_t b, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63"
-      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),
-        "r"(scale_d));
-}
-
-__device__ __forceinline__ void wgmma_rs(float (&d)[96], const uint32_t (&a)[4],
-                                         uint64_t b, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %101, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63, "
-      "%64, %65, %66, %67, %68, %69, %70, %71, "
-      "%72, %73, %74, %75, %76, %77, %78, %79, "
-      "%80, %81, %82, %83, %84, %85, %86, %87, "
-      "%88, %89, %90, %91, %92, %93, %94, %95"
-      "}, {%96, %97, %98, %99}, %100, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
-        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
-        "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
-        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),
-        "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
-        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
-        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
-        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),
-        "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),
-        "r"(scale_d));
-}
 
 // s = q k^T for one warpgroup's 64 rows and one key tile, issued, not
 // waited for. A k-step of 16 values moves 32 bytes along a 128-byte row;
@@ -561,8 +296,7 @@ __global__ void __launch_bounds__(128 * (1 + Bf16Tiles<D>::kConsumers), 1)
   // warp-uniform to the compiler, so each role is one branch to the end
   const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
   if (wg == 0) {  // ------------------------------------------- producer
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(
-        T::kProducerRegs));
+    setmaxnreg_dec<T::kProducerRegs>();
     if (threadIdx.x != 0) return;
     int qb, h, b, i = 0;
     for (int round = 0; work_item(round, nq, p.h, batch_size, &qb, &h, &b);
@@ -591,8 +325,7 @@ __global__ void __launch_bounds__(128 * (1 + Bf16Tiles<D>::kConsumers), 1)
       }
     }
   } else {  // ------------------------------------------------ consumers
-    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(
-        T::kConsumerRegs));
+    setmaxnreg_inc<T::kConsumerRegs>();
     const int cw = wg - 1;
     const int tid = threadIdx.x - 128 * wg;
     const int warp = tid >> 5, lane = tid & 31, t = lane & 3;
@@ -610,13 +343,8 @@ __global__ void __launch_bounds__(128 * (1 + Bf16Tiles<D>::kConsumers), 1)
     // The consumers take turns, in order, to issue their `wgmma`s (named
     // barrier 1 + cw is this warpgroup's turn): one warpgroup's softmax then
     // runs while another's products hold the tensor cores.
-    auto my_turn = [&] {
-      asm volatile("bar.sync %0, 256;\n" ::"r"(1 + cw) : "memory");
-    };
-    auto next_turn = [&] {
-      asm volatile("bar.arrive %0, 256;\n" ::"r"(1 + (cw + 1) % T::kConsumers)
-                   : "memory");
-    };
+    auto my_turn = [&] { bar_sync(1 + cw, 256); };
+    auto next_turn = [&] { bar_arrive(1 + (cw + 1) % T::kConsumers, 256); };
     if (cw == T::kConsumers - 1) next_turn();  // consumer 0 goes first
 
     float o[D / 2], s[BK / 2], corr_lo, corr_hi;
@@ -874,62 +602,6 @@ Params make_params(const void* q, const void* k, const void* v, void* o,
   return p;
 }
 
-// cuTensorMapEncodeTiled, a driver function, reached through the runtime so
-// that the library needs no link against libcuda.
-using EncodeTiledFn = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
-                                   cuuint32_t, void*, const cuuint64_t*,
-                                   const cuuint64_t*, const cuuint32_t*,
-                                   const cuuint32_t*, CUtensorMapInterleave,
-                                   CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                   CUtensorMapFloatOOBfill);
-
-EncodeTiledFn encode_tiled() {
-  static const EncodeTiledFn fn = [] {
-    void* ptr = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
-#endif
-    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<EncodeTiledFn>(ptr)
-               : nullptr;
-  }();
-  return fn;
-}
-
-// A bf16 tensor map over (D, S, heads, B), innermost first, with the
-// caller's element strides (ss, sh, sb), read in 128-byte-swizzled boxes of
-// 64 columns by `rows` rows; rows past S read as zeros. A dimension of
-// extent 1 is never stepped, so its stride (which PyTorch leaves free) is
-// replaced by the tensor's span, which TMA accepts.
-bool encode_map(CUtensorMap* map, const void* base, int d, int s, int heads,
-                int b, int64_t ss, int64_t sh, int64_t sb, int rows) {
-  const EncodeTiledFn fn = encode_tiled();
-  if (fn == nullptr) return false;
-  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(d),
-                              static_cast<cuuint64_t>(s),
-                              static_cast<cuuint64_t>(heads),
-                              static_cast<cuuint64_t>(b)};
-  const int64_t elem[3] = {ss, sh, sb};
-  int64_t span = d;
-  for (int i = 0; i < 3; ++i)
-    if (dims[i + 1] > 1) span += (dims[i + 1] - 1) * elem[i];
-  cuuint64_t strides[3];
-  for (int i = 0; i < 3; ++i)
-    strides[i] = 2 * static_cast<cuuint64_t>(
-                         dims[i + 1] > 1 ? elem[i] : (span + 7) / 8 * 8);
-  const cuuint32_t box[4] = {64, static_cast<cuuint32_t>(rows), 1, 1};
-  const cuuint32_t unit[4] = {1, 1, 1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base),
-            dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 template <int D>
 int launch_bf16(const Params& p, int b, cudaStream_t stream) {
   using T = Bf16Tiles<D>;
@@ -943,14 +615,9 @@ int launch_bf16(const Params& p, int b, cudaStream_t stream) {
       flash_attention_wgmma_kernel<D>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, T::kSmemBytes);
   if (err != cudaSuccess) return static_cast<int>(err);
-  static int sms = 0;  // one block an SM, each walking its work list
-  if (sms == 0) {
-    int dev;
-    cudaError_t e = cudaGetDevice(&dev);
-    if (e == cudaSuccess)
-      e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
+  int sms;  // one block an SM, each walking its work list
+  const cudaError_t e = multiprocessors(&sms);
+  if (e != cudaSuccess) return static_cast<int>(e);
   const long items = static_cast<long>((p.s + T::kBQ - 1) / T::kBQ) * p.h * b;
   const int grid = static_cast<int>(items < sms ? items : sms);
   flash_attention_wgmma_kernel<D><<<grid, 128 * (1 + T::kConsumers),

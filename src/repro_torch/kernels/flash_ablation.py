@@ -5,9 +5,10 @@ goes.
 
 Each variant is ``csrc/flash_attention.cu`` with one change made by text
 substitution (a change whose anchor is missing fails the run), built with
-the library's ``nvcc`` flags into ``build/flash_ablation/`` (all variants at
-once) and timed beside the shipped kernel, first and last, with CUDA events
-after a head start for the card: the llama3.2-1b prefill heads, causal and
+the library's ``nvcc`` flags (``csrc/`` on the include path, for
+``hopper.cuh``) into ``build/flash_ablation/`` (all variants at once) and
+timed beside the shipped kernel, first and last, with CUDA events after a
+head start for the card: the llama3.2-1b prefill heads, causal and
 full, and the qwen2-7b heads, causal, at 4096 tokens. A variant that changes
 only tiles, stages or scheduling must give the shipped kernel's bits; one
 that takes a part out times what is left. Prints one line a variant, then
@@ -34,9 +35,8 @@ REPS = 20
 CASES = [("llama3.2-1b causal", 32, 8, 64, True),
          ("llama3.2-1b full", 32, 8, 64, False),
          ("qwen2-7b causal", 28, 4, 128, True)]
-_TURN_SYNC = 'asm volatile("bar.sync %0, 256;\\n" ::"r"(1 + cw) : "memory");'
-_TURN_ARRIVE = ('asm volatile("bar.arrive %0, 256;\\n" ::"r"(1 + (cw + 1) % '
-                'T::kConsumers)\n                   : "memory");')
+_TURN_SYNC = "bar_sync(1 + cw, 256);"
+_TURN_ARRIVE = "bar_arrive(1 + (cw + 1) % T::kConsumers, 256);"
 _SOFTMAX_HEAD = "    float& corr_lo, float& corr_hi) {\n"
 _QK_HEAD = ("  using T = Bf16Tiles<D>;\n#pragma unroll\n"
             "  for (int kk = 0; kk < D / 16; ++kk) {")
@@ -89,8 +89,8 @@ def _build_all() -> dict:
                                              *VARIANTS.items()]):
         cu = OUT / f"v{i}.cu"
         cu.write_text(_source(changes))
-        cmd = [nvcc, *_build.NVCC_FLAGS, "-shared", "-o", str(cu.with_suffix(
-            ".so")), str(cu)]
+        cmd = [nvcc, *_build.NVCC_FLAGS, "-I", str(_build.CSRC), "-shared",
+               "-o", str(cu.with_suffix(".so")), str(cu)]
         procs[name] = (cu.with_suffix(".so"), subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     out = {}
@@ -116,7 +116,7 @@ def _timed(fn, q, k, v, causal: bool):
 
     def call():
         _build.check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                        out.data_ptr(), strides, B, H, k.shape[1], S, D,
+                        out.data_ptr(), None, strides, B, H, k.shape[1], S, D,
                         int(causal), 0, 1.0 / math.sqrt(D), stream),
                      "flash_attention ablation")
 

@@ -3,10 +3,13 @@
 The reference trains through ``chunked_attention``, a jnp online-softmax
 recurrence that JAX differentiates (``repro/models/layers.py:131``); the
 port's gradient is ``flash_attention_bwd``: its plain version
-(``kernels/ref.py::flash_attention_bwd_ref``) on the CPU, the kernels of
-``csrc/flash_attention_bwd.cu`` on the card. The same seeded numpy inputs
-and output gradient, ``(B, S, H, D)`` as the model hands them over, go
-through ``jax.vjp`` of the reference's ``chunked_attention`` (chunk 64) and
+(``kernels/ref.py::flash_attention_bwd_ref``) on the CPU, the three kernels
+of ``csrc/flash_attention_bwd.cu`` on the card (``flash_bwd_delta_kernel``,
+then ``flash_bwd_dkdv_wgmma_kernel`` and ``flash_bwd_dq_wgmma_kernel`` in
+bf16: persistent, a producer warp feeding a TMA ring to consumer
+warpgroups that run ``wgmma``; FMA kernels in float32). The same seeded
+numpy inputs and output gradient, ``(B, S, H, D)`` as the model hands them
+over, go through ``jax.vjp`` of the reference's ``chunked_attention`` (chunk 64) and
 through the port's plain backward from its forward's output and
 log-sum-exp. Tolerance: 2e-5 in float32, as
 ``tests/test_torch_flash_attention.py`` uses.
@@ -14,7 +17,10 @@ log-sum-exp. Tolerance: 2e-5 in float32, as
 ``test_flash_backward_kernel_matches_plain_on_cuda`` holds the CUDA kernels
 against the plain version on the card (each row of dq, dk and dv within
 1e-2 relative in bf16 and 1e-4 in f32, a row's norm floored at 1e-2 of the
-gradient's largest row) and skips where there is none.
+gradient's largest row), the training shape (1, 8192, 32 / 8, 64) among its
+cases, and skips where there is none. On the card:
+``PYTHONPATH=src python -m pytest -q tests/test_torch_flash_backward.py -m
+cuda``.
 """
 import numpy as np
 import pytest
@@ -139,7 +145,8 @@ def test_backward_rejects_mismatched_shapes():
         flash_attention_bwd(q, kv, kv, q, torch.zeros((1, 4, 7)), q)
 
 
-# (B, H, KV, S, D, dtype, causal, window, layout): the forward's card cases
+# (B, H, KV, S, D, dtype, causal, window, layout): the forward's card cases,
+# then the training shape as the model hands it over
 CUDA_CASES = [
     (1, 8, 2, 1024, 64, torch.bfloat16, True, 0, "bshd"),
     (2, 4, 2, 1000, 64, torch.float32, True, 0, "bhsd"),
@@ -148,9 +155,12 @@ CUDA_CASES = [
     (1, 4, 2, 65, 128, torch.bfloat16, True, 0, "bhsd"),
     (1, 2, 2, 512, 64, torch.float32, False, 0, "bhsd"),
     (1, 2, 2, 512, 64, torch.bfloat16, False, 0, "bhsd"),
+    (1, 4, 2, 768, 128, torch.bfloat16, False, 0, "bhsd"),
     (1, 4, 2, 1024, 64, torch.bfloat16, True, 300, "bshd"),
+    (1, 8, 2, 1536, 128, torch.bfloat16, True, 200, "bshd"),
     (1, 4, 2, 512, 192, torch.bfloat16, True, 0, "bhsd"),
     (1, 4, 2, 256, 192, torch.float32, True, 0, "bhsd"),
+    (1, 32, 8, 8192, 64, torch.bfloat16, True, 0, "bshd"),
 ]
 
 
