@@ -38,6 +38,20 @@ printed:
 4c. switch  — the single-switch aggregation of fig6's software switch:
               ``packet_accumulate`` of 4096 packets of 32 float32 values
               into 1024 descriptor slots, one launch a call;
+4e. failure — phase 4's world (seed 3, timeout 50 ns, noise 0.2) recorded
+              three more times: go-back-N under 0.1 % packet loss (64 KiB a
+              participant), go-back-N with spine 5 crashed from 20 us to
+              120 us (256 KiB), and DCQCN (64 KiB); every run correct, and
+              each trace replayed on the card exact, bit for bit, with
+              quantize and dequantize once and the gathered segment-sum
+              once per tree level;
+4f. flow    — the flow backend (``get_backend("flow")``) over fig7 + fig8
+              + lb, 8 repetitions, at ``fat_tree_4096`` and
+              ``three_tier_4096`` (168 cells each): one batched solve on
+              the card a matrix, every cell within a relative 1e-6 of the
+              same solve on the CPU and 1e-4 of ``model.solve_cell``;
+              lowering wall, the solve's device time and host wall, and
+              Canary's goodput over one static tree's under congestion;
 4b. model   — llama3.2-1b at full width (16 layers, bf16, random weights
               from seed 0) on the port's serving engine: a 4096-token
               prefill (``Engine.prefill_fn``) that must launch the flash
@@ -113,6 +127,19 @@ VARIANTS = {                     # two congestion worlds, distinct trees
     "seed3_t50": dict(seed=3, timeout_ns=50.0, noise_prob=0.2),
     "seed29_t500": dict(seed=29, timeout_ns=500.0, noise_prob=0.05),
 }
+# phase 4e: seed3_t50's world under loss, a spine crash and DCQCN; the
+# messages cut from 1 MiB so the three recordings finish in the run's time
+FAULT_WORLDS = {                 # label: (bytes a participant, SimConfig)
+    "gbn_loss": (64 << 10, dict(transport="gbn", drop_prob=1e-3,
+                                retx_timeout_ns=5e4)),
+    "gbn_spine_crash": (256 << 10, dict(transport="gbn", faults=[
+        {"kind": "switch_crash", "target": 21, "at_ns": 20000.0,
+         "heal_ns": 120000.0}])),        # switch 21: spine 5 of 16
+    "dcqcn": (64 << 10, dict(transport="dcqcn")),
+}
+# phase 4f: the sweep matrix (fig7 + fig8 + lb) at two paper-scale fabrics
+FLOW_TOPOLOGIES = ("fat_tree_4096", "three_tier_4096")
+FLOW_REPS = 8
 ROUND_SHAPE = (128, 256, 8)      # (N, D, slots) of one reduce round
 FIG6_SHAPE = (4096, 32, 1024)    # benchmarks/fig6_single_switch.py:35
 SWITCH_CALLS = 3                 # fig6's timed repetitions (:41)
@@ -686,6 +713,142 @@ def phase_main_path(x: torch.Tensor, rows: dict) -> dict:
     return plans[0]
 
 
+def phase_replay_faults(x: torch.Tensor, rows: dict) -> None:
+    """Trees recorded under loss with go-back-N, under a spine crash and
+    under DCQCN, each replayed in fixed point through its plan on the card:
+    exact, and one launch of each kernel a level."""
+    print("== phase 4e: replay of trees recorded under loss and failure",
+          flush=True)
+    from repro_torch.core.canary import (Algo, AllreduceJob, Simulator,
+                                         scaled_config)
+    from repro_torch.core.trace import (compile_app, fixed_point_replay,
+                                        lower_schedules, schedule_report)
+    from repro_torch.kernels import (fixed_point_scale, launch_counts,
+                                     reset_launch_counts)
+    from repro_torch.kernels.ref import quantize_ref
+
+    replay_kernels = ("quantize", "dequantize", "packet_accumulate_gather")
+    totals = dict.fromkeys(replay_kernels, 0)
+    for label, (msg, kw) in FAULT_WORLDS.items():
+        cfg = scaled_config(16, trace=True, **VARIANTS["seed3_t50"], **kw)
+        jobs = [AllreduceJob(app=0, participants=list(range(P)),
+                             data_bytes=msg)]
+        sim = Simulator(cfg, jobs, algo=Algo.CANARY,
+                        noise_hosts=list(range(P, cfg.num_hosts)))
+        t_rec, res = sync_wall(sim.run)
+        check(res.correct, f"{label}: simulated allreduce incorrect")
+        scheds = compile_app(sim.trace, 0)
+        nb = msg // BLOCK_BYTES
+        check(len(scheds) == nb, f"{label}: {len(scheds)} schedules")
+        rep = schedule_report(scheds, BLOCK_BYTES)
+        plan = lower_schedules(scheds)
+        xs = x[:, :nb].contiguous()
+        scale = fixed_point_scale(xs.abs().max(), bits=BITS, world=P)
+        exact = quantize_ref(xs, scale).to(torch.int64).sum(dim=0)
+
+        reset_launch_counts()
+        t_cold, (out, q) = sync_wall(lambda: fixed_point_replay(
+            plan, xs, bits=BITS, device=DEV))
+        counts = launch_counts()
+        levels = sum(lv.num_segments > 0 for lv in plan.levels)
+        check(counts == {"quantize": 1, "dequantize": 1,
+                         "packet_accumulate": 0,
+                         "packet_accumulate_gather": levels,
+                         "flash_attention": 0, "flash_attention_bwd": 0},
+              f"{label}: launches {counts}, the plan has {levels} levels "
+              f"with segments")
+        for k in replay_kernels:
+            totals[k] += counts[k]
+        t_warm = sorted(sync_wall(lambda: fixed_point_replay(
+            plan, xs, bits=BITS, device=DEV))[0] for _ in range(5))[2]
+        check(q.dtype == torch.int32 and q.shape == xs.shape, "q shape/type")
+        check(torch.equal(q, q[:1].expand_as(q)), f"{label}: rows differ")
+        check(torch.equal(q[0].to(torch.int64), exact),
+              f"{label}: q is not the exact sum of the quantized inputs")
+        err = float((out[0].double() - xs.double().sum(dim=0)).abs().max())
+        tol = (P + 1) * 0.5 / scale.item()
+        check(torch.isfinite(out).all() and err <= tol,
+              f"{label}: |result - float64 sum| {err} > {tol}")
+        drops = {k: v for k, v in res.drop_causes.items() if v}
+        faults = [(e["phase"], e["target"], e["t_ns"])
+                  for e in res.fault_events]
+        print(f"{label}: {msg >> 10} KiB a participant, record {t_rec:.2f} s "
+              f"(simulated {res.duration_ns / 1e3:.1f} us), correct "
+              f"{res.correct}, {res.dropped_packets} drops {drops}, "
+              f"transport {res.transport_stats}, fault events {faults}, "
+              f"generations max "
+              f"{max(s.gen for s in scheds)} ({sum(s.gen > 0 for s in scheds)}"
+              f" of {nb} blocks re-issued), depth max {rep['depth_max']} "
+              f"mean {rep['depth_mean']:.3f}, fan-in max {rep['max_fanin']}, "
+              f"{[lv.num_segments for lv in plan.levels]} segments by level; "
+              f"replay {t_cold * 1e3:.2f} ms cold, {t_warm * 1e3:.2f} ms warm "
+              f"(median of 5), launches {counts}, exact, |result - f64 sum| "
+              f"{err:.3g} <= {tol:.3g}", flush=True)
+    for k, n in totals.items():
+        rows[k].setdefault("paths", {})["replay_faults"] = n
+
+
+def phase_flow() -> None:
+    """The flow backend's batched solve on the card over the sweep matrix
+    at two paper-scale fabrics, held to the same solve on the CPU and to
+    the pure-Python model."""
+    print("== phase 4f: the flow backend on the card", flush=True)
+    import statistics
+
+    from repro_torch.core.canary import get_backend
+    from repro_torch.core.flow import batch, suites
+    from repro_torch.core.flow.backend import FlowBackend
+    from repro_torch.core.flow.model import lower_item, solve_cell
+
+    def rel(a, b):
+        return abs(a - b) / abs(b)
+
+    for topo in FLOW_TOPOLOGIES:
+        items = [it for s in suites.SUITES
+                 for it in suites.expand_suite(s, topo, FLOW_REPS)]
+        t_low, cells = sync_wall(lambda: [lower_item(it) for it in items])
+        t_cold = sync_wall(lambda: batch.run_batch(cells))[0]
+        bk = get_backend("flow")
+        check(bk.device.type == "cuda", f"flow backend on {bk.device}")
+        solves = batch.trace_count()
+        t_cells, got = sync_wall(lambda: bk.run_cells(items))
+        check(batch.trace_count() - solves == 1 and bk.jit_calls == 1
+              and all(c["jit_traces"] == 1 for c in got),
+              f"{topo}: {batch.trace_count() - solves} batched solves")
+        cpu = FlowBackend(device="cpu").run_cells(items)
+        worst_cpu = worst_py = 0.0
+        for c, w, cell in zip(got, cpu, cells):
+            t_py, gp_py = solve_cell(cell)
+            worst_cpu = max(worst_cpu, rel(c["runtime_us"], w["runtime_us"]),
+                            rel(c["goodput_gbps"], w["goodput_gbps"]))
+            worst_py = max(worst_py, rel(c["runtime_us"] * 1e3, t_py),
+                           rel(c["goodput_gbps"], gp_py))
+            check(c["bound"] == w["bound"] and c["label"] == w["label"],
+                  f"{topo}: cell {c['label']} differs from the CPU's")
+        check(worst_cpu <= 1e-6, f"{topo}: card vs CPU {worst_cpu:.3g}")
+        check(worst_py <= 1e-4, f"{topo}: card vs solve_cell {worst_py:.3g}")
+        walls = sorted(sync_wall(lambda: batch.run_batch(cells))[0]
+                       for _ in range(5))
+        load, g, s = batch.pack(cells)
+        solve_ms = event_ms(lambda: batch.solve(load, g, s), 100)
+        bounds = {b: sum(c["bound"] == b for c in got) for b in ("bw", "mix")}
+
+        def mean_gp(label):
+            return statistics.mean(c["goodput_gbps"] for c in got
+                                   if c["label"] == label)
+        ratio = mean_gp("canary/cong=1") / mean_gp("static1/cong=1")
+        print(f"flow {topo}: {len(items)} cells ({load.shape[1]} links "
+              f"padded), lowering {t_low:.3f} s, run_batch host wall "
+              f"{t_cold * 1e3:.3f} ms cold, {walls[2] * 1e3:.3f} ms warm "
+              f"(median of 5), run_cells {t_cells * 1e3:.2f} ms (its lowering"
+              f" and one batched solve), the solve "
+              f"{solve_ms * 1e3:.2f} us of device time (CUDA events); bound "
+              f"{bounds}; card vs CPU {worst_cpu:.3g}, vs solve_cell "
+              f"{worst_py:.3g}; canary / static1 goodput under congestion "
+              f"{ratio:.4f} ({mean_gp('canary/cong=1'):.2f} / "
+              f"{mean_gp('static1/cong=1'):.2f} Gb/s)", flush=True)
+
+
 def phase_switch(rows: dict) -> None:
     """fig6's software switch: 4096 packets of 32 float32 values summed
     into 1024 descriptor slots by ``packet_accumulate``, one launch a
@@ -839,7 +1002,9 @@ def phase_profile_prefill(engine, prompt) -> None:
              if "flash_attention" in name}
     check(sum(flash.values()) == engine.sc.model.num_layers
           and all("flash_attention_wgmma_kernel" in name for name in flash),
-          f"the prefill's flash launches by kernel name: {flash}")
+          f"the prefill's flash launches by kernel name: {flash} (the "
+          f"profiler saw {sum(n for n, _ in by_name.values())} launches, "
+          f"{busy_us / 1e3:.2f} ms busy, in {wall * 1e3:.1f} ms)")
     flash_us = sum(us for name, (_, us) in by_name.items()
                    if "flash_attention" in name)
     gemm_us = sum(us for name, (_, us) in by_name.items()
@@ -963,8 +1128,10 @@ def phase_timing(x: torch.Tensor, plan, rows: dict) -> None:
 def time_gather(q: torch.Tensor, plan, rows: dict) -> None:
     """The gathered segment-sum over the first trace's plan: the levels of
     one replay summed, each level alone, beside the bytes bound, the plain
-    walk and ``torch.sum`` over participants (one PyTorch call for the same
-    sum, without the broadcast). The bound is the function's own, the input
+    walk and ``torch.sum`` over participants with its result copied to
+    every participant's row (the same function in PyTorch calls; printed
+    beside it, the sum alone, which skips the broadcast the kernel
+    writes). The bound is the function's own, the input
     read once and the result written once; the plan's, which also counts
     the switch-node rows written and read back, is printed beside it."""
     from repro_torch.core.trace.executor import run_plan
@@ -986,7 +1153,7 @@ def time_gather(q: torch.Tensor, plan, rows: dict) -> None:
                   + index)
     rows["packet_accumulate_gather"].update(
         ms=k, plain_ms=p, bound_ms=bound_ms(nbytes), bound_by="bytes",
-        library_ms=lib)
+        library_ms=lib_b)
     print(f"packet_accumulate_gather, the {len(levels)} levels of one replay "
           f"(P, B, D)={tuple(q.shape)}: {k:.4f} ms, bound {bound_ms(nbytes):.4f}"
           f" ms ({nbytes / 1e6:.1f} MB: the input read once, the result "
@@ -995,8 +1162,8 @@ def time_gather(q: torch.Tensor, plan, rows: dict) -> None:
           f"{bound_ms(plan_bytes):.4f} ms ({plan_bytes / 1e6:.1f} MB: "
           f"{plan.num_sources} source rows, {plan.scratch_rows} switch-node "
           f"rows, {roots} roots x {pb}); {host:.4f} ms with the host; plain "
-          f"{p:.4f} ms; torch.sum over participants {lib:.4f} ms, with the "
-          f"broadcast copied {lib_b:.4f} ms")
+          f"{p:.4f} ms; torch.sum over participants with the broadcast "
+          f"copied {lib_b:.4f} ms (library_ms), the sum alone {lib:.4f} ms")
     out = torch.empty_like(q)
     scratch = torch.empty((plan.scratch_rows, d), dtype=q.dtype, device=DEV)
     for i, (lv, t) in enumerate(zip(plan.levels, levels)):
@@ -1543,6 +1710,8 @@ def main() -> int:
     phase_kernels(x, rows)
     plan = phase_main_path(x, rows)
     phase_switch(rows)
+    phase_replay_faults(x, rows)
+    phase_flow()
     engine, prompt = phase_model(rows, args.seed)
     phase_train(rows, args.seed)
     phase_timing(x, plan, rows)
@@ -1550,7 +1719,7 @@ def main() -> int:
     phase_profile_prefill(engine, prompt)
 
     # launches by path: the replay, switch or prefill run ("launches" so
-    # far), then the training runs
+    # far), then the replays of phase 4e and the training runs
     first_path = {"quantize": "replay", "dequantize": "replay",
                   "packet_accumulate": "switch",
                   "packet_accumulate_gather": "replay",
@@ -1559,6 +1728,9 @@ def main() -> int:
               "flash_attention_bwd"):
         check(rows[k].get("paths", {}).get("train_canary_fp", 0) > 0,
               f"{k} never launched on the training path")
+    for k in ("quantize", "dequantize", "packet_accumulate_gather"):
+        check(rows[k].get("paths", {}).get("replay_faults", 0) > 0,
+              f"{k} never launched on phase 4e's replays")
     kernels = []
     for k, r in rows.items():
         paths = {first_path[k]: r["launches"]} if k in first_path else {}

@@ -1,2 +1,4 @@
-"""The allreduce system: the packet simulator (``canary``) and the
-record -> compile -> replay bridge (``trace``)."""
+"""The allreduce system: the packet simulator (``canary``) with its
+transport, fault, telemetry and fleet layers, the flow-level fast path
+(``flow``), the record -> compile -> replay bridge (``trace``) and the
+device collective (``collective``)."""

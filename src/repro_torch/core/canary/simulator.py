@@ -96,9 +96,8 @@ class Simulator:
         # other way around, and the core import graph stays jax-free.
         self.transport = None
         if cfg.transport and cfg.transport != "none":
-            raise NotImplementedError(
-                "transport policies are not ported yet (ROADMAP.md, queue 1: "
-                "transport)")
+            from ..transport import make_transport
+            self.transport = make_transport(cfg.transport, self)
         self.strategy = make_strategy(self.algo, self)
         # opt-in telemetry (repro.core.telemetry): the same observation-only
         # deal as the trace recorder — ``None`` when off, so every layer
@@ -110,8 +109,8 @@ class Simulator:
         # finalize step, never at construction.
         self.telemetry = None
         if cfg.telemetry:
-            raise NotImplementedError(
-                "telemetry is not ported yet (ROADMAP.md, queue 1: telemetry)")
+            from ..telemetry.hub import Telemetry  # deferred: optional
+            self.telemetry = Telemetry(self)
         # opt-in fault injection (repro.core.faults): same deal — ``None``
         # without a schedule, so the hot-layer hooks stay one identity check
         # (or one float compare against the link poison horizon) and
@@ -119,9 +118,8 @@ class Simulator:
         # finalize pass so hostproto can bind it.
         self.faults = None
         if cfg.faults:
-            raise NotImplementedError(
-                "fault injection is not ported yet (ROADMAP.md, queue 1: "
-                "faults)")
+            from ..faults import FaultSchedule  # deferred: optional
+            self.faults = FaultSchedule(self)
         # finalize: every layer pre-resolves its per-packet callables now
         # that the full layer graph exists (ARCHITECTURE.md §Performance)
         self.switch.finalize()
@@ -143,9 +141,7 @@ class Simulator:
         self.job_start_ns: Dict[int, float] = {}
         self.app_fallback_blocks: Dict[int, int] = {}
         if admission is not None:
-            raise NotImplementedError(
-                "fleet admission control is not ported yet (ROADMAP.md, "
-                "queue 1: fleet)")
+            admission.attach(self)
 
         # completion tracking. ``apps_active`` counts apps with unfinished
         # blocks so ``all_done`` is O(1) — it is decremented exactly once

@@ -4,8 +4,7 @@ trace recorder / schedule compiler against the JAX package's originals.
 The copies must behave identically: every golden case reproduces the
 committed goldens field for field, every ``SimResult`` field equals the
 reference simulator's on the same case, and the recorded and compiled
-schedules of the replay variants equal the reference's. The layers not
-copied yet refuse to run.
+schedules of the replay variants equal the reference's.
 """
 import dataclasses
 import functools
@@ -32,7 +31,6 @@ VARIANTS = [
     dict(seed=11, timeout_ns=1e6, retx_timeout_ns=2e5),
     dict(seed=29, timeout_ns=500.0, noise_prob=0.05),
 ]
-_UNPORTED_CFG = ("transport", "telemetry", "faults")
 
 
 def _port_cfg(ref_cfg):
@@ -56,16 +54,12 @@ def _ref_case(name):
         algo=algo, n_trees=n_trees, noise_hosts=noise)
 
 
-PORTABLE_CASES = sorted(n for n in CASES
-                        if not set(_UNPORTED_CFG) & set(CASES[n][0]))
-
-
 @pytest.fixture(scope="module")
 def goldens():
     return load_goldens()
 
 
-@pytest.mark.parametrize("name", PORTABLE_CASES)
+@pytest.mark.parametrize("name", sorted(CASES))
 def test_simulator_copy_reproduces_goldens(name, goldens):
     """Field for field against the committed goldens and the reference.
 
@@ -109,24 +103,3 @@ def test_recorded_schedules_match_reference(variant):
             (r.depth, r.max_fanin, r.message_count())
     assert port_trace.schedule_report(port, 1024) == \
         ref_trace.schedule_report(ref, 1024)
-
-
-class _Admission:
-    def attach(self, sim):
-        raise AssertionError("admission must be refused before attach")
-
-
-@pytest.mark.parametrize("layer", ["transport", "telemetry", "faults",
-                                   "admission"])
-def test_unported_layers_raise(layer):
-    cfg_kw = {"transport": dict(transport="gbn"),
-              "telemetry": dict(telemetry=True),
-              "faults": dict(faults=[{"kind": "switch_crash", "target": 5,
-                                      "at_ns": 100.0}]),
-              "admission": {}}[layer]
-    cfg = port_canary.scaled_config(4, **cfg_kw)
-    jobs = [port_canary.AllreduceJob(app=0, participants=list(range(4)),
-                                     data_bytes=4096)]
-    admission = _Admission() if layer == "admission" else None
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port_canary.Simulator(cfg, jobs, admission=admission)
