@@ -14,8 +14,9 @@ printed:
 3. kernels  — each kernel against its plain PyTorch version on the card, at
               the main path's shapes and at ragged ones (the gathered
               segment-sum on a synthetic plan of fan-in 1 to 128 at the
-              replay's width; flash attention: the llama3.2-1b and
-              qwen2-7b prefill head layouts, each also read through the
+              replay's width; flash attention: the llama3.2-1b, qwen2-7b
+              and qwen2-moe-a2.7b (MHA) prefill head layouts, each also
+              read through the
               strides of a (B, S, H, D) transpose as the prefill hands it
               over, S = 1, 65 and 1000, non-causal, windows of 512 and
               300, head_dim 128 non-causal and with a window of 200 in
@@ -59,6 +60,25 @@ printed:
               plain full attention; then ``Engine.generate`` answers 4
               requests (16-token prompts, 32 new tokens), and a forward over
               prompt + answer must agree with the decode logits;
+4g. MoE and Mamba-2 — qwen2-moe-a2.7b and mamba2-130m at full width and
+              one layer period of jamba-v0.1-52b (8 of its 32 layers, every
+              width kept; 32 do not fit one card) on the serving engine, each
+              freed before the next: a 4096-token prefill that launches the
+              flash kernel once an attention layer and nothing else, the same
+              bits twice, held against plain full attention on the same MoE
+              routing at 4b's bounds (the plain route's own routing differs
+              only at near ties of the router, which are counted); MoE slots
+              dropped at capacity by layer; the prefill profiled (device time
+              in matrix products, flash, the MoE router, dispatch and
+              combine, SSD and the rest); 4 requests decoded; then the bf16
+              weights turned to float32 in place: the float32 decode held to
+              a dropless float32 forward on the decode's routing and the
+              float32 flash route to plain attention (within 1e-2), and the
+              bf16 decode and prefill held to the float32 forward at 4b's
+              bounds where the plain bf16 route is itself within them (at
+              random weights the Mamba-2 models in bf16 are not: reported);
+              parameters, init wall, prefill wall cold and warm, decode
+              tok/s, peak memory;
 4d. train   — llama3.2-1b at full width trained by the port's ``Trainer``
               at its published context (B = 1, S = 8192, the chunked
               attention route: the flash forward twice a layer under remat
@@ -103,7 +123,9 @@ is false, or outside a checkout of the repository, it exits non-zero.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import copy
+import gc
 import json
 import subprocess
 import sys
@@ -160,6 +182,10 @@ FLASH_CASES = [
      "bhsd"),
     ("qwen2-7b heads, (B, S, H, D) transposed", 1, 28, 4, 4096, 128,
      torch.bfloat16, True, 0, 2e-2, "bshd"),
+    ("qwen2-moe heads (MHA)", 1, 16, 16, 4096, 128, torch.bfloat16, True, 0,
+     2e-2, "bhsd"),
+    ("qwen2-moe heads (MHA), (B, S, H, D) transposed", 1, 16, 16, 4096, 128,
+     torch.bfloat16, True, 0, 2e-2, "bshd"),
     ("ragged S", 2, 4, 2, 1000, 64, torch.float32, True, 0, 2e-5, "bhsd"),
     ("ragged S, bf16", 2, 4, 2, 1000, 64, torch.bfloat16, True, 0, 2e-2,
      "bhsd"),
@@ -179,6 +205,12 @@ FLASH_CASES = [
     ("head_dim 192, f32", 1, 4, 2, 512, 192, torch.float32, True, 0, 2e-5,
      "bhsd"),
 ]
+# timed in phase 5: the llama3.2-1b prefill (the summary's row), through
+# its transpose, and the head_dim 128 layouts of qwen2-7b and qwen2-moe
+MHA_CASE = "qwen2-moe heads (MHA)"
+TIMED_FLASH = ("llama3.2-1b prefill",
+               "llama3.2-1b prefill, (B, S, H, D) transposed",
+               "qwen2-7b heads", MHA_CASE)
 # q and k are drawn at QK_SCALE and v at 1: the logits q.k/sqrt(D) then
 # spread by QK_SCALE**2 = 4, the softmax is peaked and every output row is
 # O(|v|). (At 0.5 the softmax is near uniform, late rows of a 4096-token
@@ -205,6 +237,19 @@ MAX_DLOGIT, MIN_ARGMAX_AGREE = 0.25, 0.90
 # route); B = 1 keeps the float32 cross-entropy over the 128,256-token
 # vocabulary inside 80 GB. The plain full_attention route below
 # attn_chunk_threshold runs a few steps at B = 4, S = 2048.
+# phase 4g: (arch, layers kept or None for the published depth). Jamba's
+# published 32 layers are ~52 B parameters, ~104 GB in bf16, past one 80 GB
+# card: its depth is cut to one layer period (8 layers: 1 attention, 7
+# Mamba-2, 4 MoE; ~13 B parameters), every width kept
+MOE_SSM_MODELS = (("qwen2-moe-a2.7b", None), ("mamba2-130m", None),
+                  ("jamba-v0.1-52b", 8))
+# a routing choice that differs between two bf16 routes must be a near tie:
+# its gap at the k-th choice within twice the probabilities' difference
+FLIP_MARGIN_RATIO = 2.0
+# float32 decode against a float32 forward, and the float32 flash route
+# against plain attention, on the same routing: one function by two orders
+# of sums (2e-5 for qwen2-moe-a2.7b's decode on the card)
+F32_MAX_DLOGIT = 1e-2
 TRAIN_B, TRAIN_S, TRAIN_STEPS, TRAIN_LR = 1, 8192, 4, 1e-4
 SHORT_B, SHORT_S, SHORT_STEPS = 4, 2048, 2
 TRAIN_MODES = ("auto", "canary_fp")
@@ -990,6 +1035,441 @@ def phase_model(rows: dict, seed: int):
     return engine, prompt
 
 
+class Routes:
+    """Record the port's MoE routing decisions (``(top_w, top_e, aux,
+    probs)`` of every ``moe._route`` call, on the device), or hand recorded
+    ones back in order, by standing in for ``repro_torch.models.moe._route``.
+    Two bf16 routes through a model (flash and plain attention, decode and
+    forward) differ in the last bits of each MoE layer's input, so a token
+    whose router probabilities nearly tie at the k-th choice may pick
+    another expert in each; replaying one route's decisions in the other
+    compares the two on the same routing."""
+
+    def __init__(self):
+        from repro_torch.models import moe
+        self.moe, self.orig = moe, moe._route
+
+    @contextlib.contextmanager
+    def record(self):
+        calls = []
+
+        def route(p, x2d, cfg):
+            out = self.orig(p, x2d, cfg)
+            probs = torch.softmax(x2d.to(torch.float32) @ p.router, dim=-1)
+            calls.append((*out, probs))
+            return out
+        self.moe._route = route
+        try:
+            yield calls
+        finally:
+            self.moe._route = self.orig
+
+    @contextlib.contextmanager
+    def replay(self, calls):
+        it = iter(calls)
+
+        def route(p, x2d, cfg):
+            w, e, aux, _ = next(it)
+            check(e.shape[0] == x2d.shape[0], f"replayed routing of "
+                  f"{e.shape[0]} tokens where {x2d.shape[0]} are routed")
+            return w.to(x2d.device), e, aux
+        self.moe._route = route
+        try:
+            yield
+        finally:
+            self.moe._route = self.orig
+
+
+def route_flips(ref_calls, calls) -> tuple:
+    """``(tokens whose chosen experts differ, the largest ratio of the
+    reference's k-th-choice gap to the two probabilities' difference at such
+    a token)``."""
+    check(len(ref_calls) == len(calls), f"{len(ref_calls)} and {len(calls)} "
+          f"routing calls")
+    flips, worst = 0, 0.0
+    for (_, e1, _, p1), (_, e2, _, p2) in zip(ref_calls, calls):
+        k = e1.shape[1]
+        diff = (e1.sort(-1).values != e2.sort(-1).values).any(-1)
+        n = int(diff.sum())
+        if n:
+            top = p1.topk(k + 1, dim=-1).values
+            margin = (top[:, k - 1] - top[:, k])[diff]
+            noise = (p1 - p2).abs().amax(-1)[diff]
+            worst = max(worst, float((margin / noise.clamp_min(1e-30)).max()))
+            flips += n
+    return flips, worst
+
+
+def flips_note(flips: int, ratio: float) -> str:
+    if not flips:
+        return "every token-layer choice the same"
+    return (f"{flips} token-layer choices differ, each a near tie (its gap "
+            f"at most {ratio:.3g} x the probabilities' difference)")
+
+
+def dropped_slots(calls, cfg) -> list:
+    """Slots each MoE layer drops at its capacity, from its routing."""
+    from repro_torch.models.moe import _capacity, _dispatch_indices
+    out = []
+    for _, e, _, _ in calls:
+        _, pos, _ = _dispatch_indices(e, cfg.moe_top_k, cfg.moe_experts)
+        out.append(int((pos >= _capacity(e.shape[0], cfg)).sum()))
+    return out
+
+
+def decode_routes_as_forward(step_calls, n_moe: int, batch: int) -> list:
+    """The routing of T decode steps (``n_moe`` calls a step, ``batch``
+    tokens each) as one forward over the (batch, T) tokens routes them:
+    per MoE layer, token ``b * T + t``."""
+    if not n_moe:
+        return []
+    T = len(step_calls) // n_moe
+    out = []
+    for layer in range(n_moe):
+        per = [step_calls[t * n_moe + layer] for t in range(T)]
+        w, e, p = (torch.stack([c[i] for c in per], 1).reshape(
+            batch * T, -1) for i in (0, 1, 3))
+        out.append((w, e, per[0][2], p))
+    return out
+
+
+def held_beside(what: str, a, b, ref=None) -> str:
+    """Hold ``a`` against ``b`` at phase 4b's bounds, unconditionally or,
+    given ``ref`` (the ``(max |dlogit|, argmax agreement)`` of a plain bf16
+    route against the float32 forward over the same weights), where that
+    is itself within them: where the bf16 model is farther from its float32
+    self, two of its bf16 routes that differ in every layer cannot be held
+    to the bounds either, and the comparison is reported and left to the
+    float32 checks."""
+    d, agree = logit_agreement(a, b)
+    text = f"max |dlogit| {d:.4g}, argmax agrees on {agree:.2%}"
+    if ref is not None and (ref[0] > MAX_DLOGIT
+                            or ref[1] < MIN_ARGMAX_AGREE):
+        return (f"{text} (not held: the plain bf16 route is itself "
+                f"{ref[0]:.4g} and {ref[1]:.2%} from float32)")
+    check(d <= MAX_DLOGIT and agree >= MIN_ARGMAX_AGREE,
+          f"{what}: max |dlogit| {d}, argmax agrees on {agree}")
+    return f"{text} (<= {MAX_DLOGIT}, >= {MIN_ARGMAX_AGREE:.0%})"
+
+
+def _kernels_under(ev) -> list:
+    out = list(ev.kernels)
+    for ch in ev.cpu_children:
+        out.extend(_kernels_under(ch))
+    return out
+
+
+def _is_product(name: str) -> bool:
+    low = name.lower()
+    return ("gemm" in low or "sm90_xmma" in name or "cutlass" in low
+            or "nvjet" in name)
+
+
+def profile_split(fn) -> dict:
+    """One call of ``fn`` under ``torch.profiler``, with each MoE and SSD
+    function in a ``record_function`` range: device microseconds of the
+    flash kernel, the matrix products outside the router and SSD, the MoE
+    router, the MoE dispatch and combine (sort, search, scatter, gather and
+    the weighted sum; ``_moe_dense`` less the router and the expert
+    products), SSD (``ssd_chunked``) and the rest, and the wall."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from repro_torch.models import mamba2, moe
+    names = {"moe._route": (moe, "_route"),
+             "moe._expert_ffn": (moe, "_expert_ffn"),
+             "moe._moe_dense": (moe, "_moe_dense"),
+             "mamba2.ssd_chunked": (mamba2, "ssd_chunked")}
+
+    def ranged(label, f):
+        def call(*a, **kw):
+            with record_function(label):
+                return f(*a, **kw)
+        return call
+    saved = {label: getattr(m, n) for label, (m, n) in names.items()}
+    for label, (m, n) in names.items():
+        setattr(m, n, ranged(label, saved[label]))
+    try:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            wall, _ = sync_wall(fn)
+    finally:
+        for label, (m, n) in names.items():
+            setattr(m, n, saved[label])
+    events = prof.events()
+    # the ranges also appear on the device's timeline: leave them out
+    device = [e for e in events if e.device_type == DeviceType.CUDA
+              and e.name not in names]
+    busy = sum(e.time_range.elapsed_us() for e in device)
+    by_name: dict = {}
+    for e in device:
+        n, us = by_name.get(e.name, (0, 0.0))
+        by_name[e.name] = (n + 1, us + e.time_range.elapsed_us())
+    under = {label: [] for label in names}
+    for e in events:
+        if e.name in under and e.device_type == DeviceType.CPU:
+            under[e.name].extend(_kernels_under(e))
+    tot = {label: sum(k.duration for k in ks) for label, ks in under.items()}
+    prod_in = sum(k.duration for label in ("moe._route", "mamba2.ssd_chunked")
+                  for k in under[label] if _is_product(k.name))
+    out = dict(
+        wall_us=wall * 1e6, busy_us=busy, launches=len(device),
+        flash=sum(e.time_range.elapsed_us() for e in device
+                  if "flash_attention" in e.name),
+        flash_launches=sum("flash_attention" in e.name for e in device),
+        products=sum(e.time_range.elapsed_us() for e in device
+                     if _is_product(e.name)) - prod_in,
+        moe_router=tot["moe._route"],
+        moe_dispatch_combine=tot["moe._moe_dense"] - tot["moe._route"]
+        - tot["moe._expert_ffn"],
+        ssd=tot["mamba2.ssd_chunked"],
+        top=sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8])
+    out["rest"] = busy - sum(out[k] for k in (
+        "flash", "products", "moe_router", "moe_dispatch_combine", "ssd"))
+    return out
+
+
+def serve_moe_ssm(arch: str, layers, seed: int) -> int:
+    """One configuration at full width on the serving engine.
+
+    Returns the flash launches of its counted prefill.
+
+    bf16: a prefill through the flash kernel (one launch an attention
+    layer, nothing else launched, the same bits twice), plain full
+    attention on the same MoE routing (held at phase 4b's bounds) and on
+    its own (choices that differ counted, each a near tie), the prefill
+    profiled, greedy decode for ``DECODE_BATCH`` requests (its tokens the
+    argmax of the same steps replayed) and a dropless forward over prompt +
+    answer on the decode's routing. Then the weights turned to float32 in
+    place (two
+    copies at full depth do not fit): the prompt forwarded on the prefill's
+    routing through both attention routes, and the replayed steps decoded
+    again against a dropless forward on their routing, each pair within
+    ``F32_MAX_DLOGIT``; the bf16 decode and prefill against the float32
+    ones as :func:`held_beside` says."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import forward, get_config
+    from repro_torch.serving import Engine, ServeConfig
+
+    cfg = get_config(arch, "full")
+    if layers is not None:
+        cfg = cfg.with_(num_layers=layers)
+    n_attn = sum(cfg.layer_kind(i) == "attn" for i in range(cfg.num_layers))
+    n_moe = sum(map(cfg.layer_is_moe, range(cfg.num_layers)))
+    routes = Routes()
+    sc = ServeConfig(model=cfg, batch=DECODE_BATCH, max_len=MAX_LEN)
+    torch.cuda.reset_peak_memory_stats()
+    t_init, engine = sync_wall(lambda: Engine(sc, seed=seed, device=DEV))
+    n_params = sum(p.numel() for p in engine.params.parameters())
+    cut = "" if layers is None else f" (depth cut to {layers} layers)"
+    print(f"{cfg.name}{cut}: {cfg.num_layers} layers ({n_attn} attention, "
+          f"{cfg.num_layers - n_attn} Mamba-2, {n_moe} MoE), d_model "
+          f"{cfg.d_model}, {n_params / 1e9:.3f} B parameters ({cfg.dtype}), "
+          f"init {t_init:.2f} s", flush=True)
+    gen = torch.Generator(device=DEV).manual_seed(seed + 1)
+    prompt = torch.randint(0, cfg.vocab_size, (1, PREFILL_LEN), generator=gen,
+                           device=DEV, dtype=torch.int32)
+
+    def prefill():
+        return engine.prefill_fn(engine.params, prompt, {})[0]
+
+    reset_launch_counts()
+    t_cold, logits = sync_wall(prefill)
+    counts = launch_counts()
+    want = {k: 0 for k in counts}
+    want["flash_attention"] = n_attn
+    check(counts == want, f"{cfg.name} prefill launches {counts}, want "
+          f"flash_attention x {n_attn} and nothing else")
+    check(tuple(logits.shape) == (1, PREFILL_LEN, cfg.vocab_size)
+          and logits.dtype == torch.bfloat16 and torch.isfinite(logits).all(),
+          f"{cfg.name} prefill logits {logits.dtype} {tuple(logits.shape)}")
+    t_warm, _ = sync_wall(lambda: prefill().shape)
+    with routes.record() as flash_routes:
+        again = prefill()
+    check(torch.equal(again, logits), f"{cfg.name}: two prefills differ")
+    del again
+    drops = dropped_slots(flash_routes, cfg)
+    slots = PREFILL_LEN * cfg.moe_top_k
+    print(f"prefill (1, {PREFILL_LEN}): launches {counts}, wall {t_cold:.3f} "
+          f"s cold, {t_warm * 1e3:.1f} ms warm, the same bits twice"
+          + (f"; MoE slots dropped at capacity (factor "
+             f"{cfg.moe_capacity_factor}, {slots} slots a layer) by layer "
+             f"{drops}, {sum(drops) / (slots * n_moe):.1%} in all"
+             if n_moe else ""), flush=True)
+    full_cfg = cfg.with_(attn_chunk_threshold=1 << 30)
+    plain, plain_note = None, ""
+    if n_attn:
+        with torch.inference_mode(), routes.replay(flash_routes):
+            plain, _ = forward(engine.params, prompt, full_cfg)
+        with torch.inference_mode(), routes.record() as own:
+            plain_own, _ = forward(engine.params, prompt, full_cfg)
+        flips, ratio = route_flips(flash_routes, own)
+        check(ratio <= FLIP_MARGIN_RATIO, f"{cfg.name}: a routing choice "
+              f"flipped with a gap {ratio} x the probabilities' difference")
+        d_own, agree_own = logit_agreement(logits, plain_own)
+        del plain_own, own
+        plain_note = (f"; on its own routing {flips_note(flips, ratio)}, max "
+                      f"|dlogit| {d_own:.4g}, argmax agrees on "
+                      f"{agree_own:.2%}")
+    split = profile_split(prefill)
+    busy = split["busy_us"]
+    check(busy > 0, f"{cfg.name}: the profiler saw no device activity")
+    parts = ", ".join(f"{k.replace('_', ' ')} {split[k] / 1e3:.2f} ms "
+                      f"({split[k] / busy:.1%})"
+                      for k in ("products", "flash", "moe_router",
+                                "moe_dispatch_combine", "ssd", "rest"))
+    print(f"profiled prefill: wall {split['wall_us'] / 1e3:.1f} ms, device "
+          f"busy {busy / 1e3:.2f} ms ({busy / split['wall_us']:.1%} of the "
+          f"wall), {split['launches']} launches ({split['flash_launches']} "
+          f"flash); {parts}", flush=True)
+    for name, (n, us) in split["top"]:
+        print(f"  {n:6d} x {us / n:9.2f} us = {us / 1e3:8.2f} ms  "
+              f"{name[:90]}")
+
+    # decode: generate, then the same tokens teacher-forced through decode
+    # steps on a fresh cache (generate's tokens must be their argmax)
+    prompts = torch.randint(0, cfg.vocab_size, (DECODE_BATCH, PROMPT_LEN),
+                            generator=gen, device=DEV, dtype=torch.int32)
+    tokens, stats = engine.generate(prompts, NEW_TOKENS)
+    check(tokens.dtype == torch.int32
+          and tuple(tokens.shape) == (DECODE_BATCH, NEW_TOKENS)
+          and int(tokens.min()) >= 0 and int(tokens.max()) < cfg.vocab_size,
+          f"{cfg.name}: generated {tokens.dtype} {tuple(tokens.shape)}")
+    seq = torch.cat([prompts, tokens], dim=1)
+    step_wall, by_name = device_time_by_kernel(
+        lambda: engine.step_fn(engine.params, engine.cache, tokens[:, -1:]))
+    step_busy = sum(us for _, us in by_name.values())
+    step_note = (f"; one more step profiled: wall {step_wall * 1e3:.1f} ms, "
+                 f"device busy {step_busy / 1e3:.2f} ms "
+                 f"({step_busy / (step_wall * 1e6):.1%}), "
+                 f"{sum(n for n, _ in by_name.values())} launches")
+    del engine.cache
+
+    def teacher_forced(model_cfg):
+        replay = Engine(ServeConfig(model=model_cfg, batch=DECODE_BATCH,
+                                    max_len=MAX_LEN),
+                        params=engine.params, device=DEV)
+        steps = []
+        for t in range(seq.shape[1]):
+            _, lg, replay.cache = replay.step_fn(replay.params, replay.cache,
+                                                 seq[:, t:t + 1])
+            steps.append(lg[:, 0])
+        return torch.stack(steps, dim=1)
+
+    with routes.record() as step_routes:
+        dec = teacher_forced(cfg)
+    check(torch.isfinite(dec).all(), f"{cfg.name}: decode logits not finite")
+    check(torch.equal(dec[:, PROMPT_LEN - 1:-1].argmax(-1).to(torch.int32),
+                      tokens), f"{cfg.name}: generate's tokens are not the "
+          f"argmax of the same decode steps")
+    fwd_routes = decode_routes_as_forward(step_routes, n_moe, DECODE_BATCH)
+    dropless = cfg.with_(moe_capacity_factor=max(
+        1.0, cfg.moe_experts / max(cfg.moe_top_k, 1)))
+    with torch.inference_mode(), routes.replay(fwd_routes):
+        fwd, _ = forward(engine.params, seq, dropless)
+    decode_note = ""
+    if n_moe:
+        with torch.inference_mode(), routes.record() as own:
+            fwd_own, _ = forward(engine.params, seq, dropless)
+        flips, ratio = route_flips(fwd_routes, own)
+        check(ratio <= FLIP_MARGIN_RATIO, f"{cfg.name}: a decode routing "
+              f"choice flipped with a gap {ratio} x the difference")
+        d_own, agree_own = logit_agreement(dec, fwd_own)
+        with torch.inference_mode(), routes.record() as published:
+            forward(engine.params, seq, cfg)
+        pub = dropped_slots(published, cfg)
+        decode_note = (f"; on its own routing {flips_note(flips, ratio)}, "
+                       f"max |dlogit| {d_own:.4g}, argmax agrees on "
+                       f"{agree_own:.2%}; the forward at the published "
+                       f"factor {cfg.moe_capacity_factor} drops {sum(pub)} "
+                       f"slots ({pub} by layer)")
+        del fwd_own, own, published
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+
+    # float32: the bf16 weights turned to float32 in place, bits kept
+    with torch.no_grad():
+        for prm in engine.params.parameters():
+            prm.data = prm.data.to(torch.float32)
+    cfg32 = cfg.with_(dtype="float32")
+    with torch.inference_mode(), routes.replay(flash_routes):
+        truth, _ = forward(engine.params, prompt, cfg32)
+    with torch.inference_mode(), routes.replay(fwd_routes):
+        fwd32, _ = forward(engine.params, seq, dropless.with_(
+            dtype="float32"))
+    with routes.replay(step_routes):
+        dec32 = teacher_forced(cfg32)
+    d32, agree32 = logit_agreement(dec32, fwd32)
+    check(d32 <= F32_MAX_DLOGIT, f"{cfg.name}: float32 decode and forward "
+          f"differ by {d32}")
+    ref_fwd = logit_agreement(fwd, fwd32)
+    held_dec = held_beside(f"{cfg.name}: decode and forward (bf16)", dec, fwd,
+                           ref_fwd)
+    what = (f"a dropless forward (capacity factor "
+            f"{dropless.moe_capacity_factor:g}) over the {seq.shape[1]} "
+            f"tokens on the decode's routing" if n_moe
+            else f"a forward over the {seq.shape[1]} tokens")
+    print(f"decode: {DECODE_BATCH} requests x {NEW_TOKENS} tokens (prompts of "
+          f"{PROMPT_LEN}), prefill-by-steps {stats['prefill_s'] * 1e3:.1f} "
+          f"ms, decode {stats['decode_s'] * 1e3:.1f} ms = "
+          f"{stats['decode_tok_per_s']:.1f} tok/s{step_note}; {what} against "
+          f"the decode "
+          f"logits: {held_dec} (the bf16 forward from the float32 one: max "
+          f"|dlogit| {ref_fwd[0]:.4g}, argmax {ref_fwd[1]:.2%}){decode_note}; "
+          f"in float32, decode against the forward: max |dlogit| {d32:.3g} "
+          f"(<= {F32_MAX_DLOGIT}), argmax agrees on {agree32:.2%}",
+          flush=True)
+    route = "chunked (flash kernel) route" if n_attn else "bf16 prefill"
+    line = f"prefill: the {route} against a float32 forward over the same " \
+           f"weights and routing: "
+    if plain is not None:
+        ref_plain = logit_agreement(plain, truth)
+        flash_f32 = held_beside(f"{cfg.name}: flash vs float32", logits,
+                                truth, ref_plain)
+        # the routes differ in the attention layers only: held as in 4b
+        flash_plain = held_beside(f"{cfg.name}: flash vs plain", logits,
+                                  plain)
+        # the two attention routes in float32 (the flash kernel's f32 body)
+        with torch.inference_mode(), routes.replay(flash_routes):
+            plain32, _ = forward(engine.params, prompt,
+                                 full_cfg.with_(dtype="float32"))
+        d_f32, agree_f32 = logit_agreement(truth, plain32)
+        del plain32
+        check(d_f32 <= F32_MAX_DLOGIT, f"{cfg.name}: the float32 flash and "
+              f"plain routes differ by {d_f32}")
+        line += (f"{flash_f32}; the plain route: max |dlogit| "
+                 f"{ref_plain[0]:.4g}, argmax agrees on {ref_plain[1]:.2%}; "
+                 f"the flash route against the plain one on the same "
+                 f"routing: {flash_plain}{plain_note}; in float32, the two "
+                 f"routes: max |dlogit| {d_f32:.3g} (<= {F32_MAX_DLOGIT}), "
+                 f"argmax agrees on {agree_f32:.2%}")
+    else:
+        d, agree = logit_agreement(logits, truth)
+        line += f"max |dlogit| {d:.4g}, argmax agrees on {agree:.2%}"
+    print(line, flush=True)
+    print(f"{cfg.name}: peak device memory {peak:.2f} GiB while serving in "
+          f"bf16, {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB with "
+          f"the float32 weights", flush=True)
+    del truth, plain, logits, flash_routes, step_routes, fwd_routes, engine
+    del dec, fwd, dec32, fwd32
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts["flash_attention"]
+
+
+def phase_moe_ssm(rows: dict, seed: int) -> None:
+    """Phase 4g: qwen2-moe-a2.7b and mamba2-130m at full width and one
+    layer period of jamba-v0.1-52b, each served, checked and freed before
+    the next."""
+    print("== phase 4g: MoE and Mamba-2 serving", flush=True)
+    t0 = time.perf_counter()
+    flash = 0
+    for arch, layers in MOE_SSM_MODELS:
+        flash += serve_moe_ssm(arch, layers, seed)
+    rows["flash_attention"].setdefault("paths", {})["prefill_4g"] = flash
+    print(f"phase 4g: {time.perf_counter() - t0:.1f} s", flush=True)
+
+
 def phase_profile_prefill(engine, prompt) -> None:
     """One prefill under ``torch.profiler``: device time by kernel and the
     flash kernel's share."""
@@ -1186,8 +1666,9 @@ def time_flash(rows: dict) -> None:
     from repro_torch.kernels import flash_attention
     from repro_torch.kernels.ref import flash_attention_ref
     gen = torch.Generator(device=DEV).manual_seed(4)
+    timed = [c for c in FLASH_CASES if c[0] in TIMED_FLASH]
     for (name, B, H, KV, S, D, dtype, causal, window, _,
-         layout) in FLASH_CASES[:3] + [
+         layout) in timed + [
             ("llama3.2-1b heads, f32", 1, 32, 8, 4096, 64, torch.float32,
              True, 0, None, "bhsd")]:
         q, k, v = random_qkv(gen, B, H, KV, S, D, dtype, layout)
@@ -1207,6 +1688,10 @@ def time_flash(rows: dict) -> None:
             rows["flash_attention"].update(ms=k_ms, plain_ms=p_ms,
                                            bound_ms=b_ms, bound_by=b_by,
                                            library_ms=lib)
+        elif name == MHA_CASE:
+            rows["flash_attention"]["mha_head_dim_128"] = dict(
+                shape=[B, H, S, D], ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
+                bound_by=b_by, library_ms=lib)
         del q, k, v
 
 
@@ -1713,6 +2198,7 @@ def main() -> int:
     phase_replay_faults(x, rows)
     phase_flow()
     engine, prompt = phase_model(rows, args.seed)
+    phase_moe_ssm(rows, args.seed)
     phase_train(rows, args.seed)
     phase_timing(x, plan, rows)
     phase_profile(x, plan)
@@ -1743,7 +2229,8 @@ def main() -> int:
                    plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
                    bound_by=r["bound_by"], library_ms=r["library_ms"],
                    paths=paths)
-        for extra in ("train", "lse_store", "by_kernel"):   # other shapes
+        for extra in ("train", "lse_store", "by_kernel",    # other shapes
+                      "mha_head_dim_128"):
             if extra in r:
                 row[extra] = r[extra]
         kernels.append(row)

@@ -1,21 +1,24 @@
-"""The dense decoder stack (port of ``repro/models/transformer.py``).
+"""The decoder stack (port of ``repro/models/transformer.py``).
 
-What the reference drives from one ``ModelConfig`` and this slice ports:
-dense GQA decoders with RoPE / M-RoPE / none, optional QKV bias, sliding
-windows and a VLM patch-embedding prefix (``extra_embeds``), the prefill
-``forward`` and the single-token ``decode_step`` against a KV cache (a ring
-buffer under a sliding window). MoE layers, Mamba-2 SSM layers and the
-encoder-decoder models raise ``NotImplementedError`` naming their
-``ROADMAP.md`` item.
+What the reference drives from one ``ModelConfig`` and the port runs:
+decoders whose mixers are GQA attention (RoPE / M-RoPE / none, optional
+QKV bias, sliding windows) or Mamba-2 SSM layers (:mod:`.mamba2`), and
+whose feed-forward blocks are dense MLPs or MoE layers (:mod:`.moe`), in
+any interleave the config gives (a Jamba-style hybrid among them); a VLM
+patch-embedding prefix (``extra_embeds``), the prefill ``forward`` and the
+single-token ``decode_step`` against a cache of K/V (a ring buffer under a
+sliding window) and SSM states. The encoder-decoder models raise
+``NotImplementedError`` naming their ``ROADMAP.md`` item.
 
 The reference's pytree becomes ``nn.Module``s whose parameter names are its
 keys (:class:`Transformer` holds ``embed``, ``layers`` and ``final_norm``; a
-:class:`DecoderLayer` holds ``norm1``, ``attn``, ``norm2``, ``mlp``). Its
-``lax.scan`` over stacked layer periods becomes a Python loop over
-``layers`` (layer ``i`` is period ``i // per``, sub-layer ``i % per``).
-With ``cfg.remat`` and gradients enabled, each period runs under
-``torch.utils.checkpoint`` (the reference's ``jax.checkpoint(period_body)``):
-its activations are recomputed in the backward pass instead of stored.
+:class:`DecoderLayer` holds ``norm1``, ``attn`` or ``ssm``, and ``norm2``
+with ``mlp`` or ``moe``). Its ``lax.scan`` over stacked layer periods
+becomes a Python loop over ``layers`` (layer ``i`` is period ``i // per``,
+sub-layer ``i % per``). With ``cfg.remat`` and gradients enabled, each
+period runs under ``torch.utils.checkpoint`` (the reference's
+``jax.checkpoint(period_body)``): its activations are recomputed in the
+backward pass instead of stored.
 
 The functions keep the reference's names and signatures, with ``params`` a
 :class:`Transformer`. Entry points that create tensors (``init_params``,
@@ -36,18 +39,13 @@ from .config import ModelConfig
 from .layers import (MLP, Attention, Embeddings, RMSNorm, attention_forward,
                      decode_attention, embed, mlp_forward, project_qkv,
                      rmsnorm, rotate_qk, torch_dtype, unembed)
+from .mamba2 import (Mamba2, mamba2_decode_step, mamba2_forward,
+                     mamba2_init_cache)
+from .moe import MoE, moe_forward
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise for the parts of the zoo this slice does not port."""
-    if cfg.moe_experts > 0:
-        raise NotImplementedError(
-            f"{cfg.name}: MoE layers are not ported yet (ROADMAP.md queue 1, "
-            f"item 10: moe.py)")
-    if any(cfg.layer_kind(i) == "ssm" for i in range(cfg.num_layers)):
-        raise NotImplementedError(
-            f"{cfg.name}: Mamba-2 SSM layers are not ported yet (ROADMAP.md "
-            f"queue 1, item 10: mamba2.py)")
+    """Raise for the part of the zoo the port does not run yet."""
     if cfg.is_encoder_decoder:
         raise NotImplementedError(
             f"{cfg.name}: the encoder and cross-attention are not ported yet "
@@ -74,14 +72,23 @@ def _lcm(a: int, b: int) -> int:
 
 # -------------------------------------------------------------------- modules
 class DecoderLayer(nn.Module):
-    """Pre-norm attention and MLP: ``norm1``, ``attn``, ``norm2``, ``mlp``."""
+    """Decoder layer ``i``, pre-norm: ``norm1`` and ``attn`` or ``ssm`` by
+    ``cfg.layer_kind(i)``; then ``norm2`` and ``moe`` where
+    ``cfg.layer_is_moe(i)``, else ``mlp`` where ``cfg.d_ff > 0``
+    (reference ``transformer.py:58-75``)."""
 
-    def __init__(self, cfg: ModelConfig, dtype, device=None,
+    def __init__(self, cfg: ModelConfig, i: int, dtype, device=None,
                  gen: Optional[torch.Generator] = None):
         super().__init__()
         self.norm1 = RMSNorm(cfg.d_model, device=device)
-        self.attn = Attention(cfg, dtype, device, gen)
-        if cfg.d_ff > 0:
+        if cfg.layer_kind(i) == "attn":
+            self.attn = Attention(cfg, dtype, device, gen)
+        else:
+            self.ssm = Mamba2(cfg, dtype, device, gen)
+        if cfg.layer_is_moe(i):
+            self.norm2 = RMSNorm(cfg.d_model, device=device)
+            self.moe = MoE(cfg, dtype, device, gen)
+        elif cfg.d_ff > 0:
             self.norm2 = RMSNorm(cfg.d_model, device=device)
             self.mlp = MLP(cfg.d_model, cfg.d_ff, cfg.activation, dtype,
                            device, gen)
@@ -102,17 +109,19 @@ class Transformer(nn.Module):
         self.cfg = cfg
         dtype = torch_dtype(cfg.dtype)
         self.embed = Embeddings(cfg, dtype, device, gen)
-        self.layers = nn.ModuleList(DecoderLayer(cfg, dtype, device, gen)
-                                    for _ in range(cfg.num_layers))
+        self.layers = nn.ModuleList(DecoderLayer(cfg, i, dtype, device, gen)
+                                    for i in range(cfg.num_layers))
         self.final_norm = RMSNorm(cfg.d_model, device=device)
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator,
                 device=None) -> Transformer:
     """Random weights with the reference's distributions and scales
-    (``layers.py:80-94, 248-280``, ``transformer.py:58-109``): normal draws
-    in float32 times ``fan_in ** -0.5``, cast to ``cfg.dtype``; zero QKV
-    biases; float32 RMSNorm scales of ones. ``generator`` lives on
+    (``layers.py:80-94, 248-280``, ``moe.py:39-50``, ``mamba2.py:25-44``,
+    ``transformer.py:58-109``): normal draws in float32 times
+    ``fan_in ** -0.5``, cast to ``cfg.dtype`` (the MoE router stays
+    float32); zero QKV and conv biases; float32 RMSNorm scales and the
+    SSM's float32 constants. ``generator`` lives on
     ``device`` (``None`` means CUDA). The values are not JAX's bits."""
     return Transformer(cfg, device=resolve_device(device), gen=generator)
 
@@ -127,21 +136,36 @@ def _default_positions(cfg: ModelConfig, B: int, S: int,
     return pos
 
 
-def _decoder_sublayer(p: DecoderLayer, x, positions,
-                      cfg: ModelConfig) -> torch.Tensor:
-    h = rmsnorm(p.norm1, x, cfg.norm_eps)
-    x = x + attention_forward(p.attn, h, positions, cfg, causal=True)
+def _feed_forward(p: DecoderLayer, x, cfg: ModelConfig
+                  ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """``x`` plus the layer's MoE or MLP block, and the MoE's aux loss
+    (``None`` for an MLP or no block)."""
+    if hasattr(p, "moe"):
+        y, aux = moe_forward(p.moe, rmsnorm(p.norm2, x, cfg.norm_eps), cfg)
+        return x + y, aux
     if hasattr(p, "mlp"):
         h2 = rmsnorm(p.norm2, x, cfg.norm_eps)
         x = x + mlp_forward(p.mlp, h2, cfg.activation)
-    return x
+    return x, None
 
 
-def _period_body(period: nn.ModuleList, x, positions,
-                 cfg: ModelConfig) -> torch.Tensor:
+def _decoder_sublayer(p: DecoderLayer, x, positions, cfg: ModelConfig
+                      ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    h = rmsnorm(p.norm1, x, cfg.norm_eps)
+    if hasattr(p, "attn"):
+        x = x + attention_forward(p.attn, h, positions, cfg, causal=True)
+    else:
+        x = x + mamba2_forward(p.ssm, h, cfg)
+    return _feed_forward(p, x, cfg)
+
+
+def _period_body(period: nn.ModuleList, x, aux, positions,
+                 cfg: ModelConfig) -> Tuple[torch.Tensor, torch.Tensor]:
     for layer in period:
-        x = _decoder_sublayer(layer, x, positions, cfg)
-    return x
+        x, a = _decoder_sublayer(layer, x, positions, cfg)
+        if a is not None:           # the reference adds a zero for the rest
+            aux = aux + a
+    return x, aux
 
 
 def forward(params: Transformer, tokens: torch.Tensor, cfg: ModelConfig, *,
@@ -153,8 +177,8 @@ def forward(params: Transformer, tokens: torch.Tensor, cfg: ModelConfig, *,
     tokens: (B, S) int. ``extra_embeds`` (VLM): (B, P, d) patch embeddings
     prepended to the token embeddings. ``frames`` belong to the
     encoder-decoder models, not ported yet.
-    Returns (logits (B, S_total, vocab), moe_aux_loss), the loss a float32
-    zero: a dense model has no router.
+    Returns (logits (B, S_total, vocab), moe_aux_loss): the float32 sum of
+    the MoE layers' load-balancing losses (zero without MoE layers).
     """
     check_supported(cfg)
     if frames is not None:
@@ -172,15 +196,15 @@ def forward(params: Transformer, tokens: torch.Tensor, cfg: ModelConfig, *,
     # Sharded execution is ROADMAP.md queue 1, item 12 (parallel).
     per = layer_period(cfg)
     remat = cfg.remat and torch.is_grad_enabled()
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(0, cfg.num_layers, per):
         period = params.layers[i:i + per]
         if remat:
-            x = checkpoint(_period_body, period, x, positions, cfg,
-                           use_reentrant=False)
+            x, aux = checkpoint(_period_body, period, x, aux, positions, cfg,
+                                use_reentrant=False)
         else:
-            x = _period_body(period, x, positions, cfg)
+            x, aux = _period_body(period, x, aux, positions, cfg)
     x = rmsnorm(params.final_norm, x, cfg.norm_eps)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return unembed(params.embed, x), aux
 
 
@@ -193,9 +217,11 @@ def cache_len(cfg: ModelConfig, max_len: int) -> int:
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
                device=None) -> Dict[str, Any]:
-    """Decode cache of zeros: ``{"pos": 0, "layers": [{"k", "v"}, ...]}``,
-    one ``(batch, C, KV, hd)`` pair per layer (the reference stacks them by
-    layer period). ``pos`` is a host int. ``device=None`` means CUDA."""
+    """Decode cache of zeros: ``{"pos": 0, "layers": [...]}``, one entry a
+    layer (the reference stacks them by layer period): ``{"k", "v"}`` of
+    ``(batch, C, KV, hd)`` for an attention layer, ``{"state", "conv"}``
+    (float32, :func:`~.mamba2.mamba2_init_cache`) for an SSM layer. ``pos``
+    is a host int. ``device=None`` means CUDA."""
     check_supported(cfg)
     dev = resolve_device(device)
     dt = torch_dtype(dtype or cfg.dtype)
@@ -203,7 +229,9 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
     shape = (batch, C, cfg.num_kv_heads, cfg.resolved_head_dim)
     layers = [{"k": torch.zeros(shape, dtype=dt, device=dev),
                "v": torch.zeros(shape, dtype=dt, device=dev)}
-              for _ in range(cfg.num_layers)]
+              if cfg.layer_kind(i) == "attn"
+              else mamba2_init_cache(cfg, batch, device=dev)
+              for i in range(cfg.num_layers)]
     return {"pos": 0, "layers": layers}
 
 
@@ -243,18 +271,22 @@ def decode_step(params: Transformer, cache: Dict[str, Any],
     """One decode step. tokens1: (B, 1) -> logits (B, 1, vocab), cache.
 
     Unlike the reference, which returns a new cache pytree, this writes the
-    step's k and v into the cache's tensors in place (no copy of the cache
-    per token) and advances ``cache["pos"]``: the cache passed in is the
-    one returned.
+    step's k and v, or SSM state and conv window, into the cache's tensors
+    in place (no copy of the cache per token) and advances
+    ``cache["pos"]``: the cache passed in is the one returned. An MoE layer
+    routes the step's B tokens with the capacity of B tokens, as the
+    reference's does.
     """
     check_supported(cfg)
     pos = int(cache["pos"])
     x = embed(params.embed, tokens1)
-    for p, kv in zip(params.layers, cache["layers"]):
-        x = _attn_decode_sublayer(p, x, pos, kv, cfg)
-        if hasattr(p, "mlp"):
-            h2 = rmsnorm(p.norm2, x, cfg.norm_eps)
-            x = x + mlp_forward(p.mlp, h2, cfg.activation)
+    for p, c in zip(params.layers, cache["layers"]):
+        if hasattr(p, "attn"):
+            x = _attn_decode_sublayer(p, x, pos, c, cfg)
+        else:
+            h = rmsnorm(p.norm1, x, cfg.norm_eps)
+            x = x + mamba2_decode_step(p.ssm, h, c, cfg)[0]
+        x, _ = _feed_forward(p, x, cfg)
     x = rmsnorm(params.final_norm, x, cfg.norm_eps)
     cache["pos"] = pos + 1
     return unembed(params.embed, x), cache

@@ -2,7 +2,10 @@
 
 The JAX package saves a checkpoint on the CPU and the port restores it, and
 the reverse, each bit for bit: bf16 parameters, AdamW moments in float32 or
-bf16, and an AdamW step past 0. The two packages also write the same
+bf16, and an AdamW step past 0, for the smoke llama and for the smoke jamba
+(whose hybrid period holds different keys at its two positions: a Mamba-2
+layer with an MLP, an attention layer with an MoE block and its
+(n_per, E, d, f) expert leaves). The two packages also write the same
 manifest for the same state. The reference's modules are imported inside
 the ``ref`` fixture.
 """
@@ -24,6 +27,7 @@ from repro_torch.optim import init as adamw_init
 from repro_torch.optim import update as adamw_update
 
 ARCH = "llama3.2-1b"
+HYBRID = "jamba-v0.1-52b"
 STATE_DTYPES = ["float32", "bfloat16"]
 
 
@@ -37,11 +41,11 @@ def ref():
                            models=models, optim=optim)
 
 
-def _jax_state(ref, state_dtype):
-    """The reference's smoke llama (bf16) after two AdamW steps on random
+def _jax_state(ref, state_dtype, arch=ARCH):
+    """The reference's smoke model (bf16) after two AdamW steps on random
     gradients: parameters and an optimizer state at step 2."""
     jax = ref.jax
-    cfg = ref.models.get_config(ARCH, "smoke")
+    cfg = ref.models.get_config(arch, "smoke")
     oc = ref.optim.AdamWConfig(lr=1e-2, state_dtype=state_dtype)
     params = ref.models.init_params(cfg, jax.random.PRNGKey(3))
     opt = ref.optim.init(params, oc)
@@ -55,10 +59,10 @@ def _jax_state(ref, state_dtype):
     return params, opt
 
 
-def _port_state(state_dtype):
-    """The port's smoke llama (bf16) after two AdamW steps on random
+def _port_state(state_dtype, arch=ARCH):
+    """The port's smoke model (bf16) after two AdamW steps on random
     gradients."""
-    cfg = get_config(ARCH, "smoke")
+    cfg = get_config(arch, "smoke")
     oc = AdamWConfig(lr=1e-2, state_dtype=state_dtype)
     params = init_params(cfg, torch.Generator().manual_seed(4), device="cpu")
     opt = adamw_init(params, oc)
@@ -70,8 +74,8 @@ def _port_state(state_dtype):
     return params, opt
 
 
-def _blank(state_dtype):
-    cfg = get_config(ARCH, "smoke")
+def _blank(state_dtype, arch=ARCH):
+    cfg = get_config(arch, "smoke")
     params = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
     return params, adamw_init(params, AdamWConfig(state_dtype=state_dtype))
 
@@ -144,3 +148,38 @@ def test_manifest_names_the_reference_tree(ref, tmp_path):
     assert manifest["treedef"] == str(treedef)
     assert manifest["shapes"] == [list(a.shape) for a in leaves]
     assert manifest["dtypes"] == [str(a.dtype) for a in leaves]
+
+
+def test_port_restores_a_jax_hybrid_checkpoint_bit_for_bit(ref, tmp_path):
+    jparams, jopt = _jax_state(ref, "float32", HYBRID)
+    ref.checkpoint.save_checkpoint(str(tmp_path / "jax"), 3, jparams, jopt)
+    params, opt = _blank("float32", HYBRID)
+    _, _, step = restore_checkpoint(str(tmp_path / "jax"), 3, params, opt)
+    assert step == 3
+    cfg = get_config(HYBRID, "smoke")
+    as_np = ref.jax.tree.map(np.asarray, (jparams, jopt))
+    _assert_same(params, opt, params_from_reference(as_np[0], cfg, "cpu"),
+                 opt_state_from_reference(as_np[1], cfg, "cpu"))
+    save_checkpoint(str(tmp_path / "port"), 3, params, opt)
+    manifests = [json.loads((tmp_path / side / "step_3" /
+                             "manifest.json").read_text())
+                 for side in ("jax", "port")]
+    assert manifests[0] == manifests[1]
+    n = len(ref.jax.tree_util.tree_leaves(jparams))
+    assert manifests[0]["num_leaves"] == 1 + 3 * n
+    assert [2, 4, 256, 512] in manifests[0]["shapes"]   # (n_per, E, d, f)
+
+
+def test_jax_restores_a_port_hybrid_checkpoint_bit_for_bit(ref, tmp_path):
+    params, opt = _port_state("float32", HYBRID)
+    save_checkpoint(str(tmp_path), 7, params, opt)
+    jcfg = ref.models.get_config(HYBRID, "smoke")
+    like = ref.models.init_params(jcfg, ref.jax.random.PRNGKey(0))
+    opt_like = ref.optim.init(like, ref.optim.AdamWConfig())
+    jparams, jopt, step = ref.checkpoint.restore_checkpoint(
+        str(tmp_path), 7, like, opt_like)
+    assert step == 7
+    cfg = get_config(HYBRID, "smoke")
+    as_np = ref.jax.tree.map(np.asarray, (jparams, jopt))
+    _assert_same(params_from_reference(as_np[0], cfg, "cpu"),
+                 opt_state_from_reference(as_np[1], cfg, "cpu"), params, opt)

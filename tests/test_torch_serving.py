@@ -1,10 +1,12 @@
 """The port's serving engine and launcher against the JAX package's.
 
-``Engine.generate`` on the llama3.2-1b smoke config in float32, with the
-reference's weights carried across by ``params_from_reference``, must give
-the reference engine's greedy tokens exactly: at float32 the logits agree to
-1e-4 (``tests/test_torch_models.py``), far inside the gaps between the
-top two logits of these prompts.
+``Engine.generate`` on the llama3.2-1b and jamba smoke configs in float32
+(jamba: Mamba-2 and attention layers, MoE and MLP blocks, K/V and SSM
+caches), with the reference's weights carried across by
+``params_from_reference``, must give the reference engine's greedy tokens
+exactly: at float32 the logits agree to 1e-4
+(``tests/test_torch_models.py``), far inside the gaps between the top two
+logits of these prompts.
 """
 import numpy as np
 import pytest
@@ -23,9 +25,9 @@ from repro_torch.models import get_config
 from repro_torch.serving import Engine, ServeConfig
 
 
-def test_generate_matches_jax_engine():
-    jcfg = j_get_config("llama3.2-1b", "smoke").with_(dtype="float32")
-    tcfg = get_config("llama3.2-1b", "smoke").with_(dtype="float32")
+def _generate_both(arch: str) -> None:
+    jcfg = j_get_config(arch, "smoke").with_(dtype="float32")
+    tcfg = get_config(arch, "smoke").with_(dtype="float32")
     jp = j_init_params(jcfg, jax.random.PRNGKey(0))
     tp = params_from_reference(jax.tree.map(np.asarray, jp), tcfg,
                                device="cpu")
@@ -40,6 +42,14 @@ def test_generate_matches_jax_engine():
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
     assert engine.cache["pos"] == 8 + 7
     assert stats["decode_tok_per_s"] > 0
+
+
+def test_generate_matches_jax_engine():
+    _generate_both("llama3.2-1b")
+
+
+def test_generate_matches_jax_engine_hybrid():
+    _generate_both("jamba-v0.1-52b")
 
 
 def test_prefill_fn_is_the_forward():
@@ -60,6 +70,14 @@ def test_serve_launcher_runs_on_cpu(capsys):
     out = capsys.readouterr().out.splitlines()
     assert out[0] == "generated (2, 3) tokens"
     assert out[1].startswith("prefill ") and out[1].endswith(" tok/s")
+
+
+@pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b", "mamba2-130m",
+                                  "jamba-v0.1-52b"])
+def test_serve_launcher_runs_moe_and_ssm_on_cpu(arch, capsys):
+    serve.main(["--arch", arch, "--batch", "2", "--prompt-len", "5",
+                "--new-tokens", "3", "--max-len", "16", "--device", "cpu"])
+    assert capsys.readouterr().out.startswith("generated (2, 3) tokens")
 
 
 def test_serve_launcher_sliding_window_on_cpu(capsys):
