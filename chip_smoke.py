@@ -100,6 +100,26 @@ printed:
               two kernels timed at the embedding gradient's shape; then
               ``SHORT_STEPS`` ``auto`` steps at B = 4, S = 2048, the plain
               ``full_attention`` route below ``attn_chunk_threshold``;
+4h. whisper — whisper-large-v3 at full width (32 encoder and 32 decoder
+              layers, d 1280, bf16, random weights from seed 0, stub frames
+              (4, 1500, 1280) drawn with std 0.02): ``Engine.generate`` for
+              4 requests (16-token prompts, 32 new tokens), the same tokens
+              twice, the decode's logits against one forward over the same
+              tokens and frames at 4b's bounds where the bf16 model is
+              itself within them of float32, and within 1e-2 in float32
+              (the weights turned to float32 in place); then trained like
+              4d at B = 8, S = 448 (Whisper's decoder context) beside the
+              1500 frames, on the plain attention route: quantize and
+              dequantize once a gradient tensor a ``canary_fp`` step (676),
+              one ``all_reduce(MAX)`` a step for the 25 reference leaves,
+              the first sync bit for bit on an encoder and a decoder
+              tensor; then the workload compiler against the card: the
+              gradient bytes ``canary_fp`` quantized in one step, for
+              whisper and llama, equal to ``total_dp_grad_bytes`` plus the
+              norms ``param_count()`` leaves out, exactly; the H100
+              ``HostSpec``'s predicted forward + backward beside each
+              measured step (reported); two registered scenarios
+              predicted;
 5. timing   — CUDA events over warm launches: each kernel beside its bound,
               its plain version and one PyTorch call for the same function
               (the gathered segment-sum: the levels of one replay summed;
@@ -137,10 +157,14 @@ import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+# H100 SXM, NVIDIA data sheet: HBM3 bytes/s and the dense bf16 tensor-core
+# peak, the constants the workload compiler's HostSpec defaults to
+from repro_torch.launch.mesh import HBM_BW as HBM_BYTES_PER_S  # noqa: E402
+from repro_torch.launch.mesh import PEAK_FLOPS_BF16 as BF16_FLOPS  # noqa: E402
+
 DEV = "cuda"
-HBM_BYTES_PER_S = 3.35e12        # H100 SXM, NVIDIA data sheet
-BF16_FLOPS = 989e12              # dense tensor-core peak, same sheet
-F32_FLOPS = 67e12                # FP32 outside the tensor cores
+F32_FLOPS = 67e12                # FP32 outside the tensor cores, same sheet
 HEAD_START_CYCLES = 40_000_000   # ~20 ms at the H100's boost clock
 P, BLOCK_BYTES, MSG_BYTES = 128, 1024, 1 << 20
 D = BLOCK_BYTES // 4             # float32 values per block (one packet)
@@ -253,7 +277,33 @@ F32_MAX_DLOGIT = 1e-2
 TRAIN_B, TRAIN_S, TRAIN_STEPS, TRAIN_LR = 1, 8192, 4, 1e-4
 SHORT_B, SHORT_S, SHORT_STEPS = 4, 2048, 2
 TRAIN_MODES = ("auto", "canary_fp")
-CHECKED_LEAVES = ("embed.tok", "layers.0.mlp.w_down")
+# phase 4h: whisper-large-v3 at full width. Its stub frames are drawn with
+# std FRAME_STD; it trains at Whisper's published decoder context,
+# max_target_positions = 448 in openai/whisper-large-v3's config, beside its
+# 1500 encoder frames, at B = 8
+WHISPER_ARCH = "whisper-large-v3"
+WHISPER_B, WHISPER_S = 8, 448
+FRAME_STD = 0.02
+# the reference's init_params for whisper-large-v3: 25 leaves
+WHISPER_PARAMS = 1_600_990_720
+# each training run: its batch and length, the gradient tensors and the
+# reference leaves reckoned from the architecture (llama: 9 a layer and 2;
+# whisper: 13 a decoder layer, 8 an encoder layer and 4), the two tensors
+# whose first sync is held bit for bit, the flash forward and backward
+# launches a step (twice and three times a layer on the chunked route,
+# under remat; none below attn_chunk_threshold), the label of its launch
+# counts, and the parameters ModelConfig.param_count() leaves out
+TRAIN_CASES = {
+    MODEL_ARCH: dict(batch=TRAIN_B, seq=TRAIN_S, tensors=16 * 9 + 2,
+                     leaves=11, checked=("embed.tok", "layers.0.mlp.w_down"),
+                     flash=2 * 16, flash_bwd=3 * 16, label="train",
+                     omitted=2048),
+    WHISPER_ARCH: dict(batch=WHISPER_B, seq=WHISPER_S,
+                       tensors=32 * 13 + 32 * 8 + 4, leaves=25,
+                       checked=("encoder.0.mlp.w_down", "layers.0.mlp.w_down"),
+                       flash=0, flash_bwd=0, label="train_whisper",
+                       omitted=34 * 1280),
+}
 UNIT_ROUNDOFF = {torch.bfloat16: 2.0 ** -8, torch.float32: 2.0 ** -24}
 
 
@@ -388,7 +438,6 @@ def phase_device():
     ).stdout.strip().splitlines()[0]
     print(f"device: {name} x{count}")
     print(f"nvidia-smi: {smi}")
-    sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.kernels import _build
     nvcc = _build.find_nvcc()
     nvcc_ver = subprocess.run([nvcc, "--version"], capture_output=True,
@@ -1470,6 +1519,220 @@ def phase_moe_ssm(rows: dict, seed: int) -> None:
     print(f"phase 4g: {time.perf_counter() - t0:.1f} s", flush=True)
 
 
+def serve_whisper(cfg, seed: int) -> None:
+    """whisper-large-v3 at full width on the serving engine: the encoder
+    and each layer's cross K/V over seeded frames, ``Engine.generate`` for
+    ``DECODE_BATCH`` requests (no kernel of the port launched: its
+    attention is below ``attn_chunk_threshold``), the same tokens from a
+    second engine, one decode step profiled, and the decode's logits
+    teacher-forced on a fresh cache held against one forward over the same
+    tokens and frames (at phase 4b's bounds as :func:`held_beside` says);
+    then the weights turned to float32 in place and the two held within
+    ``F32_MAX_DLOGIT``."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import forward
+    from repro_torch.serving import Engine, ServeConfig
+
+    sc = ServeConfig(model=cfg, batch=DECODE_BATCH, max_len=MAX_LEN)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t_init, engine = sync_wall(lambda: Engine(sc, seed=seed, device=DEV))
+    named = dict(engine.params.named_parameters())
+    n_params = sum(prm.numel() for prm in named.values())
+    print(f"{cfg.name}: {cfg.encoder_layers} encoder and {cfg.num_layers} "
+          f"decoder layers, d_model {cfg.d_model}, {cfg.num_heads} heads of "
+          f"{cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, "
+          f"{cfg.encoder_seq} frames; {n_params} parameters in {len(named)} "
+          f"tensors ({cfg.dtype}, {n_params * 2 / 1e9:.2f} GB), init "
+          f"{t_init:.2f} s", flush=True)
+    check(n_params == WHISPER_PARAMS, f"{n_params} parameters, the "
+          f"reference's init_params holds {WHISPER_PARAMS}")
+    gen = torch.Generator(device=DEV).manual_seed(seed + 2)
+    frames = (torch.randn((DECODE_BATCH, cfg.encoder_seq, cfg.d_model),
+                          generator=gen, device=DEV) * FRAME_STD).to(
+        torch.bfloat16)
+    prompts = torch.randint(0, cfg.vocab_size, (DECODE_BATCH, PROMPT_LEN),
+                            generator=gen, device=DEV, dtype=torch.int32)
+
+    def cross():
+        return engine.cross_fn(engine.params, frames, cfg)
+    reset_launch_counts()
+    t_cold, kv = sync_wall(cross)
+    t_warm, kv = sync_wall(cross)
+    shape = (DECODE_BATCH, cfg.encoder_seq, cfg.num_kv_heads, cfg.head_dim)
+    check(len(kv) == cfg.num_layers and all(
+        tuple(t.shape) == shape and t.dtype == torch.bfloat16
+        and bool(torch.isfinite(t).all()) for e in kv for t in e.values()),
+        "the cross K/V cache")
+    del kv
+    tokens, stats = engine.generate(prompts, NEW_TOKENS, frames=frames)
+    counts = launch_counts()
+    check(not any(counts.values()), f"whisper serving launched {counts}")
+    check(tokens.dtype == torch.int32
+          and tuple(tokens.shape) == (DECODE_BATCH, NEW_TOKENS)
+          and int(tokens.min()) >= 0 and int(tokens.max()) < cfg.vocab_size,
+          f"generated {tokens.dtype} {tuple(tokens.shape)}")
+    again, _ = Engine(sc, params=engine.params, device=DEV).generate(
+        prompts, NEW_TOKENS, frames=frames)
+    check(torch.equal(again, tokens), "two runs gave different tokens")
+    del again
+    step_wall, by_name = device_time_by_kernel(
+        lambda: engine.step_fn(engine.params, engine.cache, tokens[:, -1:]))
+    step_busy = sum(us for _, us in by_name.values())
+    del engine.cache
+    print(f"encoder + cross K/V over ({DECODE_BATCH}, {cfg.encoder_seq}, "
+          f"{cfg.d_model}) frames: {t_cold * 1e3:.1f} ms cold, "
+          f"{t_warm * 1e3:.1f} ms warm; generate: {DECODE_BATCH} requests x "
+          f"{NEW_TOKENS} tokens (prompts of {PROMPT_LEN}), launches {counts},"
+          f" to the first token {stats['prefill_s'] * 1e3:.1f} ms (encoder, "
+          f"cross K/V and the prompt's {PROMPT_LEN} steps), decode "
+          f"{stats['decode_s'] * 1e3:.1f} ms = "
+          f"{stats['decode_tok_per_s']:.1f} tok/s, the same tokens from a "
+          f"second engine; one more decode step profiled: wall "
+          f"{step_wall * 1e3:.1f} ms, device busy {step_busy / 1e3:.2f} ms "
+          f"({step_busy / (step_wall * 1e6):.1%}), "
+          f"{sum(n for n, _ in by_name.values())} launches", flush=True)
+
+    seq = torch.cat([prompts, tokens], dim=1)
+
+    def teacher_forced(model_cfg, fr):
+        replay = Engine(ServeConfig(model=model_cfg, batch=DECODE_BATCH,
+                                    max_len=MAX_LEN),
+                        params=engine.params, device=DEV)
+        replay.cache["cross"] = replay.cross_fn(replay.params, fr, model_cfg)
+        steps = []
+        for t in range(seq.shape[1]):
+            _, lg, replay.cache = replay.step_fn(replay.params, replay.cache,
+                                                 seq[:, t:t + 1])
+            steps.append(lg[:, 0])
+        return torch.stack(steps, dim=1)
+
+    dec = teacher_forced(cfg, frames)
+    check(torch.isfinite(dec).all(), "decode logits not finite")
+    check(torch.equal(dec[:, PROMPT_LEN - 1:-1].argmax(-1).to(torch.int32),
+                      tokens), "generate's tokens are not the argmax of the "
+          "same decode steps")
+    fwd, _ = engine.prefill_fn(engine.params, seq, {"frames": frames})
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+
+    # float32: the bf16 weights turned to float32 in place, bits kept
+    with torch.no_grad():
+        for prm in engine.params.parameters():
+            prm.data = prm.data.to(torch.float32)
+    cfg32 = cfg.with_(dtype="float32")
+    frames32 = frames.float()
+    with torch.inference_mode():
+        fwd32, _ = forward(engine.params, seq, cfg32, frames=frames32)
+    dec32 = teacher_forced(cfg32, frames32)
+    d32, agree32 = logit_agreement(dec32, fwd32)
+    check(d32 <= F32_MAX_DLOGIT, f"float32 decode and forward differ by "
+          f"{d32}")
+    ref_fwd = logit_agreement(fwd, fwd32)
+    held = held_beside("whisper: decode and forward (bf16)", dec, fwd,
+                       ref_fwd)
+    dec_vs32 = logit_agreement(dec, dec32)
+    print(f"decode logits teacher-forced over the {seq.shape[1]} tokens "
+          f"against one forward over the same tokens and frames: {held}; "
+          f"in float32: max |dlogit| {d32:.3g} (<= {F32_MAX_DLOGIT}), argmax "
+          f"agrees on {agree32:.2%}; bf16 against float32: the forward max "
+          f"|dlogit| {ref_fwd[0]:.4g}, argmax {ref_fwd[1]:.2%}, the decode "
+          f"{dec_vs32[0]:.4g}, {dec_vs32[1]:.2%}; peak device memory "
+          f"{peak:.2f} GiB serving in bf16, "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB with the "
+          f"float32 weights", flush=True)
+    del engine, dec, fwd, dec32, fwd32, frames, frames32
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def compiler_against_card(runs: dict) -> None:
+    """The workload compiler (``repro_torch.core.workload``) beside the
+    card: for each trained model, the bytes of the gradient tensors
+    ``canary_fp`` quantized in one step, as float32, must equal
+    ``total_dp_grad_bytes(cfg, grad_dtype="float32")`` plus 4 bytes for
+    each parameter ``param_count()`` leaves out, named one by one; the
+    default (H100) ``HostSpec``'s predicted forward + backward is printed
+    beside each measured step (reported, not held); and two registered
+    scenarios are predicted."""
+    from repro_torch.core.workload import (HostSpec, build_timeline,
+                                           pack_buckets, predict_scenario,
+                                           total_dp_grad_bytes)
+    from repro_torch.launch.analysis import model_flops_per_step
+    from repro_torch.models import Transformer, get_config
+
+    host = HostSpec()
+    print(f"workload compiler: HostSpec() = {host.peak_flops / 1e12:.0f} "
+          f"TFLOP/s bf16, {host.hbm_bw / 1e12:.2f} TB/s, mfu {host.mfu}",
+          flush=True)
+    for arch, arch_runs in runs.items():
+        cfg, case = get_config(arch, "full"), TRAIN_CASES[arch]
+        named = dict(Transformer(cfg, device="meta").named_parameters())
+        omitted = [n for n in named if n in ("final_norm.scale",
+                                             "enc_norm.scale")
+                   or n.endswith(".norm_cross.scale")]
+        extra = sum(named[n].numel() for n in omitted)
+        sizes = arch_runs["canary_fp"]["quantized"]
+        got = 4 * sum(sizes)
+        want = total_dp_grad_bytes(cfg, grad_dtype="float32")
+        check(len(sizes) == len(named) and extra == case["omitted"]
+              and got == want + 4 * extra,
+              f"{arch}: {len(sizes)} tensors quantized, {got} bytes; the "
+              f"compiler's {want} + 4 x {extra}")
+        shown = [n for n in omitted if ".norm_cross." not in n]
+        cross = len(omitted) - len(shown)
+        if cross:
+            shown.append(f"layers.{{0..{cross - 1}}}.norm_cross.scale")
+        print(f"{arch}: canary_fp quantized {len(sizes)} gradient tensors in "
+              f"one step, {got} bytes as float32 = total_dp_grad_bytes "
+              f"{want} + 4 x {extra} parameters param_count() leaves out "
+              f"({', '.join(shown)}; {len(omitted)} tensors)", flush=True)
+        shapes = [(case["batch"], case["seq"], arch_runs["auto"]["warm_s"],
+                   "auto warm median")]
+        if "short" in arch_runs:
+            shapes.append((SHORT_B, SHORT_S, arch_runs["short"]["warm_s"],
+                           "auto, last"))
+        plan = pack_buckets(cfg, bucket_bytes=1 << 20)
+        for batch, seq, measured, what in shapes:
+            tl = build_timeline(cfg, plan, seq=seq, global_batch=batch,
+                                dp_hosts=1)
+            flops = model_flops_per_step(cfg, "train", seq, batch)
+            print(f"  B {batch}, S {seq}: build_timeline predicts forward "
+                  f"{tl.forward_ns / 1e6:.2f} ms + backward "
+                  f"{tl.backward_ns / 1e6:.2f} ms = "
+                  f"{tl.compute_ns / 1e6:.2f} ms; measured step ({what}) "
+                  f"{measured * 1e3:.1f} ms, "
+                  f"{measured * 1e9 / tl.compute_ns:.2f}x the prediction; "
+                  f"model_flops_per_step {flops / 1e12:.3f} TFLOP "
+                  f"({flops / measured / BF16_FLOPS:.1%} of the peak at the "
+                  f"measured step)", flush=True)
+    for name in ("whisper/fat_tree", "llama3-dense/fat_tree"):
+        t, pred = sync_wall(lambda: predict_scenario(name))
+        check(pred.correct, f"predict_scenario({name!r}) is not exact")
+        print(f"predict_scenario({name!r}): {pred.summary()}, "
+              f"exact={pred.correct}, {t:.2f} s of host simulation",
+              flush=True)
+
+
+def phase_whisper(rows: dict, seed: int, llama_runs: dict) -> None:
+    """Phase 4h: whisper-large-v3 at full width served (freed after), then
+    trained in a one-rank NCCL group; then the workload compiler against
+    both trained models."""
+    print("== phase 4h: whisper-large-v3 (encoder-decoder) at full width",
+          flush=True)
+    from repro_torch.models import get_config
+    t0 = time.perf_counter()
+    cfg = get_config(WHISPER_ARCH, "full")
+    check(cfg.remat and cfg.dtype == "bfloat16"
+          and max(WHISPER_S, cfg.encoder_seq) < cfg.attn_chunk_threshold,
+          f"whisper config: remat {cfg.remat}, {cfg.dtype}, below "
+          f"attn_chunk_threshold {cfg.attn_chunk_threshold}")
+    serve_whisper(cfg, seed)
+    with one_rank_nccl() as mesh:
+        runs = train_both_modes(cfg, mesh, seed, rows)
+    compiler_against_card({MODEL_ARCH: llama_runs, WHISPER_ARCH: runs})
+    print(f"phase 4h: {time.perf_counter() - t0:.1f} s", flush=True)
+
+
 def phase_profile_prefill(engine, prompt) -> None:
     """One prefill under ``torch.profiler``: device time by kernel and the
     flash kernel's share."""
@@ -1790,14 +2053,33 @@ def time_flash_bwd(rows: dict) -> None:
     torch.cuda.empty_cache()
 
 
-def train_flops(cfg, tokens: int, seq: int) -> float:
+def train_flops(cfg, batch: int, seq: int) -> float:
     """Model FLOPs of one training step (PaLM, Chowdhery et al. 2022, app.
     B): 6 N per token for the parameters' products, forward and backward,
     plus 12 L H hd S per token for attention's; remat's recomputation is
-    not counted."""
-    n = cfg.param_count()
-    attn = 12 * cfg.num_layers * cfg.num_heads * cfg.resolved_head_dim * seq
-    return float(tokens * (6 * n + attn))
+    not counted. In an encoder-decoder the encoder's parameters and the
+    cross K and V projections meet the batch's ``encoder_seq`` frames, the
+    rest its ``seq`` tokens; the encoder's attention pairs frames with
+    frames, each decoder layer's self-attention tokens with tokens and its
+    cross-attention tokens with frames."""
+    width = 12 * cfg.num_heads * cfg.resolved_head_dim
+    tokens = batch * seq
+    if not cfg.is_encoder_decoder:
+        return float(tokens * (6 * cfg.param_count()
+                               + width * cfg.num_layers * seq))
+    from repro_torch.models import Transformer
+    T = cfg.encoder_seq
+    named = Transformer(cfg, device="meta").named_parameters()
+    on_frames = on_tokens = 0
+    for name, prm in named:
+        if name.startswith("encoder.") or name.endswith((".cross.wk",
+                                                        ".cross.wv")):
+            on_frames += prm.numel()
+        else:
+            on_tokens += prm.numel()
+    return float(6 * (on_frames * batch * T + on_tokens * tokens)
+                 + width * (cfg.encoder_layers * T * batch * T
+                            + cfg.num_layers * (seq + T) * tokens))
 
 
 def sync_bytes(grads: dict) -> dict:
@@ -1820,8 +2102,10 @@ MAX_REDUCES = {"calls": 0}   # all_reduce(MAX) calls since the last reset
 
 def count_max_all_reduces() -> None:
     """Count every ``torch.distributed.all_reduce`` with op MAX (the
-    fixed-point scales') in ``MAX_REDUCES``."""
+    fixed-point scales') in ``MAX_REDUCES``, once installed."""
     import torch.distributed as dist
+    if MAX_REDUCES.get("installed"):
+        return
     real = dist.all_reduce
 
     def counting(tensor, op=dist.ReduceOp.SUM, group=None, async_op=False):
@@ -1829,9 +2113,74 @@ def count_max_all_reduces() -> None:
             MAX_REDUCES["calls"] += 1
         return real(tensor, op=op, group=group, async_op=async_op)
     dist.all_reduce = counting
+    MAX_REDUCES["installed"] = True
 
 
-def phase_train(rows: dict, seed: int) -> None:
+@contextlib.contextmanager
+def quantized_sizes():
+    """The ``numel`` of every tensor the collective quantizes meanwhile."""
+    from repro_torch.core.collective import api
+    real, sizes = api.quantize, []
+
+    def recording(x, scale):
+        sizes.append(x.numel())
+        return real(x, scale)
+    api.quantize = recording
+    try:
+        yield sizes
+    finally:
+        api.quantize = real
+
+
+@contextlib.contextmanager
+def one_rank_nccl():
+    """A one-rank NCCL process group and the port's mesh over it."""
+    import torch.distributed as dist
+
+    from repro_torch.train import make_mesh
+    count_max_all_reduces()
+    with tempfile.TemporaryDirectory() as tmp:
+        t_init, _ = sync_wall(lambda: dist.init_process_group(
+            "nccl", init_method=f"file://{tmp}/rendezvous", world_size=1,
+            rank=0))
+        try:
+            mesh = make_mesh()
+            check(dist.get_backend(mesh.inner) == "nccl" and mesh.size == 1,
+                  "the mesh is not a one-rank NCCL group")
+            print(f"one-rank NCCL group up in {t_init:.2f} s", flush=True)
+            yield mesh
+        finally:
+            dist.destroy_process_group()
+
+
+def train_both_modes(cfg, mesh, seed: int, rows: dict) -> dict:
+    """``TRAIN_STEPS`` steps of ``auto``, then as many of ``canary_fp``
+    from the same initial state: ``{mode: train_mode's result}``, the
+    step-0 losses held equal."""
+    case = TRAIN_CASES[cfg.name]
+    flops = train_flops(cfg, case["batch"], case["seq"])
+    tokens = case["batch"] * case["seq"]
+    route = ("the chunked attention route"
+             if case["seq"] >= cfg.attn_chunk_threshold
+             else "plain full_attention")
+    frames = (f" and {case['batch'] * cfg.encoder_seq} encoder frames"
+              if cfg.is_encoder_decoder else "")
+    print(f"{cfg.name}: B {case['batch']}, S {case['seq']} ({tokens} tokens "
+          f"a step{frames}, {route}), remat on, AdamW float32 moments, lr "
+          f"{TRAIN_LR}; model FLOPs a step {flops / 1e12:.2f} T", flush=True)
+    runs = {mode: train_mode(cfg, mode, mesh, seed, rows, flops)
+            for mode in TRAIN_MODES}
+    a, c = runs["auto"]["losses"], runs["canary_fp"]["losses"]
+    check(abs(a[0] - c[0]) <= 1e-6 * abs(a[0]),
+          f"step 0 losses differ between the modes: {a[0]} {c[0]}")
+    print("losses by step, auto: " + ", ".join(f"{x:.6f}" for x in a)
+          + "; canary_fp: " + ", ".join(f"{x:.6f}" for x in c)
+          + " (step 0: the same weights and batch, before any sync)",
+          flush=True)
+    return runs
+
+
+def phase_train(rows: dict, seed: int) -> dict:
     """llama3.2-1b at full width trained on the card through the port's
     trainer at its published context, ``TRAIN_STEPS`` steps of
     ``grad_sync="auto"`` and of ``"canary_fp"`` from the same initial
@@ -1839,13 +2188,12 @@ def phase_train(rows: dict, seed: int) -> None:
     backward kernels on every layer, and every ``canary_fp`` step quantizes
     and dequantizes every gradient tensor once through the kernels with one
     scale a reference leaf; the first one is held against the plain
-    versions. Then a few steps of the plain route at S = 2048."""
+    versions. Then a few steps of the plain route at S = 2048. Returns
+    :func:`train_both_modes`' result and the short route's (``"short"``).
+    """
     print("== phase 4d: training (llama3.2-1b, full width, one-rank NCCL "
           "group)", flush=True)
-    import torch.distributed as dist
-
     from repro_torch.models import get_config
-    from repro_torch.train import make_mesh
 
     cfg = get_config(MODEL_ARCH, "full")
     check(cfg.remat and cfg.dtype == "bfloat16"
@@ -1855,35 +2203,10 @@ def phase_train(rows: dict, seed: int) -> None:
           f"training config: remat {cfg.remat}, {cfg.dtype}, S {TRAIN_S} "
           f"and {SHORT_S} against attn_chunk_threshold "
           f"{cfg.attn_chunk_threshold}")
-    tokens = TRAIN_B * TRAIN_S
-    flops = train_flops(cfg, tokens, TRAIN_S)
-    count_max_all_reduces()
-    losses = {}
-    with tempfile.TemporaryDirectory() as tmp:
-        t_init, _ = sync_wall(lambda: dist.init_process_group(
-            "nccl", init_method=f"file://{tmp}/rendezvous", world_size=1,
-            rank=0))
-        try:
-            mesh = make_mesh()
-            check(dist.get_backend(mesh.inner) == "nccl" and mesh.size == 1,
-                  "the mesh is not a one-rank NCCL group")
-            print(f"one-rank NCCL group up in {t_init:.2f} s; {cfg.name}: "
-                  f"B {TRAIN_B}, S {TRAIN_S} ({tokens} tokens a step, the "
-                  f"chunked attention route), remat on, AdamW float32 "
-                  f"moments, lr {TRAIN_LR}; model FLOPs a step "
-                  f"{flops / 1e12:.2f} T", flush=True)
-            for mode in TRAIN_MODES:
-                losses[mode] = train_mode(cfg, mode, mesh, seed, rows, flops)
-            train_short_route(cfg, mesh, seed)
-        finally:
-            dist.destroy_process_group()
-    a, c = losses["auto"], losses["canary_fp"]
-    check(abs(a[0] - c[0]) <= 1e-6 * abs(a[0]),
-          f"step 0 losses differ between the modes: {a[0]} {c[0]}")
-    print("losses by step, auto: " + ", ".join(f"{x:.6f}" for x in a)
-          + "; canary_fp: " + ", ".join(f"{x:.6f}" for x in c)
-          + " (step 0: the same weights and batch, before any sync)",
-          flush=True)
+    with one_rank_nccl() as mesh:
+        runs = train_both_modes(cfg, mesh, seed, rows)
+        runs["short"] = train_short_route(cfg, mesh, seed)
+    return runs
 
 
 def make_trainer(cfg, mode: str, mesh, seed: int, batch: int, seq: int,
@@ -1901,26 +2224,31 @@ def make_trainer(cfg, mode: str, mesh, seed: int, batch: int, seq: int,
 
 
 def train_mode(cfg, mode: str, mesh, seed: int, rows: dict,
-               flops: float) -> list:
-    """One mode's run of ``Trainer.run``; returns its losses. For
-    ``canary_fp`` the first step's sync is checked, the launches and the
-    scales' all-reduces of every step counted, one more step profiled and
-    the kernels timed at the largest tensor."""
+               flops: float) -> dict:
+    """One mode's run of ``Trainer.run`` at the model's ``TRAIN_CASES``
+    shape: ``{"losses", "warm_s"}`` (the warm median step wall) and for
+    ``canary_fp`` ``"quantized"``, the sizes of the tensors its first step
+    quantized. For ``canary_fp`` the first step's sync is checked, the
+    launches and the scales' all-reduces of every step counted, one more
+    step profiled and, for llama, the kernels timed at the largest
+    tensor."""
     from repro_torch.convert import reference_leaves
     from repro_torch.kernels import (WRAPPERS, fixed_point_scale,
                                      launch_counts, reset_launch_counts)
     from repro_torch.kernels.ref import dequantize_ref, quantize_ref
     from repro_torch.train import make_train_step
+    case = TRAIN_CASES[cfg.name]
+    batch, seq = case["batch"], case["seq"]
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    t_init, trainer = make_trainer(cfg, mode, mesh, seed, TRAIN_B, TRAIN_S,
+    t_init, trainer = make_trainer(cfg, mode, mesh, seed, batch, seq,
                                    TRAIN_STEPS)
     leaves = dict(trainer.params.named_parameters())
     n_params = sum(p.numel() for p in leaves.values())
-    check(len(leaves) == 9 * cfg.num_layers + 2,
-          f"{len(leaves)} parameter tensors")
+    check(len(leaves) == case["tensors"], f"{len(leaves)} parameter tensors,"
+          f" reckoned {case['tensors']}")
     groups = [leaf.names for leaf in reference_leaves(cfg)]
-    check(len(groups) == 11, f"{len(groups)} reference leaves")
+    check(len(groups) == case["leaves"], f"{len(groups)} reference leaves")
     seen = {}
 
     def verify(raw, synced):
@@ -1936,7 +2264,7 @@ def train_mode(cfg, mode: str, mesh, seed: int, rows: dict,
                 g, y = raw[name], synced[name]
                 check(y.dtype == g.dtype and y.shape == g.shape
                       and bool(torch.isfinite(y).all()), f"synced {name}")
-                if name in CHECKED_LEAVES:
+                if name in case["checked"]:
                     want = dequantize_ref(quantize_ref(g, s), s).to(g.dtype)
                     check(torch.equal(y, want), f"synced {name} is not the "
                           f"plain quantize -> dequantize of its gradient "
@@ -1950,7 +2278,7 @@ def train_mode(cfg, mode: str, mesh, seed: int, rows: dict,
                 check(bool((err <= bound).all()), f"synced {name}: |synced "
                       f"- g| above 0.5 / scale + one rounding of g")
                 worst = max(worst, float((err * s).max()))
-        seen.update(raw=raw, tok=raw["embed.tok"], worst=worst)
+        seen.update(raw=raw, first=raw[case["checked"][0]], worst=worst)
 
     if mode == "canary_fp":     # the run's first step is checked
         plain = trainer.step_fn
@@ -1958,7 +2286,9 @@ def train_mode(cfg, mode: str, mesh, seed: int, rows: dict,
 
         def first_step(*args):
             trainer.step_fn = plain
-            out = checked(*args)
+            with quantized_sizes() as sizes:
+                out = checked(*args)
+            seen["quantized"] = sizes
             counted = launch_counts()    # the measurement's launches and
             reduces = MAX_REDUCES["calls"]  # all-reduces are not the path's
             profile_sync(seen.pop("raw"), trainer.tc, mesh, groups)
@@ -1977,19 +2307,20 @@ def train_mode(cfg, mode: str, mesh, seed: int, rows: dict,
     fp = TRAIN_STEPS * len(leaves) if mode == "canary_fp" else 0
     want = {"quantize": fp, "dequantize": fp, "packet_accumulate": 0,
             "packet_accumulate_gather": 0,
-            "flash_attention": TRAIN_STEPS * 2 * cfg.num_layers,
-            "flash_attention_bwd": TRAIN_STEPS * 3 * cfg.num_layers}
+            "flash_attention": TRAIN_STEPS * case["flash"],
+            "flash_attention_bwd": TRAIN_STEPS * case["flash_bwd"]}
     check(counts == want, f"{mode}: launches over {TRAIN_STEPS} steps "
-                          f"{counts}, want {want} (the flash forward twice a "
-                          f"layer under remat, three backward launches a "
-                          f"layer)")
+                          f"{counts}, want {want} (quantize and dequantize "
+                          f"once a gradient tensor a canary_fp step; on the "
+                          f"chunked route the flash forward twice a layer "
+                          f"under remat, three backward launches a layer)")
     want_reduces = TRAIN_STEPS if mode == "canary_fp" else 0
     check(max_reduces == want_reduces, f"{mode}: {max_reduces} "
           f"all_reduce(MAX) calls over {TRAIN_STEPS} steps, want "
           f"{want_reduces}")
     for k, n in counts.items():
         if n:
-            rows[k].setdefault("paths", {})[f"train_{mode}"] = n
+            rows[k].setdefault("paths", {})[f"{case['label']}_{mode}"] = n
     walls = [h["step_time_s"] for h in hist]
     warm = sorted(walls[1:])[len(walls[1:]) // 2]
     peak = torch.cuda.max_memory_allocated()
@@ -1997,27 +2328,29 @@ def train_mode(cfg, mode: str, mesh, seed: int, rows: dict,
           f"tensors ({len(groups)} reference leaves), init {t_init:.2f} s; "
           f"step walls " + ", ".join(f"{w * 1e3:.1f}" for w in walls)
           + f" ms (the first cold); warm median {warm * 1e3:.1f} ms = "
-          f"{TRAIN_B * TRAIN_S / warm:.0f} tokens/s, model FLOPs "
+          f"{batch * seq / warm:.0f} tokens/s, model FLOPs "
           f"{flops / warm / BF16_FLOPS:.1%} of the bf16 dense peak "
           f"({BF16_FLOPS / 1e12:.0f} TFLOP/s, NVIDIA H100 SXM data sheet); "
           f"peak device memory {peak / 2**30:.2f} GiB; launches over the "
           f"{TRAIN_STEPS} steps {counts}; all_reduce(MAX) calls "
           f"{max_reduces}", flush=True)
     if mode == "canary_fp":
-        print(f"canary_fp sync checked on step 0: {', '.join(CHECKED_LEAVES)}"
+        print(f"canary_fp sync checked on step 0: {', '.join(case['checked'])}"
               f" bit for bit against dequantize_ref(quantize_ref(g, s), s) "
               f"with s the scale of the tensor's reference leaf; every "
               f"tensor within 0.5/s + one rounding of g (worst |synced - g| "
               f"* s {seen['worst']:.4g})", flush=True)
         profile_train_step(trainer, leaves)
-        time_train_shape(seen["tok"], rows)
-    return losses
+        if cfg.name == MODEL_ARCH:
+            time_train_shape(seen["first"], rows)
+    return dict(losses=losses, warm_s=warm, quantized=seen.get("quantized"))
 
 
-def train_short_route(cfg, mesh, seed: int) -> None:
+def train_short_route(cfg, mesh, seed: int) -> dict:
     """``SHORT_STEPS`` ``auto`` steps at B = SHORT_B, S = SHORT_S, below
     ``attn_chunk_threshold``: the reference's plain ``full_attention``
-    route, which launches no flash kernel."""
+    route, which launches no flash kernel. Returns ``{"warm_s"}``, the
+    last step's wall."""
     from repro_torch.kernels import launch_counts, reset_launch_counts
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -2036,17 +2369,18 @@ def train_short_route(cfg, mesh, seed: int) -> None:
           f"init {t_init:.2f} s; step walls "
           + ", ".join(f"{w * 1e3:.1f}" for w in walls) + f" ms (the first "
           f"cold); last {tokens / walls[-1]:.0f} tokens/s, model FLOPs "
-          f"{train_flops(cfg, tokens, SHORT_S) / walls[-1] / BF16_FLOPS:.1%}"
+          f"{train_flops(cfg, SHORT_B, SHORT_S) / walls[-1] / BF16_FLOPS:.1%}"
           f" of the bf16 dense peak; peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; losses "
           + ", ".join(f"{x:.6f}" for x in losses) + f"; launches {counts}",
           flush=True)
     del trainer
+    return dict(warm_s=walls[-1])
 
 
 def profile_sync(grads: dict, tc, mesh, groups) -> None:
-    """The sync alone, inside the first step, on its 146 raw gradients with
-    the 11 reference-leaf groups: its host wall (median of 3) and, under
+    """The sync alone, inside the first step, on its raw gradients with one
+    group a reference leaf: its host wall (median of 3) and, under
     ``torch.profiler``, its device busy time (within a step the host issues
     it while the card still runs the backward pass)."""
     from repro_torch.core.collective import canary_allreduce_tree
@@ -2199,7 +2533,8 @@ def main() -> int:
     phase_flow()
     engine, prompt = phase_model(rows, args.seed)
     phase_moe_ssm(rows, args.seed)
-    phase_train(rows, args.seed)
+    llama_runs = phase_train(rows, args.seed)
+    phase_whisper(rows, args.seed, llama_runs)
     phase_timing(x, plan, rows)
     phase_profile(x, plan)
     phase_profile_prefill(engine, prompt)
@@ -2214,6 +2549,9 @@ def main() -> int:
               "flash_attention_bwd"):
         check(rows[k].get("paths", {}).get("train_canary_fp", 0) > 0,
               f"{k} never launched on the training path")
+    for k in ("quantize", "dequantize"):
+        check(rows[k].get("paths", {}).get("train_whisper_canary_fp", 0) > 0,
+              f"{k} never launched on whisper's training path")
     for k in ("quantize", "dequantize", "packet_accumulate_gather"):
         check(rows[k].get("paths", {}).get("replay_faults", 0) > 0,
               f"{k} never launched on phase 4e's replays")

@@ -89,8 +89,10 @@ def reference_leaves(cfg: ModelConfig) -> List[ReferenceLeaf]:
     The reference stacks the layers of each position ``j`` of the layer
     period into one leaf with a leading ``num_layers // period`` axis:
     the port's layer ``i * period + j`` is entry ``i`` of period entry
-    ``j``. For llama3.2-1b (period 1, tied embeddings): 11 leaves over the
-    port's 146 parameters.
+    ``j``. An encoder-decoder's ``encoder`` is one stack over its
+    ``encoder_layers``: the port's ``encoder.i`` is entry ``i``. For
+    llama3.2-1b (period 1, tied embeddings): 11 leaves over the port's 146
+    parameters; for whisper-large-v3: 25 over 676.
     """
     per = layer_period(cfg)
     by_path: dict = {}
@@ -100,27 +102,37 @@ def reference_leaves(cfg: ModelConfig) -> List[ReferenceLeaf]:
             i = int(parts[1])
             path = ("layers", i % per, *parts[2:])
             by_path.setdefault(path, []).append((i // per, name))
+        elif parts[0] == "encoder":
+            by_path.setdefault(("encoder", *parts[2:]), []).append(
+                (int(parts[1]), name))
         else:
             by_path[tuple(parts)] = [(0, name)]
     return [ReferenceLeaf(path, tuple(n for _, n in sorted(entries)),
-                          path[0] == "layers")
+                          path[0] in ("layers", "encoder"))
             for path, entries in sorted(by_path.items())]
 
 
 def _reference_leaves(np_tree: Mapping, cfg: ModelConfig) -> dict:
     """``{port parameter name: array}`` of a pytree shaped like the
-    reference's parameters (``embed``, ``final_norm`` and ``layers``, a list
+    reference's parameters (``embed``, ``final_norm``, ``layers``, a list
     with one entry per layer period of leaves stacked with a leading
-    ``num_layers // period`` axis); it must hold every parameter of the
-    port's :class:`Transformer` and nothing else."""
+    ``num_layers // period`` axis, and for an encoder-decoder ``enc_norm``
+    and ``encoder``, leaves stacked over ``encoder_layers``); it must hold
+    every parameter of the port's :class:`Transformer` and nothing else."""
     per = layer_period(cfg)
-    leaves = {f"embed.{k}": v for k, v in _flatten(np_tree["embed"]).items()}
-    leaves.update({f"final_norm.{k}": v
-                   for k, v in _flatten(np_tree["final_norm"]).items()})
-    for j, stacked in enumerate(np_tree["layers"]):
-        for name, a in _flatten(stacked).items():
-            for i in range(a.shape[0]):
-                leaves[f"layers.{i * per + j}.{name}"] = a[i]
+    leaves = {}
+    for key, sub in np_tree.items():
+        if key == "layers":
+            for j, stacked in enumerate(sub):
+                for name, a in _flatten(stacked).items():
+                    for i in range(a.shape[0]):
+                        leaves[f"layers.{i * per + j}.{name}"] = a[i]
+        elif key == "encoder":
+            for name, a in _flatten(sub).items():
+                for i in range(a.shape[0]):
+                    leaves[f"encoder.{i}.{name}"] = a[i]
+        else:
+            leaves.update({f"{key}.{k}": v for k, v in _flatten(sub).items()})
     expected = dict(Transformer(cfg, device="meta").named_parameters())
     if set(leaves) != set(expected):
         raise KeyError(f"reference leaves and {cfg.name}'s parameters differ:"

@@ -37,7 +37,12 @@ def main(argv=None) -> None:
     prompts = torch.randint(0, cfg.vocab_size, (args.batch, args.prompt_len),
                             generator=gen, dtype=torch.int32,
                             device=engine.device)
-    tokens, stats = engine.generate(prompts, args.new_tokens)
+    frames = None
+    if cfg.is_encoder_decoder:
+        frames = 0.02 * torch.ones((args.batch, cfg.encoder_seq, cfg.d_model),
+                                   dtype=getattr(torch, cfg.dtype),
+                                   device=engine.device)
+    tokens, stats = engine.generate(prompts, args.new_tokens, frames=frames)
     print(f"generated {tuple(tokens.shape)} tokens")
     print(f"prefill {stats['prefill_s']*1e3:.0f}ms  "
           f"decode {stats['decode_tok_per_s']:.1f} tok/s")

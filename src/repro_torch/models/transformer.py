@@ -5,20 +5,24 @@ decoders whose mixers are GQA attention (RoPE / M-RoPE / none, optional
 QKV bias, sliding windows) or Mamba-2 SSM layers (:mod:`.mamba2`), and
 whose feed-forward blocks are dense MLPs or MoE layers (:mod:`.moe`), in
 any interleave the config gives (a Jamba-style hybrid among them); a VLM
-patch-embedding prefix (``extra_embeds``), the prefill ``forward`` and the
-single-token ``decode_step`` against a cache of K/V (a ring buffer under a
-sliding window) and SSM states. The encoder-decoder models raise
-``NotImplementedError`` naming their ``ROADMAP.md`` item.
+patch-embedding prefix (``extra_embeds``); the encoder-decoder (Whisper):
+an encoder over stub frame embeddings (``frames``, :func:`encode`) and
+cross-attention in each decoder attention layer; the prefill ``forward``
+and the single-token ``decode_step`` against a cache of K/V (a ring buffer
+under a sliding window), SSM states and the encoder's cross K/V
+(:func:`prepare_cross_cache`).
 
 The reference's pytree becomes ``nn.Module``s whose parameter names are its
-keys (:class:`Transformer` holds ``embed``, ``layers`` and ``final_norm``; a
-:class:`DecoderLayer` holds ``norm1``, ``attn`` or ``ssm``, and ``norm2``
-with ``mlp`` or ``moe``). Its ``lax.scan`` over stacked layer periods
-becomes a Python loop over ``layers`` (layer ``i`` is period ``i // per``,
-sub-layer ``i % per``). With ``cfg.remat`` and gradients enabled, each
-period runs under ``torch.utils.checkpoint`` (the reference's
-``jax.checkpoint(period_body)``): its activations are recomputed in the
-backward pass instead of stored.
+keys (:class:`Transformer` holds ``embed``, ``layers`` and ``final_norm``,
+and for an encoder-decoder ``encoder`` and ``enc_norm``; a
+:class:`DecoderLayer` holds ``norm1``, ``attn`` or ``ssm``, ``norm_cross``
+and ``cross`` in an encoder-decoder's attention layers, and ``norm2`` with
+``mlp`` or ``moe``). Its ``lax.scan`` over stacked layer periods (and over
+the stacked encoder layers) becomes a Python loop over ``layers`` (layer
+``i`` is period ``i // per``, sub-layer ``i % per``). With ``cfg.remat``
+and gradients enabled, each period and each encoder layer runs under
+``torch.utils.checkpoint`` (the reference's ``jax.checkpoint``): its
+activations are recomputed in the backward pass instead of stored.
 
 The functions keep the reference's names and signatures, with ``params`` a
 :class:`Transformer`. Entry points that create tensors (``init_params``,
@@ -28,7 +32,7 @@ The functions keep the reference's names and signatures, with ``params`` a
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
@@ -42,14 +46,6 @@ from .layers import (MLP, Attention, Embeddings, RMSNorm, attention_forward,
 from .mamba2 import (Mamba2, mamba2_decode_step, mamba2_forward,
                      mamba2_init_cache)
 from .moe import MoE, moe_forward
-
-
-def check_supported(cfg: ModelConfig) -> None:
-    """Raise for the part of the zoo the port does not run yet."""
-    if cfg.is_encoder_decoder:
-        raise NotImplementedError(
-            f"{cfg.name}: the encoder and cross-attention are not ported yet "
-            f"(ROADMAP.md queue 1, item 10: encoder-decoder)")
 
 
 # --------------------------------------------------------------------- period
@@ -73,7 +69,8 @@ def _lcm(a: int, b: int) -> int:
 # -------------------------------------------------------------------- modules
 class DecoderLayer(nn.Module):
     """Decoder layer ``i``, pre-norm: ``norm1`` and ``attn`` or ``ssm`` by
-    ``cfg.layer_kind(i)``; then ``norm2`` and ``moe`` where
+    ``cfg.layer_kind(i)``; in an encoder-decoder's attention layer,
+    ``norm_cross`` and ``cross``; then ``norm2`` and ``moe`` where
     ``cfg.layer_is_moe(i)``, else ``mlp`` where ``cfg.d_ff > 0``
     (reference ``transformer.py:58-75``)."""
 
@@ -83,6 +80,9 @@ class DecoderLayer(nn.Module):
         self.norm1 = RMSNorm(cfg.d_model, device=device)
         if cfg.layer_kind(i) == "attn":
             self.attn = Attention(cfg, dtype, device, gen)
+            if cfg.is_encoder_decoder:
+                self.norm_cross = RMSNorm(cfg.d_model, device=device)
+                self.cross = Attention(cfg, dtype, device, gen)
         else:
             self.ssm = Mamba2(cfg, dtype, device, gen)
         if cfg.layer_is_moe(i):
@@ -94,24 +94,45 @@ class DecoderLayer(nn.Module):
                            device, gen)
 
 
+class EncoderLayer(nn.Module):
+    """Encoder layer, pre-norm: ``norm1``, ``attn``, ``norm2`` and ``mlp``
+    of width ``d_ff or 4 * d_model`` (reference ``transformer.py:78-86``).
+    """
+
+    def __init__(self, cfg: ModelConfig, dtype, device=None,
+                 gen: Optional[torch.Generator] = None):
+        super().__init__()
+        self.norm1 = RMSNorm(cfg.d_model, device=device)
+        self.attn = Attention(cfg, dtype, device, gen)
+        self.norm2 = RMSNorm(cfg.d_model, device=device)
+        self.mlp = MLP(cfg.d_model, cfg.d_ff or 4 * cfg.d_model,
+                       cfg.activation, dtype, device, gen)
+
+
 class Transformer(nn.Module):
-    """The decoder's parameters: ``embed`` (``tok``, ``unembed`` unless
-    tied), ``layers`` (``num_layers`` :class:`DecoderLayer`s) and
-    ``final_norm``. With ``gen`` the weights are drawn as ``init_params``
-    draws them; without, they are left uninitialised for a loader to fill.
-    ``cfg`` is kept: the checkpointer reads the reference's layout from it.
+    """The model's parameters: ``embed`` (``tok``, ``unembed`` unless
+    tied), ``layers`` (``num_layers`` :class:`DecoderLayer`s),
+    ``final_norm`` and, for an encoder-decoder, ``encoder``
+    (``encoder_layers`` :class:`EncoderLayer`s) and ``enc_norm``. With
+    ``gen`` the weights are drawn as ``init_params`` draws them; without,
+    they are left uninitialised for a loader to fill. ``cfg`` is kept: the
+    checkpointer reads the reference's layout from it.
     """
 
     def __init__(self, cfg: ModelConfig, device=None,
                  gen: Optional[torch.Generator] = None):
         super().__init__()
-        check_supported(cfg)
         self.cfg = cfg
         dtype = torch_dtype(cfg.dtype)
         self.embed = Embeddings(cfg, dtype, device, gen)
         self.layers = nn.ModuleList(DecoderLayer(cfg, i, dtype, device, gen)
                                     for i in range(cfg.num_layers))
         self.final_norm = RMSNorm(cfg.d_model, device=device)
+        if cfg.is_encoder_decoder:
+            self.encoder = nn.ModuleList(
+                EncoderLayer(cfg, dtype, device, gen)
+                for _ in range(cfg.encoder_layers))
+            self.enc_norm = RMSNorm(cfg.d_model, device=device)
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator,
@@ -149,23 +170,63 @@ def _feed_forward(p: DecoderLayer, x, cfg: ModelConfig
     return x, None
 
 
-def _decoder_sublayer(p: DecoderLayer, x, positions, cfg: ModelConfig
+def _decoder_sublayer(p: DecoderLayer, x, positions, cfg: ModelConfig,
+                      enc_out=None
                       ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     h = rmsnorm(p.norm1, x, cfg.norm_eps)
     if hasattr(p, "attn"):
         x = x + attention_forward(p.attn, h, positions, cfg, causal=True)
     else:
         x = x + mamba2_forward(p.ssm, h, cfg)
+    if enc_out is not None and hasattr(p, "cross"):
+        hc = rmsnorm(p.norm_cross, x, cfg.norm_eps)
+        ck = torch.einsum("bsd,dhx->bshx", enc_out, p.cross.wk)
+        cv = torch.einsum("bsd,dhx->bshx", enc_out, p.cross.wv)
+        x = x + attention_forward(p.cross, hc, positions, cfg, causal=False,
+                                  kv_override=(ck, cv))
     return _feed_forward(p, x, cfg)
 
 
 def _period_body(period: nn.ModuleList, x, aux, positions,
-                 cfg: ModelConfig) -> Tuple[torch.Tensor, torch.Tensor]:
+                 cfg: ModelConfig, enc_out=None
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     for layer in period:
-        x, a = _decoder_sublayer(layer, x, positions, cfg)
+        x, a = _decoder_sublayer(layer, x, positions, cfg, enc_out)
         if a is not None:           # the reference adds a zero for the rest
             aux = aux + a
     return x, aux
+
+
+def _sinusoidal(S: int, d: int, device=None) -> torch.Tensor:
+    """(S, d) float32 sinusoidal positions: sines, then cosines."""
+    pos = torch.arange(S, dtype=torch.float32, device=device)[:, None]
+    dim = torch.arange(d // 2, dtype=torch.float32, device=device)[None, :]
+    ang = pos / torch.pow(10000.0, 2 * dim / d)
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
+def _encoder_layer(p: EncoderLayer, h, ecfg: ModelConfig) -> torch.Tensor:
+    a = rmsnorm(p.norm1, h, ecfg.norm_eps)
+    h = h + attention_forward(p.attn, a, None, ecfg, causal=False)
+    m = rmsnorm(p.norm2, h, ecfg.norm_eps)
+    return h + mlp_forward(p.mlp, m, ecfg.activation)
+
+
+def encode(params: Transformer, frames: torch.Tensor,
+           cfg: ModelConfig) -> torch.Tensor:
+    """Whisper-style encoder over stub conv-frontend frames (B, T, d):
+    sinusoidal positions added, non-causal attention without rotary or
+    window, then ``enc_norm``."""
+    x = frames + _sinusoidal(frames.shape[1], cfg.d_model,
+                             frames.device).to(frames.dtype)
+    ecfg = cfg.with_(rope_mode="none", sliding_window=0)
+    remat = cfg.remat and torch.is_grad_enabled()
+    for p in params.encoder:
+        if remat:
+            x = checkpoint(_encoder_layer, p, x, ecfg, use_reentrant=False)
+        else:
+            x = _encoder_layer(p, x, ecfg)
+    return rmsnorm(params.enc_norm, x, cfg.norm_eps)
 
 
 def forward(params: Transformer, tokens: torch.Tensor, cfg: ModelConfig, *,
@@ -175,15 +236,11 @@ def forward(params: Transformer, tokens: torch.Tensor, cfg: ModelConfig, *,
     """Prefill forward.
 
     tokens: (B, S) int. ``extra_embeds`` (VLM): (B, P, d) patch embeddings
-    prepended to the token embeddings. ``frames`` belong to the
-    encoder-decoder models, not ported yet.
+    prepended to the token embeddings. ``frames`` (audio): (B, T, d) stub
+    frame embeddings consumed by the encoder.
     Returns (logits (B, S_total, vocab), moe_aux_loss): the float32 sum of
     the MoE layers' load-balancing losses (zero without MoE layers).
     """
-    check_supported(cfg)
-    if frames is not None:
-        raise NotImplementedError("frames feed the encoder, not ported yet "
-                                  "(ROADMAP.md queue 1, item 10)")
     B, S = tokens.shape
     x = embed(params.embed, tokens)
     if extra_embeds is not None:
@@ -191,6 +248,11 @@ def forward(params: Transformer, tokens: torch.Tensor, cfg: ModelConfig, *,
         S = x.shape[1]
     if positions is None:
         positions = _default_positions(cfg, B, S, device=x.device)
+    enc_out = None
+    if cfg.is_encoder_decoder:
+        if frames is None:
+            raise ValueError("encoder-decoder model needs `frames`")
+        enc_out = encode(params, frames, cfg)
     # The reference pins activations to batch-over-data sharding at each
     # layer period (``_activation_constraint``); one card has no sharding.
     # Sharded execution is ROADMAP.md queue 1, item 12 (parallel).
@@ -201,9 +263,9 @@ def forward(params: Transformer, tokens: torch.Tensor, cfg: ModelConfig, *,
         period = params.layers[i:i + per]
         if remat:
             x, aux = checkpoint(_period_body, period, x, aux, positions, cfg,
-                                use_reentrant=False)
+                                enc_out, use_reentrant=False)
         else:
-            x, aux = _period_body(period, x, aux, positions, cfg)
+            x, aux = _period_body(period, x, aux, positions, cfg, enc_out)
     x = rmsnorm(params.final_norm, x, cfg.norm_eps)
     return unembed(params.embed, x), aux
 
@@ -220,9 +282,10 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
     """Decode cache of zeros: ``{"pos": 0, "layers": [...]}``, one entry a
     layer (the reference stacks them by layer period): ``{"k", "v"}`` of
     ``(batch, C, KV, hd)`` for an attention layer, ``{"state", "conv"}``
-    (float32, :func:`~.mamba2.mamba2_init_cache`) for an SSM layer. ``pos``
-    is a host int. ``device=None`` means CUDA."""
-    check_supported(cfg)
+    (float32, :func:`~.mamba2.mamba2_init_cache`) for an SSM layer; for an
+    encoder-decoder also ``"cross"``, one ``{"k", "v"}`` of ``(batch,
+    encoder_seq, KV, hd)`` a layer. ``pos`` is a host int. ``device=None``
+    means CUDA."""
     dev = resolve_device(device)
     dt = torch_dtype(dtype or cfg.dtype)
     C = cache_len(cfg, max_len)
@@ -232,21 +295,34 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
               if cfg.layer_kind(i) == "attn"
               else mamba2_init_cache(cfg, batch, device=dev)
               for i in range(cfg.num_layers)]
-    return {"pos": 0, "layers": layers}
+    cache: Dict[str, Any] = {"pos": 0, "layers": layers}
+    if cfg.is_encoder_decoder:
+        cross = (batch, cfg.encoder_seq) + shape[2:]
+        cache["cross"] = [{"k": torch.zeros(cross, dtype=dt, device=dev),
+                           "v": torch.zeros(cross, dtype=dt, device=dev)}
+                          for _ in range(cfg.num_layers)]
+    return cache
 
 
 def prepare_cross_cache(params: Transformer, frames: torch.Tensor,
-                        cfg: ModelConfig):
-    """Whisper's encoder pass and cross K/V: not ported yet."""
-    raise NotImplementedError("the encoder and cross-attention are not "
-                              "ported yet (ROADMAP.md queue 1, item 10)")
+                        cfg: ModelConfig) -> List[Dict[str, torch.Tensor]]:
+    """Whisper: run the encoder once and project each decoder layer's cross
+    K/V, ``(B, T, KV, hd)`` in the encoder's dtype, one ``{"k", "v"}`` a
+    layer (``init_cache``'s ``"cross"``)."""
+    assert layer_period(cfg) == 1, "enc-dec archs use homogeneous stacks"
+    enc = encode(params, frames, cfg)
+    return [{"k": torch.einsum("bsd,dhx->bshx", enc, p.cross.wk).to(enc.dtype),
+             "v": torch.einsum("bsd,dhx->bshx", enc, p.cross.wv).to(enc.dtype)}
+            for p in params.layers]
 
 
 def _attn_decode_sublayer(p: DecoderLayer, x1, pos: int,
                           cache_kv: Dict[str, torch.Tensor],
-                          cfg: ModelConfig) -> torch.Tensor:
+                          cfg: ModelConfig, cross_kv=None) -> torch.Tensor:
     """x1: (B, 1, d); cache_kv: {'k': (B, C, KV, hd), 'v': ...}, written in
-    place at this step's slot."""
+    place at this step's slot; cross_kv: the layer's cross K/V, (B, T, KV,
+    hd), or ``None``. The cross query takes no bias, as in the reference's
+    decode (its prefill adds one)."""
     B = x1.shape[0]
     C = cache_kv["k"].shape[1]
     h = rmsnorm(p.norm1, x1, cfg.norm_eps)
@@ -262,7 +338,14 @@ def _attn_decode_sublayer(p: DecoderLayer, x1, pos: int,
     cache_kv["k"][:, write] = k1[:, 0]
     cache_kv["v"][:, write] = v1[:, 0]
     att = decode_attention(q, cache_kv["k"], cache_kv["v"], min(pos + 1, C))
-    return x1 + torch.einsum("bshx,hxd->bsd", att, p.attn.wo)
+    x1 = x1 + torch.einsum("bshx,hxd->bsd", att, p.attn.wo)
+    if cross_kv is not None and hasattr(p, "cross"):
+        hc = rmsnorm(p.norm_cross, x1, cfg.norm_eps)
+        qc = torch.einsum("bsd,dhx->bshx", hc, p.cross.wq)
+        catt = decode_attention(qc, cross_kv["k"], cross_kv["v"],
+                                cross_kv["k"].shape[1])
+        x1 = x1 + torch.einsum("bshx,hxd->bsd", catt, p.cross.wo)
+    return x1
 
 
 def decode_step(params: Transformer, cache: Dict[str, Any],
@@ -277,12 +360,12 @@ def decode_step(params: Transformer, cache: Dict[str, Any],
     routes the step's B tokens with the capacity of B tokens, as the
     reference's does.
     """
-    check_supported(cfg)
     pos = int(cache["pos"])
     x = embed(params.embed, tokens1)
-    for p, c in zip(params.layers, cache["layers"]):
+    cross = cache.get("cross") or [None] * len(params.layers)
+    for p, c, ckv in zip(params.layers, cache["layers"], cross):
         if hasattr(p, "attn"):
-            x = _attn_decode_sublayer(p, x, pos, c, cfg)
+            x = _attn_decode_sublayer(p, x, pos, c, cfg, ckv)
         else:
             h = rmsnorm(p.norm1, x, cfg.norm_eps)
             x = x + mamba2_decode_step(p.ssm, h, c, cfg)[0]

@@ -8,11 +8,16 @@ follows the reference operation for operation in float32 under
 ``torch.no_grad()``. Unlike the reference, which returns new arrays,
 :func:`update` writes the new parameters and moments into the tensors it
 was given (no second copy of a 1 B-parameter model and its moments on the
-card) and returns them. Nothing here copies a value to the host.
+card) and returns them. Nothing here copies a value to the host. A model's
+weights decay where the reference's do: the reference decays a leaf of two
+or more dimensions, and it stacks each layer's parameters along a leading
+axis, so every per-layer tensor of the port (a layer's norm scales too)
+decays, and of the rest those of two or more dimensions.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
+from functools import lru_cache
 from typing import Any, Callable, Dict, Mapping, NamedTuple, Optional, Tuple
 
 import torch
@@ -44,6 +49,22 @@ def named(params: Any) -> Dict[str, torch.Tensor]:
     if isinstance(params, nn.Module):
         return dict(params.named_parameters())
     return dict(params)
+
+
+@lru_cache(maxsize=None)
+def _stacked_names(cfg) -> frozenset:
+    from ..convert import reference_leaves      # convert imports this module
+    return frozenset(n for leaf in reference_leaves(cfg) if leaf.stacked
+                     for n in leaf.names)
+
+
+def _decays(params: Any, p_named: Dict[str, torch.Tensor]) -> set:
+    """The names whose weights decay: those of two or more dimensions in the
+    reference's pytree, where a model's layers are stacked along a leading
+    axis (so each layer's norm scales decay there, and here)."""
+    stacked = _stacked_names(params.cfg) if hasattr(params, "cfg") \
+        else frozenset()
+    return {n for n, p in p_named.items() if p.ndim + (n in stacked) >= 2}
 
 
 def init(params: Any, cfg: AdamWConfig) -> AdamWState:
@@ -94,6 +115,7 @@ def update(grads: Mapping[str, torch.Tensor], state: AdamWState, params: Any,
     stepf = step.to(torch.float32)
     b1c = 1.0 - torch.pow(_f32(cfg.b1, stepf), stepf)
     b2c = 1.0 - torch.pow(_f32(cfg.b2, stepf), stepf)
+    decays = _decays(params, p_named) if cfg.weight_decay > 0 else set()
 
     for name, p in p_named.items():
         g, m, v = grads[name], state.m[name], state.v[name]
@@ -104,7 +126,7 @@ def update(grads: Mapping[str, torch.Tensor], state: AdamWState, params: Any,
         vhat = v32 / b2c
         delta = mhat / (torch.sqrt(vhat) + cfg.eps)
         p32 = p.to(torch.float32)
-        if cfg.weight_decay > 0 and p.ndim >= 2:   # no decay on norms/bias
+        if name in decays:     # the reference's ``p.ndim >= 2``
             delta = delta + cfg.weight_decay * p32
         p.copy_(p32 - lr * delta)
         m.copy_(m32)                               # rounds to state_dtype

@@ -5,7 +5,9 @@ decode with a KV cache.
 the decode unit; the ``Engine`` class wraps it with a token-stepping prefill
 and a greedy generation loop, and ``prefill_fn`` is the bulk prefill
 ``forward`` (which reaches the flash-attention kernel on prompts of at least
-``attn_chunk_threshold`` tokens). Everything runs under
+``attn_chunk_threshold`` tokens). An encoder-decoder's prefill first runs
+the encoder over the request's frames and stores each layer's cross K/V in
+the cache. Everything runs under
 ``torch.inference_mode()``. The engine runs on the card unless the caller
 passes ``device="cpu"``.
 """
@@ -18,7 +20,8 @@ from typing import Dict, Tuple
 import torch
 
 from ..kernels.ops import resolve_device
-from ..models import decode_step, forward, init_cache, init_params
+from ..models import (decode_step, forward, init_cache, init_params,
+                      prepare_cross_cache)
 from ..models.config import ModelConfig
 
 
@@ -55,6 +58,7 @@ class Engine:
         self.step_fn = torch.inference_mode()(make_serve_step(cfg))
         self.prefill_fn = torch.inference_mode()(
             lambda p, toks, kw: forward(p, toks, cfg, **kw))
+        self.cross_fn = torch.inference_mode()(prepare_cross_cache)
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
@@ -67,9 +71,12 @@ class Engine:
         stepping keeps one code path valid for SSM/hybrid caches too (decode
         correctness is what the examples demonstrate).
         """
-        if frames is not None:
-            raise NotImplementedError("frames feed the encoder, not ported "
-                                      "yet (ROADMAP.md queue 1, item 10)")
+        cfg = self.sc.model
+        if cfg.is_encoder_decoder:
+            if frames is None:
+                raise ValueError("enc-dec serving needs frames")
+            self.cache["cross"] = self.cross_fn(self.params,
+                                                frames.to(self.device), cfg)
         prompts = prompts.to(self.device)
         last = None
         for t in range(prompts.shape[1]):

@@ -2,10 +2,12 @@
 
 The JAX package saves a checkpoint on the CPU and the port restores it, and
 the reverse, each bit for bit: bf16 parameters, AdamW moments in float32 or
-bf16, and an AdamW step past 0, for the smoke llama and for the smoke jamba
+bf16, and an AdamW step past 0, for the smoke llama, for the smoke jamba
 (whose hybrid period holds different keys at its two positions: a Mamba-2
 layer with an MLP, an attention layer with an MoE block and its
-(n_per, E, d, f) expert leaves). The two packages also write the same
+(n_per, E, d, f) expert leaves) and for the smoke whisper (the encoder's
+leaves stacked over its layers, ``enc_norm``, and each decoder layer's
+``norm_cross`` and ``cross``). The two packages also write the same
 manifest for the same state. The reference's modules are imported inside
 the ``ref`` fixture.
 """
@@ -28,6 +30,7 @@ from repro_torch.optim import update as adamw_update
 
 ARCH = "llama3.2-1b"
 HYBRID = "jamba-v0.1-52b"
+ENC_DEC = "whisper-large-v3"
 STATE_DTYPES = ["float32", "bfloat16"]
 
 
@@ -151,12 +154,30 @@ def test_manifest_names_the_reference_tree(ref, tmp_path):
 
 
 def test_port_restores_a_jax_hybrid_checkpoint_bit_for_bit(ref, tmp_path):
-    jparams, jopt = _jax_state(ref, "float32", HYBRID)
+    _port_restores_jax(ref, tmp_path, HYBRID)
+
+
+def test_port_restores_a_jax_encoder_decoder_checkpoint_bit_for_bit(
+        ref, tmp_path):
+    _port_restores_jax(ref, tmp_path, ENC_DEC)
+
+
+def test_jax_restores_a_port_hybrid_checkpoint_bit_for_bit(ref, tmp_path):
+    _jax_restores_port(ref, tmp_path, HYBRID)
+
+
+def test_jax_restores_a_port_encoder_decoder_checkpoint_bit_for_bit(
+        ref, tmp_path):
+    _jax_restores_port(ref, tmp_path, ENC_DEC)
+
+
+def _port_restores_jax(ref, tmp_path, arch):
+    jparams, jopt = _jax_state(ref, "float32", arch)
     ref.checkpoint.save_checkpoint(str(tmp_path / "jax"), 3, jparams, jopt)
-    params, opt = _blank("float32", HYBRID)
+    params, opt = _blank("float32", arch)
     _, _, step = restore_checkpoint(str(tmp_path / "jax"), 3, params, opt)
     assert step == 3
-    cfg = get_config(HYBRID, "smoke")
+    cfg = get_config(arch, "smoke")
     as_np = ref.jax.tree.map(np.asarray, (jparams, jopt))
     _assert_same(params, opt, params_from_reference(as_np[0], cfg, "cpu"),
                  opt_state_from_reference(as_np[1], cfg, "cpu"))
@@ -167,19 +188,21 @@ def test_port_restores_a_jax_hybrid_checkpoint_bit_for_bit(ref, tmp_path):
     assert manifests[0] == manifests[1]
     n = len(ref.jax.tree_util.tree_leaves(jparams))
     assert manifests[0]["num_leaves"] == 1 + 3 * n
-    assert [2, 4, 256, 512] in manifests[0]["shapes"]   # (n_per, E, d, f)
+    stacked = {HYBRID: [2, 4, 256, 512],     # (n_per, E, d, f)
+               ENC_DEC: [2, 256, 512]}[arch]  # the encoder's (L, d, d_ff)
+    assert stacked in manifests[0]["shapes"]
 
 
-def test_jax_restores_a_port_hybrid_checkpoint_bit_for_bit(ref, tmp_path):
-    params, opt = _port_state("float32", HYBRID)
+def _jax_restores_port(ref, tmp_path, arch):
+    params, opt = _port_state("float32", arch)
     save_checkpoint(str(tmp_path), 7, params, opt)
-    jcfg = ref.models.get_config(HYBRID, "smoke")
+    jcfg = ref.models.get_config(arch, "smoke")
     like = ref.models.init_params(jcfg, ref.jax.random.PRNGKey(0))
     opt_like = ref.optim.init(like, ref.optim.AdamWConfig())
     jparams, jopt, step = ref.checkpoint.restore_checkpoint(
         str(tmp_path), 7, like, opt_like)
     assert step == 7
-    cfg = get_config(HYBRID, "smoke")
+    cfg = get_config(arch, "smoke")
     as_np = ref.jax.tree.map(np.asarray, (jparams, jopt))
     _assert_same(params_from_reference(as_np[0], cfg, "cpu"),
                  opt_state_from_reference(as_np[1], cfg, "cpu"), params, opt)

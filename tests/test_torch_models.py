@@ -357,7 +357,7 @@ def test_decode_steps_match_jax_moe_ssm(arch, dtype, monkeypatch):
     assert tcache["pos"] == int(jcache["pos"]) == 4
 
 
-@pytest.mark.parametrize("arch", MOE_SSM)
+@pytest.mark.parametrize("arch", MOE_SSM + ["whisper-large-v3"])
 def test_reference_leaves_follow_the_jax_tree(arch):
     """``reference_leaves`` names the reference's leaves in
     ``jax.tree_util`` order with their stacked shapes (for jamba: a hybrid
@@ -513,14 +513,26 @@ def test_init_params_draws_the_reference_scales():
     assert torch.equal(tp.embed.tok, again.embed.tok)
 
 
-# --------------------------------------------------------- what is not here
+# ------------------------------------------------------- the encoder-decoder
 @pytest.mark.parametrize("arch", ["whisper-large-v3"])
 def test_unported_models_raise(arch):
+    """The zoo's last model, once refused, now builds: the smoke variant's
+    encoder and cross-attention parameters, and a cache with one cross K/V
+    of (batch, encoder_seq, KV, hd) a decoder layer, as the reference's."""
     cfg = get_config(arch, "smoke")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        init_cache(cfg, 1, 8, device="cpu")
+    tp = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    assert len(tp.encoder) == cfg.encoder_layers
+    assert tuple(tp.enc_norm.scale.shape) == (cfg.d_model,)
+    assert all(hasattr(layer, "cross") and hasattr(layer, "norm_cross")
+               for layer in tp.layers)
+    assert tuple(tp.encoder[0].mlp.w_up.shape) == (cfg.d_model, cfg.d_ff)
+    cache = init_cache(cfg, 3, 8, device="cpu")
+    jcache = j_init_cache(j_get_config(arch, "smoke"), 3, 8)
+    assert len(cache["cross"]) == cfg.num_layers
+    for entry in cache["cross"]:
+        for k in ("k", "v"):
+            assert tuple(entry[k].shape) == jcache["cross"][k].shape[1:] == (
+                3, cfg.encoder_seq, cfg.num_kv_heads, cfg.resolved_head_dim)
 
 
 def test_entry_points_need_cuda_by_default(monkeypatch):

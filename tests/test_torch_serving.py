@@ -73,7 +73,7 @@ def test_serve_launcher_runs_on_cpu(capsys):
 
 
 @pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b", "mamba2-130m",
-                                  "jamba-v0.1-52b"])
+                                  "jamba-v0.1-52b", "whisper-large-v3"])
 def test_serve_launcher_runs_moe_and_ssm_on_cpu(arch, capsys):
     serve.main(["--arch", arch, "--batch", "2", "--prompt-len", "5",
                 "--new-tokens", "3", "--max-len", "16", "--device", "cpu"])
