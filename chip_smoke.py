@@ -128,10 +128,33 @@ printed:
               ``scaled_dot_product_attention``, each of its three kernels
               beside its own bound, and the forward with and without its
               log-sum-exp store beside its plain version and SDPA's
-              forward);
+              forward; the backward again at qwen2-moe's training shape,
+              (1, 16, 4096, 128) MHA);
               then one replay and one prefill under ``torch.profiler``
               (device busy share, device time by kernel; every flash
               launch of the prefill must be the ``wgmma`` kernel);
+4i. mesh    — (run after phase 5: once its processes have shared the
+              card, this process's profiler drops records)
+              qwen2-moe-a2.7b on (data, model) meshes of gloo processes
+              that share the card (NCCL takes one rank a card): (a) one MoE
+              layer at full width, tokens (B, 4096, 2048) bf16, forward and
+              backward in ``ep`` at (1, 4) and (2, 2) and ``ep_a2a`` at
+              (1, 4), each against ``_moe_dense`` on the same data shard
+              (the same expert ids; under ``ep`` the same kept slots, y and
+              every gradient within 1e-2 relative; under ``ep_a2a`` y on
+              the tokens both kept whole), y and every gradient the same
+              bits on each model rank, slots dropped, a rank's wall, device
+              time and collectives' host wall; (b) training through the
+              launcher's ``make_trainer``, depth cut to 2 layers, B 1, S
+              4096, at (1, 2): ``PAR_STEPS`` steps of
+              ``auto`` (EP) and of ``canary_fp`` (dense, the fixed-point
+              sync over the data group) against the same steps at world 1;
+              every step's loss and each gradient tensor's norm within
+              ``PAR_LOSS_REL`` and ``PAR_GRAD_REL``, the weights the same
+              bits on both model ranks after every step, the launches counted
+              (flash forward twice and backward three times a layer, under
+              remat; quantize and dequantize once a gradient tensor a
+              ``canary_fp`` step), step walls, tokens/s, peak memory;
 6. summary  — one ``{"kernels": [...]}`` JSON line (quantize and dequantize
               also give their launches by path and their times at the
               training shape), the card line, and last
@@ -305,6 +328,28 @@ TRAIN_CASES = {
                        omitted=34 * 1280),
 }
 UNIT_ROUNDOFF = {torch.bfloat16: 2.0 ** -8, torch.float32: 2.0 ** -24}
+# phase 4i: qwen2-moe-a2.7b on (data, model) meshes of gloo ranks that
+# share the card (NCCL takes one rank a card). (a) One MoE layer at full
+# width (d 2048, 60 experts top-4 of 1408, shared 5632), tokens (B, 4096,
+# 2048) bf16, a forward and backward of sum(y^2)/n + coef * aux in each
+# (form, (data, model), global batch), held against _moe_dense on one rank
+# over the same data shard: ||got - want|| / ||want|| <= PAR_LAYER_REL,
+# the bound phase 3 puts on bf16 rows (bf16 sums in another order)
+PAR_ARCH, PAR_S, PAR_B = "qwen2-moe-a2.7b", 4096, 1
+PAR_FORMS = (("ep", (1, 4), 1), ("ep", (2, 2), 2), ("ep_a2a", (1, 4), 1))
+PAR_LAYER_REL, PAR_LAYER_REPS = 1e-2, 3
+# (b) training through the launcher's code path at PAR_MESH, B 1, S 4096,
+# depth cut from 24 to 2 layers: 1.76 B parameters, ~21 GB a rank in bf16
+# weights and gradients with float32 moments (24 layers, 14.3 B, do not fit
+# one rank). Held against the same steps at world 1 (dense): every step's
+# loss within PAR_LOSS_REL relative and each gradient tensor's norm within
+# PAR_GRAD_REL. On the H100 sound runs read at most 1.2e-4 and 3.1e-3; with
+# the expert weights' gradient doubled or zeroed the norms read 1.0, while
+# the losses stay within 5e-5 (at random weights they barely feel the
+# experts, and AdamW's update hardly moves when a gradient is scaled), so
+# the norms are what catch a wrong expert gradient
+PAR_LAYERS, PAR_STEPS, PAR_MESH = 2, 3, (1, 2)
+PAR_LOSS_REL, PAR_GRAD_REL = 5e-4, 1e-2
 
 
 def fail(msg: str) -> None:
@@ -1866,6 +1911,7 @@ def phase_timing(x: torch.Tensor, plan, rows: dict) -> None:
     sys.stdout.flush()
     time_flash(rows)
     time_flash_bwd(rows)
+    time_flash_bwd_moe(rows)
 
 
 def time_gather(q: torch.Tensor, plan, rows: dict) -> None:
@@ -2050,6 +2096,45 @@ def time_flash_bwd(rows: dict) -> None:
           f"scaled_dot_product_attention's forward {lib_fwd:.4f} ms",
           flush=True)
     del q, k, v, g, out, lse
+    torch.cuda.empty_cache()
+
+
+def time_flash_bwd_moe(rows: dict) -> None:
+    """The flash backward at qwen2-moe-a2.7b's training shape, (1, 16,
+    4096, 128) MHA bf16 causal as the model hands it over (phase 4i's
+    training path), beside its operations bound, its plain version and
+    the backward of ``scaled_dot_product_attention``."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention_bwd
+    from repro_torch.kernels.flash_attention import _forward
+    from repro_torch.kernels.ref import flash_attention_bwd_ref
+    B, H, KV, S, D = PAR_B, 16, 16, PAR_S, 128
+    gen = torch.Generator(device=DEV).manual_seed(9)
+    q, k, v = random_qkv(gen, B, H, KV, S, D, torch.bfloat16, "bshd")
+    g = torch.randn(q.shape, generator=gen, device=DEV).to(torch.bfloat16)
+    out, lse = _forward(q, k, v, True, 0, with_lse=True)
+    k_ms, p_ms = in_turns(
+        lambda: flash_attention_bwd_ref(q, k, v, out, lse, g),
+        lambda: flash_attention_bwd(q, k, v, out, lse, g), 3)
+    fwd_flops, _ = flash_work(B, H, KV, S, D, torch.bfloat16, True, 0)
+    flops = 5 * fwd_flops / 2         # five (S, S) x D products, causal
+    nbytes = 2 * B * S * D * (4 * H + 4 * KV) + 4 * B * H * S
+    b_ms, b_by = flash_bound_ms(flops, nbytes, torch.bfloat16)
+    qs, ks, vs = (t.contiguous().requires_grad_(True) for t in (q, k, v))
+    o_sdpa = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True)
+    lib = event_ms(lambda: torch.autograd.grad(o_sdpa, (qs, ks, vs), g,
+                                               retain_graph=True), 10)
+    rows["flash_attention_bwd"]["qwen2_moe_train"] = dict(
+        shape=[B, H, S, D], kv_heads=KV, dtype="bfloat16", ms=k_ms,
+        plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib)
+    print(f"flash_attention_bwd at qwen2-moe's training shape q "
+          f"{(B, H, S, D)} kv {KV} bf16 causal: {k_ms:.4f} ms = "
+          f"{flops / k_ms / 1e9:.1f} TFLOP/s ({flops / 1e9:.1f} GFLOP); "
+          f"bound {b_ms:.4f} ms ({b_by}) = {b_ms / k_ms:.1%} of it; plain "
+          f"{p_ms:.4f} ms; scaled_dot_product_attention's backward "
+          f"{lib:.4f} ms ({k_ms / lib:.2f}x)", flush=True)
+    del q, k, v, g, out, lse, qs, ks, vs, o_sdpa
     torch.cuda.empty_cache()
 
 
@@ -2493,6 +2578,406 @@ def time_train_shape(g: torch.Tensor, rows: dict) -> None:
               f"{plain:.4f} ms, library {library}", flush=True)
 
 
+# ------------------------------------------ phase 4i: the (data, model) mesh
+def _rank_group(rank: int, world: int, init_file: str) -> None:
+    """Join a gloo group of ``world`` processes that share the card (NCCL
+    takes one rank a card; gloo carries CUDA tensors through the host)."""
+    import datetime
+
+    import torch.distributed as dist
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{init_file}",
+                            world_size=world, rank=rank,
+                            timeout=datetime.timedelta(seconds=600))
+
+
+def _time_collectives() -> dict:
+    """Wrap the collectives the port's regions call with host timers:
+    ``{"calls", "s"}`` accumulate until reset."""
+    import torch.distributed as dist
+    acc = {"calls": 0, "s": 0.0}
+    for name in ("all_reduce", "all_gather", "all_to_all_single"):
+        real = getattr(dist, name)
+
+        def timed(*a, _real=real, **k):
+            t0 = time.perf_counter()
+            out = _real(*a, **k)
+            acc["s"] += time.perf_counter() - t0
+            acc["calls"] += 1
+            return out
+        setattr(dist, name, timed)
+    return acc
+
+
+def checksums(tensors) -> torch.Tensor:
+    """Two int64 sums of each tensor's bit patterns (plain and squared), on
+    the device: equal bits give equal sums."""
+    out = []
+    for t in tensors:
+        b = t.detach().contiguous().view(
+            torch.int16 if t.element_size() == 2 else torch.int32).long()
+        out += [b.sum(), (b * b).sum()]
+    return torch.stack(out)
+
+
+@contextlib.contextmanager
+def recorded_slots(group):
+    """Stand in for ``moe._route``, ``moe._positions`` and ``moe._experts``
+    meanwhile, and record each routed call's slots: a list that gets one
+    ``{"top_e": (N, k), "kept": (N, k) bool}`` a call over the tokens this
+    rank routed; ``kept`` is whether a slot reached its expert, wherever
+    that expert runs. Under ``ep_a2a`` (two sorts before the owner's
+    dispatch) the owner's kept slots come back to their source over
+    ``group`` in one all-to-all, which the layer itself does not run."""
+    import torch.distributed as dist
+
+    from repro_torch.models import moe
+    calls, seen = [], {}
+    route, positions, experts = moe._route, moe._positions, moe._experts
+
+    def _route(p, x2d, cfg):
+        out = route(p, x2d, cfg)
+        seen.update(top_e=out[1], sorts=[])
+        return out
+
+    def _positions(keys):
+        seen["sorts"].append(positions(keys))
+        return seen["sorts"][-1]
+
+    def _experts(ex, x2d, top_w, sorted_e, pos_in_e, order, ok, *rest):
+        cap = rest[2]
+        if len(seen["sorts"]) == 1:      # dense, ep: every slot's position
+            src, kept = order, pos_in_e < cap
+        else:                            # ep_a2a, at the owner
+            src, sd, pos = seen["sorts"][0]
+            tp = dist.get_world_size(group)
+            cap1 = x2d.shape[0] // tp    # the send buffer's rows a rank
+            owner = torch.empty_like(ok).index_copy_(0, order, ok)
+            back = torch.empty(owner.shape, dtype=torch.int32,
+                               device=owner.device)
+            dist.all_to_all_single(back, owner.to(torch.int32), group=group)
+            kept = (pos < cap1) & back.bool()[
+                torch.clamp(sd, max=tp - 1) * cap1
+                + torch.clamp(pos, max=cap1 - 1)]
+        top_e = seen["top_e"]
+        calls.append(dict(top_e=top_e, kept=torch.empty_like(kept).index_copy_(
+            0, src, kept).view(top_e.shape)))
+        return experts(ex, x2d, top_w, sorted_e, pos_in_e, order, ok, *rest)
+
+    moe._route, moe._positions, moe._experts = _route, _positions, _experts
+    try:
+        yield calls
+    finally:
+        moe._route, moe._positions, moe._experts = route, positions, experts
+
+
+def moe_layer_rank(rank: int, world: int, init_file: str, out_dir: str,
+                   seed: int) -> None:
+    """One rank of phase 4i(a): the full-width qwen2-moe MoE layer in each
+    form of ``PAR_FORMS``, and ``_moe_dense`` on this rank's data shard;
+    the results to ``out_dir/layer{rank}.pt``."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import get_config, moe
+    from repro_torch.parallel import ParallelContext, parallel_context
+    _rank_group(rank, world, init_file)
+    try:
+        coll = _time_collectives()
+        cfg0 = get_config(PAR_ARCH, "full")
+        layer = moe.MoE(cfg0, torch.bfloat16, device=DEV,
+                        gen=torch.Generator(device=DEV).manual_seed(seed))
+        layer.requires_grad_(True)
+        params = list(layer.parameters())
+        meshes = {s: make_host_mesh(*s, device_type="cuda")
+                  for s in sorted({f[1] for f in PAR_FORMS})}
+        out = {}
+        for form, shape, batch in PAR_FORMS:
+            ctx = ParallelContext(mesh=meshes[shape], data_axes=("data",),
+                                  model_axis="model")
+            gen = torch.Generator(device=DEV).manual_seed(seed + 1)
+            x = torch.randn((batch, PAR_S, cfg0.d_model), generator=gen,
+                            device=DEV).to(torch.bfloat16)
+            x = x[ctx.data_index:ctx.data_index + 1]
+
+            def run(c, impl, record=False):
+                cfg = cfg0.with_(moe_impl=impl)
+                xx = x.clone().requires_grad_(True)
+                with (parallel_context(c) if c else contextlib.nullcontext()
+                      ), (recorded_slots(c.model_group if c else None)
+                          if record else contextlib.nullcontext([None])
+                          ) as slots:
+                    y, aux = moe.moe_forward(layer, xx, cfg)
+                    loss = (y.float() ** 2).sum() / y.numel() \
+                        + cfg.moe_aux_coef * aux
+                    grads = torch.autograd.grad(loss, [xx] + params)
+                return y.detach(), grads, slots[0]
+
+            # the slots recorded outside the timed runs
+            y, grads, rec = run(ctx, form, record=True)
+            wall = []
+            coll.update(calls=0, s=0.0)
+            for _ in range(PAR_LAYER_REPS):
+                dist.barrier()
+                wall.append(sync_wall(lambda: run(ctx, form))[0])
+            calls, coll_s = coll["calls"], coll["s"]
+            dist.barrier()
+            _, by_name = device_time_by_kernel(lambda: run(ctx, form))
+            yd, gd, recd = run(None, "dense", record=True)
+            res = dict(wall_s=sorted(wall)[len(wall) // 2],
+                       coll_s=coll_s / PAR_LAYER_REPS,
+                       coll_calls=calls // PAR_LAYER_REPS,
+                       device_ms=sum(us for _, us in by_name.values()) / 1e3,
+                       data_index=ctx.data_index, model_rank=ctx.model_rank,
+                       sums=checksums([y, *grads]).cpu(),
+                       dense_dropped=int((~recd["kept"]).sum()),
+                       dropped=int((~rec["kept"]).sum()))
+            if form == "ep_a2a":   # this rank's chunk of the sequence
+                lo = ctx.model_rank * PAR_S // ctx.tp_size
+                rows = slice(lo, lo + PAR_S // ctx.tp_size)
+                both = rec["kept"].all(1) & recd["kept"][rows].all(1)
+                res.update(
+                    same_ids=bool(torch.equal(rec["top_e"],
+                                              recd["top_e"][rows])),
+                    rows_held=int(both.sum()),
+                    y_rel=rel_err(y[0, rows][both], yd[0, rows][both]))
+            else:
+                res.update(
+                    same_ids=bool(torch.equal(rec["top_e"], recd["top_e"])),
+                    same_kept=bool(torch.equal(rec["kept"], recd["kept"])),
+                    y_rel=rel_err(y, yd),
+                    grad_rel=max(rel_err(g, w) for g, w in zip(grads, gd)))
+            out[form + str(shape)] = res
+            del y, grads, yd, gd
+        torch.save(out, f"{out_dir}/layer{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    """||got - want|| / ||want||, in float64."""
+    want = want.double()
+    return float((got.double() - want).norm() / want.norm().clamp(
+        min=1e-300))
+
+
+def par_train_argv(mode: str, data: int, model: int) -> list:
+    """The launcher's arguments of phase 4i(b)'s runs."""
+    return ["--arch", PAR_ARCH, "--variant", "full", "--batch", str(PAR_B),
+            "--seq", str(PAR_S), "--steps", str(PAR_STEPS), "--lr",
+            str(TRAIN_LR), "--grad-sync", mode, "--data-parallel", str(data),
+            "--model-parallel", str(model), "--log-every", "0"]
+
+
+def train_on_mesh(world: int, mode: str) -> dict:
+    """``PAR_STEPS`` steps through the launcher's ``make_trainer`` on this
+    rank (the config's depth cut to ``PAR_LAYERS``), the launches counted
+    from 0 around ``Trainer.run``: losses, walls, launches, the norm of
+    each gradient tensor the optimizer was handed and the weights'
+    checksums after every step, the peak memory and the number of
+    parameter tensors."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch import train as lt
+    from repro_torch.models import get_config
+    from repro_torch.parallel import parallel_context
+    from repro_torch.train import train_step
+    data, model = (1, 1) if world == 1 else PAR_MESH
+    args = lt.parse_args(par_train_argv(mode, data, model))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_config(PAR_ARCH, "full").with_(num_layers=PAR_LAYERS)
+    trainer, ctx = lt.make_trainer(args, world, torch.device(DEV), cfg=cfg)
+    step, update = trainer.step_fn, train_step.adamw_update
+    sums, norms, names = [], [], []
+
+    def stepped(*a):
+        out = step(*a)
+        sums.append(checksums(trainer.params.parameters()))
+        return out
+
+    def updated(grads, *a, **k):   # the whole step's gradient, synced
+        names[:] = list(grads)
+        norms.append(torch.stack([torch.linalg.vector_norm(
+            g, dtype=torch.float32) for g in grads.values()]))
+        return update(grads, *a, **k)
+    trainer.step_fn, train_step.adamw_update = stepped, updated
+    reset_launch_counts()
+    try:
+        with parallel_context(ctx):
+            hist = trainer.run()
+    finally:
+        trainer.step_fn, train_step.adamw_update = step, update
+    counts = launch_counts()
+    out = dict(losses=[h["loss"] for h in hist],
+               walls=[h["step_time_s"] for h in hist], counts=counts,
+               sums=[s.cpu() for s in sums],
+               norms=[n.double().cpu() for n in norms],
+               names=names,
+               peak=torch.cuda.max_memory_allocated(),
+               tensors=len(list(trainer.params.parameters())),
+               tp=ctx.tp_size)
+    del trainer
+    gc.collect()
+    return out
+
+
+def train_parallel_rank(rank: int, world: int, init_file: str,
+                        out_dir: str) -> None:
+    """One rank of phase 4i(b): every mode of ``TRAIN_MODES`` at
+    ``PAR_MESH``; the results to ``out_dir/train{rank}.pt``."""
+    import torch.distributed as dist
+    _rank_group(rank, world, init_file)
+    try:
+        out = {mode: train_on_mesh(world, mode) for mode in TRAIN_MODES}
+        torch.save(out, f"{out_dir}/train{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_parallel(rows: dict, seed: int, smi: str) -> None:
+    """Phase 4i: qwen2-moe-a2.7b on (data, model) meshes of gloo ranks
+    that share the card. Each result line ends with ``smi``, the card's
+    name and power limit."""
+    print("== phase 4i: qwen2-moe-a2.7b on a (data, model) mesh of gloo "
+          "ranks sharing the card", flush=True)
+    t0 = time.perf_counter()
+    parallel_layer(seed, smi)
+    parallel_train(rows, smi)
+    print(f"phase 4i: {time.perf_counter() - t0:.1f} s", flush=True)
+
+
+def parallel_layer(seed: int, smi: str) -> None:
+    """Phase 4i(a): one MoE layer at full width in each expert-parallel
+    form against ``_moe_dense`` over the same shard."""
+    import torch.multiprocessing as mp
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        mp.spawn(moe_layer_rank, args=(4, f"{tmp}/rdv_layer", tmp, seed),
+                 nprocs=4, join=True)
+        layer = [torch.load(f"{tmp}/layer{r}.pt") for r in range(4)]
+    for form, shape, batch in PAR_FORMS:
+        key = form + str(shape)
+        rs = [r[key] for r in layer]
+        for r in rs:
+            check(r["same_ids"], f"{key}: the expert ids differ from "
+                                 f"_moe_dense's on the same tokens")
+            check(r["y_rel"] <= PAR_LAYER_REL, f"{key}: y {r['y_rel']:.3g} "
+                                              f"from _moe_dense's")
+            if form == "ep":
+                check(r["same_kept"], f"{key}: the kept slots differ from "
+                                      f"_moe_dense's")
+                check(r["grad_rel"] <= PAR_LAYER_REL,
+                      f"{key}: a gradient {r['grad_rel']:.3g} from "
+                      f"_moe_dense's")
+        for a in rs:
+            for b in rs:
+                if a["data_index"] == b["data_index"]:
+                    check(torch.equal(a["sums"], b["sums"]),
+                          f"{key}: model ranks {a['model_rank']} and "
+                          f"{b['model_rank']} hold different y or gradients")
+        dropped = (sum(r["dropped"] for r in rs) if form == "ep_a2a"
+                   else sum(r["dropped"] for r in rs if r["model_rank"] == 0))
+        dense = sum(r["dense_dropped"] for r in rs if r["model_rank"] == 0)
+        held = (f", y held on {sum(r['rows_held'] for r in rs)} of "
+                f"{batch * PAR_S} tokens (every slot kept by both)"
+                if form == "ep_a2a" else ", every gradient")
+        print(f"{key} at x ({batch}, {PAR_S}, 2048) bf16: y within "
+              f"{max(r['y_rel'] for r in rs):.3g}{held} (max "
+              f"{max(r.get('grad_rel', 0.0) for r in rs):.3g}) of "
+              f"_moe_dense's on the same shard; slots dropped {dropped} "
+              f"(_moe_dense {dense}) of {batch * PAR_S * 4}; y and every "
+              f"gradient the same bits on each model rank; a rank's "
+              f"forward + backward: wall {max(r['wall_s'] for r in rs) * 1e3:.1f}"
+              f" ms (median of {PAR_LAYER_REPS}), device "
+              + ", ".join(f"{r['device_ms']:.2f}" for r in rs) + " ms by rank, "
+              f"collectives' host wall "
+              f"{max(r['coll_s'] for r in rs) * 1e3:.1f} ms in "
+              f"{rs[0]['coll_calls']} calls [{smi}]", flush=True)
+
+
+def rel_diffs(got: list, want: list) -> list:
+    """Each step's largest |got - want| / want over the tensors, and the
+    tensor's index: ``[(rel, index), ...]``."""
+    out = []
+    for g, w in zip(got, want):
+        rel = (g - w).abs() / w.abs().clamp(min=1e-300)
+        out.append((float(rel.max()), int(rel.argmax())))
+    return out
+
+
+def parallel_train(rows: dict, smi: str) -> None:
+    """Phase 4i(b): training through the launcher's code path, depth cut
+    to ``PAR_LAYERS``, at ``PAR_MESH`` against the same steps at world 1:
+    every step's loss and every gradient tensor's norm, the model ranks'
+    weights bit for bit, the launches."""
+    import torch.multiprocessing as mp
+    with one_rank_nccl():   # the world-1 reference (dense) first
+        one = {mode: train_on_mesh(1, mode) for mode in TRAIN_MODES}
+    torch.cuda.empty_cache()
+    world = PAR_MESH[0] * PAR_MESH[1]
+    with tempfile.TemporaryDirectory() as tmp:
+        mp.spawn(train_parallel_rank, args=(world, f"{tmp}/rdv_train", tmp),
+                 nprocs=world, join=True)
+        ranks = [torch.load(f"{tmp}/train{r}.pt") for r in range(world)]
+    tokens = PAR_B * PAR_S
+    for mode in TRAIN_MODES:
+        ref, rs = one[mode], [r[mode] for r in ranks]
+        n = rs[0]["tensors"]
+        fp = PAR_STEPS * n if mode == "canary_fp" else 0
+        want = {"quantize": fp, "dequantize": fp, "packet_accumulate": 0,
+                "packet_accumulate_gather": 0,
+                "flash_attention": PAR_STEPS * 2 * PAR_LAYERS,
+                "flash_attention_bwd": PAR_STEPS * 3 * PAR_LAYERS}
+        loss_rel = [abs(a - b) / abs(b)
+                    for a, b in zip(rs[0]["losses"], ref["losses"])]
+        norm_rel = rel_diffs(rs[0]["norms"], ref["norms"])
+        warm = [sorted(r["walls"][1:])[len(r["walls"][1:]) // 2]
+                for r in (ref, rs[0])]
+        print(f"{mode}: {PAR_LAYERS} of 24 layers, {n} tensors, B {PAR_B}, "
+              f"S {PAR_S}; losses at {PAR_MESH} "
+              + ", ".join(f"{x:.6f}" for x in rs[0]["losses"])
+              + ", at world 1 (dense) "
+              + ", ".join(f"{x:.6f}" for x in ref["losses"])
+              + "; difference by step " + ", ".join(f"{x:.3g}"
+                                                    for x in loss_rel)
+              + " relative; each gradient tensor's norm, largest difference"
+              " by step " + ", ".join(f"{x:.3g} ({ref['names'][i]})"
+                                      for x, i in norm_rel)
+              + f" relative; warm median step {warm[1] * 1e3:.1f} ms "
+              f"({tokens / warm[1]:.0f} tokens/s; world 1: "
+              f"{warm[0] * 1e3:.1f} ms, {tokens / warm[0]:.0f} tokens/s); "
+              f"peak memory a rank "
+              + ", ".join(f"{r['peak'] / 2**30:.2f}" for r in rs)
+              + f" GiB (world 1: {ref['peak'] / 2**30:.2f}); launches a rank "
+              f"over {PAR_STEPS} steps {rs[0]['counts']} [{smi}]",
+              flush=True)
+        for r in rs + [ref]:
+            check(all(np.isfinite(r["losses"])), f"{mode}: a loss is not "
+                                                 f"finite: {r['losses']}")
+            check(r["counts"] == want, f"{mode}: launches over {PAR_STEPS} "
+                                       f"steps {r['counts']}, want {want}")
+        check(rs[0]["names"] == ref["names"], f"{mode}: the gradients' "
+                                              f"names differ from world 1's")
+        for step in range(PAR_STEPS):
+            check(all(torch.equal(r["sums"][step], rs[0]["sums"][step])
+                      for r in rs), f"{mode}: the model ranks' weights differ"
+                                    f" after step {step}")
+            check(loss_rel[step] <= PAR_LOSS_REL,
+                  f"{mode}: step-{step} loss {rs[0]['losses'][step]} at "
+                  f"{PAR_MESH}, {ref['losses'][step]} at world 1")
+            rel, i = norm_rel[step]
+            check(rel <= PAR_GRAD_REL,
+                  f"{mode}: step {step}: {ref['names'][i]}'s gradient norm "
+                  f"{float(rs[0]['norms'][step][i])} at {PAR_MESH}, "
+                  f"{float(ref['norms'][step][i])} at world 1")
+        print(f"{mode}: weights the same bits on both model ranks after "
+              f"every step", flush=True)
+        for k, c in rs[0]["counts"].items():
+            if c:
+                rows[k].setdefault("paths", {})[f"train_parallel_{mode}"] = \
+                    sum(r["counts"][k] for r in rs)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2538,6 +3023,11 @@ def main() -> int:
     phase_timing(x, plan, rows)
     phase_profile(x, plan)
     phase_profile_prefill(engine, prompt)
+    # last: after its processes have shared the card, this process's
+    # profiler recorded fewer of phase 5's kernel launches (on the H100: 3
+    # of 5 in one run, against 5 of 5 before it; 0 of 5 in another)
+    del engine, prompt
+    phase_parallel(rows, args.seed, smi)
 
     # launches by path: the replay, switch or prefill run ("launches" so
     # far), then the replays of phase 4e and the training runs
@@ -2552,6 +3042,14 @@ def main() -> int:
     for k in ("quantize", "dequantize"):
         check(rows[k].get("paths", {}).get("train_whisper_canary_fp", 0) > 0,
               f"{k} never launched on whisper's training path")
+    for k, modes in (("quantize", ("canary_fp",)),
+                     ("dequantize", ("canary_fp",)),
+                     ("flash_attention", TRAIN_MODES),
+                     ("flash_attention_bwd", TRAIN_MODES)):
+        for mode in modes:
+            check(rows[k].get("paths", {}).get(f"train_parallel_{mode}", 0)
+                  > 0, f"{k} never launched on the (data, model) mesh's "
+                       f"{mode} training path")
     for k in ("quantize", "dequantize", "packet_accumulate_gather"):
         check(rows[k].get("paths", {}).get("replay_faults", 0) > 0,
               f"{k} never launched on phase 4e's replays")
@@ -2568,7 +3066,7 @@ def main() -> int:
                    bound_by=r["bound_by"], library_ms=r["library_ms"],
                    paths=paths)
         for extra in ("train", "lse_store", "by_kernel",    # other shapes
-                      "mha_head_dim_128"):
+                      "mha_head_dim_128", "qwen2_moe_train"):
             if extra in r:
                 row[extra] = r[extra]
         kernels.append(row)

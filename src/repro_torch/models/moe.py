@@ -4,10 +4,20 @@ dispatch (no O(tokens^2) one-hot products).
 
 Routing follows DeepSeekMoE / Qwen2-MoE: float32 router logits, softmax,
 top-k, renormalised weights, and a Switch-style load-balancing auxiliary
-loss. The reference's single-device ``dense`` path is ported; with no
-parallel context every ``moe_impl`` takes it, as the reference's does. The
-expert-parallel forms (``_moe_ep_shardmap``, ``_moe_ep_a2a_shardmap``)
-wait for the port's mesh (``ROADMAP.md`` queue 1, item 12).
+loss. Three forms, chosen by ``cfg.moe_impl`` and the installed
+:class:`~repro_torch.parallel.ParallelContext` as the reference chooses
+(:func:`moe_forward`):
+
+* ``dense`` — one rank dispatches to every expert. Under a context with
+  more than one data rank (outside the explicit grad-sync modes) it routes
+  the whole data group's tokens, as the reference's one GSPMD program over
+  the global batch does: capacity, drops and the aux loss are global.
+* ``ep`` (:func:`_moe_ep_psum`) — tokens replicated over the model group;
+  model rank ``m`` serves experts ``[m * E/tp, (m + 1) * E/tp)`` and the
+  partial outputs are summed over the group.
+* ``ep_a2a`` (:func:`_moe_ep_a2a`) — each model rank routes its chunk of
+  the sequence, and two all-to-alls carry the tokens to the expert owners
+  and back.
 
 Where the port differs in form, and why:
 
@@ -18,7 +28,17 @@ Where the port differs in form, and why:
 * The reference combines with a scatter-add over tokens. On the card
   ``index_add_`` adds with atomics, whose order (and so the bf16 bits)
   changes from run to run; the port un-permutes the slots to (N, k, d) and
-  sums over k instead, the same bits every run.
+  sums over k instead, the same bits every run. Each dispatch (into the
+  capacity buffer, and ``ep_a2a``'s into its send buffer) copies the
+  tokens once a choice, for the same reason: its gradient
+  then sums a token's k rows in order, with no atomics, so two ranks that
+  run the same step hold the same bits.
+* The reference's expert-parallel forms run inside ``shard_map`` on
+  devices that hold only their experts' weights. Here every rank holds the
+  whole (replicated) weights and slices its experts out; the collectives
+  are the autograd-aware ones of :mod:`repro_torch.parallel.regions`, so
+  every rank ends the backward pass with the whole gradient of every
+  weight, the same bits on every model rank.
 
 No step syncs with the host: the kept and dropped slots are masks on the
 device, and the experts' loads are a scatter-add, not ``bincount`` (which
@@ -26,12 +46,16 @@ reads its output's size from the card).
 """
 from __future__ import annotations
 
+from types import SimpleNamespace
 from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel import get_parallel_context
+from ..parallel.regions import (all_to_all, copy_to, exchange, gather_from,
+                                gather_rows, mean_over, reduce_from, shard_of)
 from .config import ModelConfig
 from .layers import MLP, _weights, mlp_forward
 
@@ -76,17 +100,23 @@ def _route(p: MoE, x2d: torch.Tensor, cfg: ModelConfig
     return top_w, top_e, aux
 
 
+def _positions(keys: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor,
+                                            torch.Tensor]:
+    """Stable sort of ``keys``: (order, sorted keys, each one's rank among
+    its equals). The sort is stable and the search takes the left end, as
+    ``jnp.argsort`` / ``jnp.searchsorted`` do, so the same slots come first
+    in each group and the same ones drop at capacity."""
+    order = torch.argsort(keys, stable=True)
+    sk = keys[order]
+    first = torch.searchsorted(sk, sk, side="left")
+    return order, sk, torch.arange(sk.shape[0], device=keys.device) - first
+
+
 def _dispatch_indices(top_e: torch.Tensor, k: int, num_experts: int
                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Sort slots by expert; return (sorted expert id, position-in-expert,
-    source slot order). The sort is stable and the search takes the left
-    end, as ``jnp.argsort`` / ``jnp.searchsorted`` do, so the same slots
-    come first in each expert and the same ones drop at capacity."""
-    flat_e = top_e.reshape(-1)                                    # (N*k,)
-    order = torch.argsort(flat_e, stable=True)
-    sorted_e = flat_e[order]
-    first = torch.searchsorted(sorted_e, sorted_e, side="left")
-    pos_in_e = torch.arange(sorted_e.shape[0], device=top_e.device) - first
+    source slot order)."""
+    order, sorted_e, pos_in_e = _positions(top_e.reshape(-1))   # (N*k,)
     return sorted_e, pos_in_e, order
 
 
@@ -106,6 +136,45 @@ def _capacity(n_tokens: int, cfg: ModelConfig) -> int:
     return max(8, -(-c // 8) * 8)
 
 
+def _pack(x2d: torch.Tensor, dest: torch.Tensor, order: torch.Tensor,
+          k: int, rows: int) -> torch.Tensor:
+    """A (rows, d) zero buffer with slot ``order[i]`` (token ``order[i] //
+    k``'s choice ``order[i] % k``) copied to row ``dest[i]``. One copy of
+    the tokens a choice, so the backward sums a token's k rows in order,
+    where the gradient of ``x2d.index_select(0, order // k)`` would add
+    them with atomics."""
+    n, d = x2d.shape
+    buf = torch.zeros((rows, d), dtype=x2d.dtype, device=x2d.device)
+    by_token = torch.empty_like(dest).index_copy_(0, order, dest).view(n, k)
+    for j in range(k):
+        buf.index_copy_(0, by_token[:, j], x2d)
+    return buf
+
+
+def _experts(ex, x2d, top_w, sorted_e, pos_in_e, order, ok, lo: int,
+             e_loc: int, cap: int, k: int) -> torch.Tensor:
+    """The slots where ``ok`` through experts ``[lo, lo + e_loc)`` of
+    ``ex``: scattered into an (e_loc, cap, d) buffer at their positions,
+    each expert's FFN, and gathered back weighted; the other slots give 0.
+    Returns (N, d): each token's slots summed over k."""
+    n, d = x2d.shape
+    le = sorted_e - lo
+    # rows of the flattened (e_loc * cap + 1, d) buffer; a slot not kept
+    # lands in the last row, cut off below
+    dest = torch.where(ok, le * cap + pos_in_e, e_loc * cap)
+    buf = _pack(x2d, dest, order, k, e_loc * cap + 1)
+    out = _expert_ffn(ex, buf[:e_loc * cap].view(e_loc, cap, d))
+    vals = out.reshape(e_loc * cap, d).index_select(
+        0, torch.clamp(le, 0, e_loc - 1) * cap
+        + torch.clamp(pos_in_e, max=cap - 1))
+    vals = torch.where(ok[:, None], vals, 0.0)
+    w_sorted = top_w.reshape(-1)[order].to(vals.dtype)
+    # un-permute to (N, k, d) and sum over k: no atomics, the same bits
+    slots = torch.empty_like(vals).index_copy_(0, order,
+                                               vals * w_sorted[:, None])
+    return slots.view(n, k, d).sum(dim=1)
+
+
 def _moe_dense(p: MoE, x2d: torch.Tensor, cfg: ModelConfig
                ) -> Tuple[torch.Tensor, torch.Tensor]:
     n, d = x2d.shape
@@ -114,32 +183,149 @@ def _moe_dense(p: MoE, x2d: torch.Tensor, cfg: ModelConfig
     sorted_e, pos_in_e, order = _dispatch_indices(top_e, k, e)
     cap = _capacity(n, cfg)
     keep = pos_in_e < cap
-    src_tok = order // k
-    # rows of the flattened (E * cap + 1, d) buffer; a dropped slot lands in
-    # the last row, cut off below
-    dest = torch.where(keep, sorted_e * cap + pos_in_e, e * cap)
-    buf = torch.zeros((e * cap + 1, d), dtype=x2d.dtype, device=x2d.device)
-    buf.index_copy_(0, dest, x2d.index_select(0, src_tok))
-    out = _expert_ffn(p, buf[:e * cap].view(e, cap, d))
-    vals = out.reshape(e * cap, d).index_select(
-        0, sorted_e * cap + torch.clamp(pos_in_e, max=cap - 1))
-    vals = torch.where(keep[:, None], vals, 0.0)
-    w_sorted = top_w.reshape(-1)[order].to(vals.dtype)
-    # un-permute to (N, k, d) and sum over k: no atomics, the same bits
-    slots = torch.empty_like(vals).index_copy_(0, order,
-                                               vals * w_sorted[:, None])
-    return slots.view(n, k, d).sum(dim=1), aux
+    # The reference pins the capacity buffer and the experts' outputs to
+    # experts over the model axis here (``_constrain``), a GSPMD layout
+    # hint: on one rank a process nothing is laid out over devices, and no
+    # number changes.
+    return _experts(p, x2d, top_w, sorted_e, pos_in_e, order, keep, 0, e,
+                    cap, k), aux
+
+
+def _local_experts(p: MoE, ctx, e_loc: int) -> SimpleNamespace:
+    """This model rank's experts, sliced from the whole weights; their
+    gradients come back whole on every rank (:func:`shard_of`)."""
+    g = ctx.model_group
+    return SimpleNamespace(**{w: shard_of(getattr(p, w), g, e_loc)
+                              for w in ("w_up", "w_gate", "w_down")})
+
+
+def _moe_ep_psum(p: MoE, x: torch.Tensor, cfg: ModelConfig
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Expert-parallel path: local-expert dispatch + psum combine (the
+    reference's ``_moe_ep_shardmap``).
+
+    Tokens are replicated along the model group; each rank serves only its
+    E/tp local experts at the capacity of all its tokens and contributes a
+    partial output, summed over the group — the direct analogue of
+    Canary's in-fabric partial aggregation. The tokens and the router
+    enter through :func:`copy_to`, so each rank's partial gradients are
+    summed; the aux loss is the group's mean.
+    """
+    ctx = get_parallel_context()
+    g, tp = ctx.model_group, ctx.tp_size
+    e, k = cfg.moe_experts, cfg.moe_top_k
+    e_loc = e // tp
+    lo = ctx.model_rank * e_loc
+    B, S, d = x.shape
+    n = B * S
+    x2d = copy_to(x.reshape(n, d), g)
+    top_w, top_e, aux = _route(SimpleNamespace(router=copy_to(p.router, g)),
+                               x2d, cfg)
+    sorted_e, pos_in_e, order = _dispatch_indices(top_e, k, e)
+    cap = _capacity(n, cfg)
+    local_ok = (sorted_e >= lo) & (sorted_e < lo + e_loc) & (pos_in_e < cap)
+    y = _experts(_local_experts(p, ctx, e_loc), x2d, top_w, sorted_e,
+                 pos_in_e, order, local_ok, lo, e_loc, cap, k)
+    y = reduce_from(y, g)                    # combine expert partials
+    return y.view(B, S, d), mean_over(aux, g)
+
+
+def _moe_ep_a2a(p: MoE, x: torch.Tensor, cfg: ModelConfig
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """All-to-all expert parallelism (the reference's
+    ``_moe_ep_a2a_shardmap``).
+
+    Model rank ``m`` takes chunk ``m`` of the sequence, routes its own
+    tokens, packs them by destination rank, and two all-to-alls carry
+    them to the expert owners and back; the owner dispatches what it
+    received to its local experts at a second capacity. Per-rank link
+    bytes are ~2k/tp of the token stream against ~2x for the psum combine.
+    The layers after this one run replicated, so the chunks' outputs are
+    all-gathered back along the sequence; the aux loss is the mean of the
+    chunks'.
+    """
+    ctx = get_parallel_context()
+    g, tp, m = ctx.model_group, ctx.tp_size, ctx.model_rank
+    e, k, cf = cfg.moe_experts, cfg.moe_top_k, cfg.moe_capacity_factor
+    e_loc = e // tp
+    B, S, d = x.shape
+    s_loc = S // tp
+    n = B * s_loc
+    x2d = copy_to(x, g)[:, m * s_loc:(m + 1) * s_loc].reshape(n, d)
+    top_w, top_e, aux = _route(SimpleNamespace(router=copy_to(p.router, g)),
+                               x2d, cfg)
+    flat_e = top_e.reshape(-1)                        # (n*k,)
+    order, sd, pos = _positions(flat_e // e_loc)      # by destination rank
+    cap = max(8, -(-int(n * k / tp * cf) // 8) * 8)
+    ok = pos < cap
+    slot = torch.where(ok, sd * cap + pos, tp * cap)  # row of the send buffer
+    send_x = _pack(x2d, slot, order, k, tp * cap + 1)
+    send_e = torch.full((tp * cap + 1,), e, dtype=flat_e.dtype,
+                        device=flat_e.device)
+    send_e.index_copy_(0, slot, flat_e[order])
+    # ship to expert owners: chunk j of the buffer to rank j
+    recv_x = all_to_all(send_x[:tp * cap], g)
+    recv_e = exchange(send_e[:tp * cap], g)
+    le = recv_e - m * e_loc                           # local expert id
+    valid = (le >= 0) & (le < e_loc)
+    order2, se2, pos2 = _positions(torch.where(valid, le, e_loc))
+    cap2 = max(8, -(-int(tp * cap / e_loc * cf) // 8) * 8)
+    ok2 = (pos2 < cap2) & (se2 < e_loc)
+    vals2 = _experts(_local_experts(p, ctx, e_loc), recv_x,
+                     torch.ones((tp * cap, 1), dtype=torch.float32,
+                                device=x2d.device), se2, pos2, order2, ok2,
+                     0, e_loc, cap2, 1)               # (tp*cap, d), unpermuted
+    back = all_to_all(vals2, g)                       # my slots, by dest
+    # combine at source: slot (dest, pos) -> its token
+    got = back.index_select(0, torch.clamp(sd, max=tp - 1) * cap
+                            + torch.clamp(pos, max=cap - 1))
+    got = torch.where(ok[:, None], got, 0.0)
+    w_sorted = top_w.reshape(-1)[order].to(got.dtype)
+    slots = torch.empty_like(got).index_copy_(0, order,
+                                              got * w_sorted[:, None])
+    y = slots.view(B, s_loc, k, d).sum(dim=2)
+    return gather_from(y, g, dim=1), mean_over(aux, g)
 
 
 def moe_forward(p: MoE, x: torch.Tensor, cfg: ModelConfig
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: (B, S, d) -> (y, aux_loss). Shared experts always run densely.
 
-    The port has no parallel context, so every ``cfg.moe_impl`` takes the
-    dense path, as the reference's does without one."""
+    The form is the reference's choice, from ``cfg.moe_impl`` and the
+    installed context: ``auto`` takes ``ep`` when the context allows the
+    expert-parallel forms, its model group has more than one rank and the
+    experts split evenly over it, else ``dense``; ``ep_a2a`` gives way to
+    ``ep`` where the sequence or the experts do not split (decode); with no
+    context every form is ``dense``."""
     B, S, d = x.shape
-    y2d, aux = _moe_dense(p, x.reshape(B * S, d), cfg)
-    y = y2d.view(B, S, d)
+    ctx = get_parallel_context()
+    impl = cfg.moe_impl
+    ep_ok = ctx is not None and ctx.allow_shardmap_layers
+    if impl == "auto":
+        impl = "ep" if (ep_ok and ctx.tp_size > 1
+                        and cfg.moe_experts % ctx.tp_size == 0) else "dense"
+    if impl == "ep_a2a" and ep_ok:
+        tp = ctx.tp_size
+        if S % tp == 0 and cfg.moe_experts % tp == 0:
+            y, aux = _moe_ep_a2a(p, x, cfg)
+        else:  # decode (S=1) or non-divisible: fall back to psum combine
+            y, aux = _moe_ep_psum(p, x, cfg)
+    elif impl == "ep" and ep_ok:
+        y, aux = _moe_ep_psum(p, x, cfg)
+    else:
+        x2d = x.reshape(B * S, d)
+        # the reference's dense path is one program over the global batch:
+        # route the data group's tokens, keep this rank's rows. Inside an
+        # explicit sync mode (its data-manual ``shard_map``, where the
+        # expert-parallel forms are off too) it routes per data rank.
+        gather = (ctx is not None and ctx.allow_shardmap_layers
+                  and ctx.dp_size > 1)
+        if gather:
+            x2d = gather_rows(x2d, ctx.data_groups, ctx.data_index)
+        y2d, aux = _moe_dense(p, x2d, cfg)
+        if gather:
+            y2d = y2d.narrow(0, ctx.data_index * B * S, B * S)
+        y = y2d.view(B, S, d)
     if hasattr(p, "shared"):
         y = y + mlp_forward(p.shared, x, "swiglu")
     return y, aux

@@ -253,9 +253,10 @@ def forward(params: Transformer, tokens: torch.Tensor, cfg: ModelConfig, *,
         if frames is None:
             raise ValueError("encoder-decoder model needs `frames`")
         enc_out = encode(params, frames, cfg)
-    # The reference pins activations to batch-over-data sharding at each
-    # layer period (``_activation_constraint``); one card has no sharding.
-    # Sharded execution is ROADMAP.md queue 1, item 12 (parallel).
+    # The reference pins activations to batch-over-data sharding (and, with
+    # ``sequence_parallel``, the sequence over the model axis) at each layer
+    # period (``_activation_constraint``): a GSPMD layout hint. Here each
+    # rank is a process holding its own rows, so no number depends on it.
     per = layer_period(cfg)
     remat = cfg.remat and torch.is_grad_enabled()
     aux = torch.zeros((), dtype=torch.float32, device=x.device)

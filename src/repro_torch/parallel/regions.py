@@ -1,0 +1,181 @@
+"""Autograd-aware collectives for layers that run across ranks.
+
+Every rank of a model group runs the same program on the same tokens and
+takes the same loss, as the reference's devices do under ``shard_map``;
+a parameter or activation that every rank holds must come out of the
+backward pass with the whole gradient on every rank, once. These are the
+conjugate pairs of Megatron-LM (Shoeybi et al. 2019, section 3) that make
+it so:
+
+* :func:`copy_to` — forward identity, backward all-reduce: an input that
+  each rank uses for its own part of the work (tokens dispatched to its
+  local experts, the router's weight);
+* :func:`reduce_from` — forward all-reduce, backward identity: the sum of
+  the ranks' partial outputs;
+* :func:`mean_over` — the mean of the ranks' values, each rank's share of
+  the gradient ``1 / n``;
+* :func:`gather_from` — forward all-gather along a dim, backward this
+  rank's own slice;
+* :func:`shard_of` — this rank's rows of a weight that every rank holds
+  whole, its gradient all-gathered back to the whole weight;
+* :func:`all_to_all` — equal chunks of dim 0 exchanged (chunk ``j`` to
+  rank ``j``); its backward is the same exchange;
+* :func:`gather_rows` — rows gathered over the data groups (outermost
+  first, data-major), backward a reduce-scatter: every rank's loss may
+  reach every row.
+
+Sums run in float32 and are cast back, so a bf16 tensor's sum rounds once.
+On a group of one rank each is the identity.
+"""
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+import torch.distributed as dist
+from torch.autograd import Function
+from torch.distributed import ProcessGroup
+
+
+def _size(group: ProcessGroup) -> int:
+    return dist.get_world_size(group)
+
+
+def _sum(t: torch.Tensor, group: ProcessGroup) -> torch.Tensor:
+    out = t.to(torch.float32, copy=True).contiguous()
+    dist.all_reduce(out, group=group)
+    return out.to(t.dtype)
+
+
+def _gather(t: torch.Tensor, group: ProcessGroup, dim: int) -> torch.Tensor:
+    t = t.contiguous()
+    parts = [torch.empty_like(t) for _ in range(_size(group))]
+    dist.all_gather(parts, t, group=group)
+    return torch.cat(parts, dim=dim)
+
+
+class _CopyTo(Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _sum(g, ctx.group), None
+
+
+class _ReduceFrom(Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        return _sum(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _MeanOver(Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.n = _size(group)
+        return _sum(x, group) / ctx.n
+
+    @staticmethod
+    def backward(ctx, g):
+        return g / ctx.n, None
+
+
+class _GatherFrom(Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim, ctx.len = group, dim, x.shape[dim]
+        return _gather(x, group, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        lo = dist.get_rank(ctx.group) * ctx.len
+        return g.narrow(ctx.dim, lo, ctx.len).contiguous(), None, None
+
+
+class _ShardOf(Function):
+    @staticmethod
+    def forward(ctx, w, group, rows):
+        ctx.group = group
+        lo = dist.get_rank(group) * rows
+        return w.narrow(0, lo, rows)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _gather(g, ctx.group, 0), None, None
+
+
+def _exchange(t: torch.Tensor, group: ProcessGroup) -> torch.Tensor:
+    t = t.contiguous()
+    out = torch.empty_like(t)
+    dist.all_to_all_single(out, t, group=group)
+    return out
+
+
+class _AllToAll(Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _exchange(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _exchange(g, ctx.group), None
+
+
+class _GatherRows(Function):
+    @staticmethod
+    def forward(ctx, x, groups, index):
+        ctx.groups, ctx.index, ctx.rows = groups, index, x.shape[0]
+        for g in reversed(groups):              # innermost axis first
+            x = _gather(x, g, 0)
+        return x
+
+    @staticmethod
+    def backward(ctx, g):
+        for grp in ctx.groups:
+            g = _sum(g, grp)
+        return g.narrow(0, ctx.index * ctx.rows, ctx.rows), None, None
+
+
+def copy_to(x: torch.Tensor, group: ProcessGroup) -> torch.Tensor:
+    return x if _size(group) == 1 else _CopyTo.apply(x, group)
+
+
+def reduce_from(x: torch.Tensor, group: ProcessGroup) -> torch.Tensor:
+    return x if _size(group) == 1 else _ReduceFrom.apply(x, group)
+
+
+def mean_over(x: torch.Tensor, group: ProcessGroup) -> torch.Tensor:
+    return x if _size(group) == 1 else _MeanOver.apply(x, group)
+
+
+def gather_from(x: torch.Tensor, group: ProcessGroup, dim: int
+                ) -> torch.Tensor:
+    return x if _size(group) == 1 else _GatherFrom.apply(x, group, dim)
+
+
+def shard_of(w: torch.Tensor, group: ProcessGroup, rows: int) -> torch.Tensor:
+    """Rows ``[r * rows, (r + 1) * rows)`` of ``w`` on group rank ``r``."""
+    return w if _size(group) == 1 else _ShardOf.apply(w, group, rows)
+
+
+def all_to_all(x: torch.Tensor, group: ProcessGroup) -> torch.Tensor:
+    return x if _size(group) == 1 else _AllToAll.apply(x, group)
+
+
+def exchange(x: torch.Tensor, group: ProcessGroup) -> torch.Tensor:
+    """:func:`all_to_all` of a tensor that carries no gradient (ids)."""
+    return x if _size(group) == 1 else _exchange(x, group)
+
+
+def gather_rows(x: torch.Tensor, groups: Sequence[ProcessGroup],
+                index: int) -> torch.Tensor:
+    """Every data rank's rows of ``x`` in data-major order; ``index`` is
+    this rank's data-parallel index (its rows' block)."""
+    return _GatherRows.apply(x, tuple(groups), index)

@@ -22,18 +22,24 @@
                       int32 sums are the reference's.
 
 The reference runs one program over a JAX ``Mesh`` and slices the batch
-with ``shard_map``; here every data-parallel rank is a process, the
-:class:`Mesh` holds its process groups, and each rank is handed its own
-slice of the global batch (``batch_at(..., batch_slice=Mesh.batch_slice)``).
-The reference's sharding constraints on the logits have no one-card
-counterpart and are left out, as ``forward``'s are.
+with ``shard_map``; here every rank is a process, the :class:`Mesh` holds
+the data-parallel process groups, and each rank is handed its data rank's
+slice of the global batch (``batch_at(..., batch_slice=Mesh.batch_slice)``;
+the model ranks of one data rank get the same rows). Under a
+:class:`~repro_torch.parallel.ParallelContext` the mesh is its data groups
+(:meth:`Mesh.of`): the gradients are averaged, and the Canary trees run,
+over data ranks only, since every model rank ends its backward pass with
+the whole gradient. The reference's sharding constraint on the logits is a
+GSPMD layout hint; with one process a rank nothing is laid out over
+devices and no number depends on it, so it is left out, as ``forward``'s
+are.
 
 Parameters are an ``nn.Module``; a step writes the updated parameters and
 moments into its tensors (see :func:`repro_torch.optim.update`).
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
@@ -47,6 +53,7 @@ from ..models.config import ModelConfig
 from ..optim import AdamWConfig, AdamWState
 from ..optim import init as adamw_init
 from ..optim import update as adamw_update
+from ..parallel import ParallelContext, get_parallel_context, parallel_context
 from .losses import cross_entropy
 
 EXPLICIT_MODES = ("canary", "ring", "hierarchical", "canary_fp")
@@ -75,6 +82,14 @@ class Mesh:
 
     inner: ProcessGroup
     outer: Optional[ProcessGroup] = None
+
+    @classmethod
+    def of(cls, ctx: ParallelContext) -> "Mesh":
+        """The data groups of ``ctx``: the innermost data axis is the tree
+        axis, an outer one (``pod``) the cross-pod axis."""
+        groups = ctx.data_groups
+        return cls(inner=groups[-1],
+                   outer=groups[0] if len(groups) > 1 else None)
 
     @property
     def inner_size(self) -> int:
@@ -106,14 +121,18 @@ class Mesh:
         per = global_batch // self.size
         return self.index * per, (self.index + 1) * per
 
-    def mean(self, values: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    def mean(self, values: Dict[str, torch.Tensor], first=()
+             ) -> Dict[str, torch.Tensor]:
         """``pmean`` over the inner, then the outer group, of 0-d float32
-        tensors, in one all-reduce per group."""
+        tensors, in one all-reduce per group; the keys in ``first`` take
+        data rank 0's value instead."""
         keys = list(values)
         vec = torch.stack([values[k].to(torch.float32) for k in keys])
+        own = torch.tensor([k in first for k in keys], device=vec.device)
+        vec = torch.where(own & (self.index != 0), 0.0, vec)
         for g in self.groups:
             dist.all_reduce(vec, group=g)
-            vec = vec / dist.get_world_size(g)
+            vec = torch.where(own, vec, vec / dist.get_world_size(g))
         return dict(zip(keys, vec.unbind()))
 
 
@@ -203,7 +222,15 @@ def make_train_step(tc: TrainConfig, mesh: Optional[Mesh] = None,
     metrics)``, ``batch`` being this rank's slice. ``on_sync(raw, synced)``,
     if given, sees an explicit mode's gradients before and after the
     collective, before they are averaged and applied (a check of the sync
-    against its own input)."""
+    against its own input).
+
+    The step reads the parallel context when it runs. In ``auto`` the MoE
+    layers take the reference's forms under it, and the reported
+    ``aux_loss`` is data rank 0's, as the reference's expert-parallel
+    ``shard_map`` reports its first data shard's (the dense path's global
+    aux is the same on every rank). The explicit modes run the backward
+    pass per data rank, as the reference's data-manual ``shard_map`` does:
+    no activation constraint and no expert-parallel form inside it."""
     loss_fn = make_loss_fn(tc)
 
     if tc.grad_sync == "auto":
@@ -218,7 +245,8 @@ def make_train_step(tc: TrainConfig, mesh: Optional[Mesh] = None,
                     grads, group=mesh.inner, axis_size=mesh.inner_size,
                     mode="psum", outer_group=mesh.outer)
                 grads = {n: g / mesh.size for n, g in grads.items()}
-                metrics = mesh.mean(metrics)
+                metrics = mesh.mean(metrics, first=(
+                    "aux_loss",) if get_parallel_context() else ())
             params, opt_state, om = adamw_update(grads, opt_state, params,
                                                  tc.optimizer)
             metrics.update(om)
@@ -238,7 +266,12 @@ def make_train_step(tc: TrainConfig, mesh: Optional[Mesh] = None,
         if fixed_point else None
 
     def train_step(params, opt_state, batch):
-        (_, metrics), grads = value_and_grad(loss_fn, params, batch)
+        ctx = get_parallel_context()
+        if ctx is not None:     # per data rank: no EP form, no data gather
+            ctx = replace(ctx, constrain_activations=False,
+                          allow_shardmap_layers=False)
+        with parallel_context(ctx):
+            (_, metrics), grads = value_and_grad(loss_fn, params, batch)
         synced = canary_allreduce_tree(
             grads, group=mesh.inner, axis_size=mesh.inner_size, roots=roots,
             num_blocks=tc.canary_blocks, mode=mode, outer_group=mesh.outer,

@@ -1,10 +1,13 @@
 """Training loop (port of ``repro/train/trainer.py``): data pipeline +
 train_step + congestion-oracle feedback + checkpointing.
 
-With a :class:`~.train_step.Mesh`, every data-parallel rank runs its own
-:class:`Trainer` on its slice of each batch. The oracle's feedback is the
-slowest rank's step time, agreed by an all-reduce, so every rank plans the
-same roots; only the mesh's rank 0 writes checkpoints.
+With a :class:`~.train_step.Mesh`, every rank runs its own
+:class:`Trainer` on its data rank's slice of each batch (under a parallel
+context the mesh is the context's data groups, and the model ranks of a
+data rank share its rows). The oracle plans trees over the data group;
+its feedback is the slowest rank's step time, agreed by an all-reduce over
+every rank, so every rank plans the same roots. The weights are the same
+on every rank, so only rank 0 writes checkpoints.
 """
 from __future__ import annotations
 
@@ -81,11 +84,10 @@ class Trainer:
 
     def _slowest(self, seconds: float) -> float:
         """The largest of every rank's ``seconds``."""
-        if self.mesh is None or self.mesh.size == 1:
+        if self.mesh is None or dist.get_world_size() == 1:
             return seconds
         t = torch.tensor([seconds], dtype=torch.float64, device=self.device)
-        for g in self.mesh.groups:
-            dist.all_reduce(t, op=dist.ReduceOp.MAX, group=g)
+        dist.all_reduce(t, op=dist.ReduceOp.MAX)
         return float(t[0])
 
     def run(self) -> List[Dict[str, float]]:
@@ -109,7 +111,7 @@ class Trainer:
                       f"acc {metrics.get('accuracy', 0):.4f} {dt*1e3:.0f}ms")
             if cfg.checkpoint_dir and cfg.checkpoint_every and \
                     (step + 1) % cfg.checkpoint_every == 0 and \
-                    (self.mesh is None or self.mesh.index == 0):
+                    (self.mesh is None or dist.get_rank() == 0):
                 save_checkpoint(cfg.checkpoint_dir, step + 1, self.params,
                                 self.opt_state)
         return self.history

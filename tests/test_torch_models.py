@@ -544,3 +544,59 @@ def test_entry_points_need_cuda_by_default(monkeypatch):
             init_params(cfg, torch.Generator().manual_seed(0))
         with pytest.raises(RuntimeError, match="CUDA"):
             init_cache(cfg, 1, 8)
+
+
+# ------------------------------------------------------------ training step
+UNTRAINED = ["mamba2-130m", "jamba-v0.1-52b", "deepseek-moe-16b",
+             "qwen2-vl-2b"]
+
+
+@pytest.mark.parametrize("arch", UNTRAINED)
+def test_auto_train_step_matches_jax(arch):
+    """One ``auto`` step of the float32 smoke model on the same weights and
+    batch (qwen2-vl: seeded patch embeddings in front of the tokens): each
+    gradient within 1e-5 of its reference leaf's largest value, and each
+    AdamW update within 1.5e-5 of the update's largest value, plus one
+    rounding of the stored weight, where the sign of the gradient is
+    settled (|g| > 1e-3 of the leaf's max)."""
+    from repro import optim as j_optim
+    from repro import train as j_train
+    from repro_torch.convert import _reference_leaves
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.optim import init as adamw_init
+    from repro_torch.train import (TrainConfig, make_loss_fn,
+                                   make_train_step, value_and_grad)
+    jcfg, tcfg = _cfgs(arch, "float32")
+    jp, tp = _params(jcfg, tcfg)
+    toks = _tokens(tcfg, 2, 17)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    if tcfg.frontend == "vision_stub":
+        batch["patches"] = (0.02 * np.random.default_rng(5).standard_normal(
+            (2, tcfg.num_patches, tcfg.d_model))).astype(np.float32)
+    jtc = j_train.TrainConfig(model=jcfg,
+                              optimizer=j_optim.AdamWConfig(lr=1e-3))
+    tc = TrainConfig(model=tcfg, optimizer=AdamWConfig(lr=1e-3))
+    jb = {k: jnp.asarray(v) for k, v in batch.items()}
+    tb = {k: torch.from_numpy(v) for k, v in batch.items()}
+    _, jg = jax.value_and_grad(j_train.make_loss_fn(jtc), has_aux=True)(jp,
+                                                                        jb)
+    _, tg = value_and_grad(make_loss_fn(tc), tp, tb)
+    want = _reference_leaves(jax.tree.map(np.asarray, jg), tcfg)
+    assert set(tg) == set(want)
+    for name, g in tg.items():
+        err = np.abs(g.numpy() - want[name]).max()
+        assert err <= 1e-5 * np.abs(want[name]).max(), (name, err)
+    w0 = {n: p.detach().numpy().copy() for n, p in tp.named_parameters()}
+    jnew, _, _ = jax.jit(j_train.make_train_step(jtc))(
+        jp, j_optim.init(jp, jtc.optimizer), jb)
+    make_train_step(tc)(tp, adamw_init(tp, tc.optimizer), tb)
+    new = _reference_leaves(jax.tree.map(np.asarray, jnew), tcfg)
+    for name, p in tp.named_parameters():
+        got, ref = p.detach().numpy() - w0[name], new[name] - w0[name]
+        g = np.abs(want[name])
+        settled = g > 1e-3 * g.max()
+        # the update is read back as new - old: one rounding of the stored
+        # float32 weight (an ulp of 1.0 is 1.2e-7) comes on top
+        bound = 1.5e-5 * np.abs(ref).max() + np.spacing(np.abs(new[name]))
+        bad = (np.abs(got - ref) > bound) & settled
+        assert not bad.any(), (name, np.abs(got - ref)[bad].max())
