@@ -155,6 +155,27 @@ printed:
               (flash forward twice and backward three times a layer, under
               remat; quantize and dequantize once a gradient tensor a
               ``canary_fp`` step), step walls, tokens/s, peak memory;
+4j. dry run — (after 4h: it starts a fake process group, and a process
+              has one default group) the dry run's pieces held to the card:
+              (a) the flash custom ops against direct calls of the kernels
+              at the llama prefill shape (the same bits, one forward and
+              three backward launches each), 4b's and 4d's flash launches
+              as before, and ``FlopCounterMode`` over one llama3.2-1b
+              (1, 4096) prefill: 16 flash calls at ``flash_work``'s
+              operations each, and the host time the operator layer adds
+              to a ``quantize`` call; (b) ``build_dryrun`` on fake CUDA tensors
+              at a one-rank fake mesh for phase 4d's ``auto`` step (B 1,
+              S 8192): its FLOPs equal ``FlopCounterMode`` over one real
+              step on the card, exactly, and its predicted peak lies within
+              ``DRYRUN_PEAK`` of 4d's ``max_memory_allocated()`` and of
+              the step's own peak (that less what the phases before it
+              held); the gap attributed: the real step's blocks at its peak (the
+              allocator's trace replayed) against the predicted storages
+              at the dry run's, unmatched sizes by where they were made;
+              (c) one
+              production row, ``python -m repro_torch.launch.dryrun --arch
+              llama3.2-1b --shape train_4k --mesh single``, in a
+              subprocess, printed;
 6. summary  — one ``{"kernels": [...]}`` JSON line (quantize and dequantize
               also give their launches by path and their times at the
               training shape), the card line, and last
@@ -170,10 +191,12 @@ import contextlib
 import copy
 import gc
 import json
+import os
 import subprocess
 import sys
 import tempfile
 import time
+from collections import Counter
 from pathlib import Path
 
 import numpy as np
@@ -336,6 +359,13 @@ UNIT_ROUNDOFF = {torch.bfloat16: 2.0 ** -8, torch.float32: 2.0 ** -24}
 # over the same data shard: ||got - want|| / ||want|| <= PAR_LAYER_REL,
 # the bound phase 3 puts on bf16 rows (bf16 sums in another order)
 PAR_ARCH, PAR_S, PAR_B = "qwen2-moe-a2.7b", 4096, 1
+# phase 4j: the dry run's predicted peak over 4d's measured one must lie in
+# DRYRUN_PEAK, set from the prediction written in PERF.md §6 before the
+# first run (0-3 % below: the fake trace sees no allocator rounding and no
+# cuBLAS workspace), with room either side; the production row's
+# subprocess must end within DRYRUN_ROW_S
+DRYRUN_PEAK = (0.90, 1.02)
+DRYRUN_ROW_S = 600
 PAR_FORMS = (("ep", (1, 4), 1), ("ep", (2, 2), 2), ("ep_a2a", (1, 4), 1))
 PAR_LAYER_REL, PAR_LAYER_REPS = 1e-2, 3
 # (b) training through the launcher's code path at PAR_MESH, B 1, S 4096,
@@ -1778,6 +1808,304 @@ def phase_whisper(rows: dict, seed: int, llama_runs: dict) -> None:
     print(f"phase 4h: {time.perf_counter() - t0:.1f} s", flush=True)
 
 
+# ------------------------------------------------------ phase 4j: dry run
+def dryrun_ops_against_kernels(rows: dict, params, cfg) -> None:
+    """4j(a): the flash custom ops give the direct kernel calls' bits and
+    launches; 4b's and 4d's launch counts stand; ``FlopCounterMode``
+    counts a prefill's flash calls by the ops' formula."""
+    from importlib import import_module
+
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import forward
+    # the module (the package exports its function under the same name)
+    fa = import_module("repro_torch.kernels.flash_attention")
+    gen = torch.Generator(device=DEV).manual_seed(0)
+    H, KV, D = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    q, k, v = random_qkv(gen, 1, H, KV, PREFILL_LEN, D, torch.bfloat16,
+                         layout="bshd")
+    dout = torch.randn(q.shape, generator=gen, device=DEV).to(q.dtype)
+    reset_launch_counts()
+    direct = fa._forward(q, k, v, True, 0, True)
+    after_direct = launch_counts()["flash_attention"]
+    op = fa.flash_attention_fwd_op(q, k, v, 0, True, True)
+    check(after_direct == 1 and launch_counts()["flash_attention"] == 2,
+          f"flash forward launches {launch_counts()}, want 1 a call")
+    check(torch.equal(direct[0], op[0]) and torch.equal(direct[1], op[1]),
+          "the forward custom op's out or lse differs from the kernel's")
+    grads = fa._backward(q, k, v, direct[0], direct[1], dout, True, 0)
+    grads_op = fa.flash_attention_bwd_op(q, k, v, direct[0], direct[1],
+                                         dout, 0, True)
+    check(launch_counts()["flash_attention_bwd"] == 6,
+          f"flash backward launches {launch_counts()}, want 3 a call")
+    check(all(torch.equal(a, b) for a, b in zip(grads, grads_op)),
+          "the backward custom op's gradients differ from the kernels'")
+    want = {"prefill": 16, "train_auto": TRAIN_STEPS * 2 * 16,
+            "train_canary_fp": TRAIN_STEPS * 2 * 16}
+    got = {"prefill": rows["flash_attention"]["launches"],
+           **{p: rows["flash_attention"]["paths"].get(p)
+              for p in ("train_auto", "train_canary_fp")}}
+    check(got == want, f"flash launches of 4b and 4d {got}, want {want}")
+    check(rows["flash_attention_bwd"]["paths"].get("train_auto")
+          == TRAIN_STEPS * 3 * 16, "flash backward launches of 4d")
+    tokens = torch.randint(0, cfg.vocab_size, (1, PREFILL_LEN),
+                           generator=gen, device=DEV, dtype=torch.int32)
+    reset_launch_counts()
+    with torch.no_grad(), FlopCounterMode(display=False) as fc:
+        forward(params, tokens, cfg)
+    calls = launch_counts()["flash_attention"]
+    flash_ops = fc.get_flop_counts()["Global"].get(
+        torch.ops.repro_torch.flash_attention_fwd, 0)
+    one, _ = flash_work(1, H, KV, PREFILL_LEN, D, torch.bfloat16, True, 0)
+    check(calls == 16 and flash_ops == 16 * one,
+          f"FlopCounterMode over a prefill: {calls} flash calls, "
+          f"{flash_ops} operations, want 16 x {one}")
+    print(f"4j(a): the flash custom ops give the kernels' bits (forward out "
+          f"and lse, dq, dk, dv at (1, {H} / {KV}, {PREFILL_LEN}, {D}) "
+          f"bf16 through a (B, S, H, D) transpose), one forward and three "
+          f"backward launches a call; 4b's and 4d's flash launches {got}; "
+          f"FlopCounterMode over a (1, {PREFILL_LEN}) prefill: {calls} "
+          f"flash calls, {flash_ops / 1e9:.3f} GFLOP = 16 x flash_work's "
+          f"{one / 1e9:.3f}", flush=True)
+
+
+def op_host_cost(calls: int = 2000) -> None:
+    """4j(a): the host time the operator layer adds to a call: ``quantize``
+    of a small tensor through ``repro_torch::quantize`` against its CUDA
+    kernel function called directly, in turns, the median of 5 turns."""
+    from repro_torch.kernels import fixedpoint as fp
+    from repro_torch.kernels import reset_launch_counts
+    from repro_torch.kernels.ref import scale_tensor
+    x = torch.randn(1024, device=DEV)
+    s = scale_tensor(1024.0, x.device)
+    routes = {"operator": fp.quantize_op, "kernel": fp._quantize_cuda}
+    walls = {r: [] for r in routes}
+    for _ in range(5):
+        for name, fn in routes.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                fn(x, s)
+            torch.cuda.synchronize()
+            walls[name].append((time.perf_counter() - t0) / calls * 1e6)
+    med = {r: float(np.median(w)) for r, w in walls.items()}
+    reset_launch_counts()
+    print(f"4j(a): a quantize call's host wall, {calls} calls a turn: "
+          f"through the operator {med['operator']:.2f} us, the kernel "
+          f"function directly {med['kernel']:.2f} us (the operator layer "
+          f"{med['operator'] - med['kernel']:.2f} us a call)", flush=True)
+
+
+def dryrun_against_step(cfg, params, opt, tc, llama_runs: dict,
+                        held: int) -> None:
+    """4j(b): the dry run of phase 4d's ``auto`` step on fake CUDA tensors
+    at a one-rank fake mesh, against one real step on the card. The
+    predicted peak is held to 4d's ``max_memory_allocated()`` and to the
+    step's own peak: that less what the phases before it held (``held``
+    here, 4d's ``held``), which the dry run has no tensor of."""
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.launch import dryrun
+    from repro_torch.parallel import ParallelContext, parallel_context
+    from repro_torch.train import make_train_step
+    tokens = torch.randint(0, cfg.vocab_size, (TRAIN_B, TRAIN_S),
+                           generator=torch.Generator(device=DEV)
+                           .manual_seed(1), device=DEV, dtype=torch.int32)
+    step = make_train_step(tc)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory._snapshot()
+    with FlopCounterMode(display=False) as fc:
+        step(params, opt, {"tokens": tokens, "labels": tokens})
+    torch.cuda.synchronize()
+    after = torch.cuda.memory._snapshot()
+    torch.cuda.memory._record_memory_history(enabled=None)
+    real_peak = torch.cuda.max_memory_allocated()
+    real_flops = fc.get_total_flops()
+    spec = dict(kind="train", seq_len=TRAIN_S, global_batch=TRAIN_B)
+    t0 = time.perf_counter()
+    with dryrun.fake_process_group(1):
+        mesh = init_device_mesh(DEV, (1, 1), mesh_dim_names=("data", "model"))
+        ctx = ParallelContext(mesh=mesh, data_axes=("data",),
+                              model_axis="model")
+        with parallel_context(ctx):
+            fn, args, _ = dryrun.build_dryrun(MODEL_ARCH, spec, mesh,
+                                              device=DEV)
+            acc = dryrun.account(fn, args)
+            del fn, args
+    wall = time.perf_counter() - t0
+    mem = acc["memory"]
+    measured = llama_runs["auto"]["peak"]
+    ratio = mem["total_bytes"] / measured
+    own = {"4d": measured - llama_runs["auto"]["held"],
+           "4j": real_peak - held}
+    own_ratio = {k: mem["total_bytes"] / v for k, v in own.items()}
+    print(f"4j(b): dry run of 4d's auto step (B {TRAIN_B}, S {TRAIN_S}) on "
+          f"fake CUDA tensors at a one-rank fake mesh in {wall:.1f} s (trace "
+          f"{acc['trace_s']:.1f} s): {acc['flops'] / 1e12:.4f} TFLOP, "
+          f"FlopCounterMode over one real step {real_flops / 1e12:.4f}; "
+          f"predicted peak {mem['total_bytes'] / 2**30:.2f} GiB (arguments "
+          f"{mem['argument_bytes'] / 2**30:.2f}, temp "
+          f"{mem['temp_bytes'] / 2**30:.2f}), 4d's measured "
+          f"{measured / 2**30:.2f} GiB (ratio {ratio:.4f}), this step's "
+          f"{real_peak / 2**30:.2f} GiB; less what the phases before held, "
+          f"4d's step {own['4d'] / 2**30:.3f} GiB (ratio "
+          f"{own_ratio['4d']:.4f}), this one {own['4j'] / 2**30:.3f} "
+          f"(ratio {own_ratio['4j']:.4f}); bytes accessed "
+          f"{acc['bytes_accessed'] / 1e9:.1f} GB; flash "
+          f"{acc['attention']}", flush=True)
+    check(acc["flops"] == real_flops,
+          f"the dry run counts {acc['flops']} FLOPs, the real step "
+          f"{real_flops}")
+    for r in (ratio, *own_ratio.values()):
+        check(DRYRUN_PEAK[0] <= r <= DRYRUN_PEAK[1],
+              f"predicted peak / measured {r:.4f} outside {DRYRUN_PEAK}")
+    peak_gap(before, after, real_peak, acc["live_at_peak"])
+
+
+def _block_size(n: int) -> int:
+    """The caching allocator's size for a request of ``n`` bytes: a
+    multiple of 512, at least 512."""
+    return max(512, -(-n // 512) * 512)
+
+
+def _origin(frames) -> str:
+    """The first frame of the port's code in an allocation's stack."""
+    for f in frames:
+        if "repro_torch" in f["filename"]:
+            return (f"{f['filename'].split('repro_torch/')[-1]}:{f['line']} "
+                    f"{f['name']}")
+    return f"{frames[0]['filename']}:{frames[0]['line']}" if frames else "?"
+
+
+def peak_gap(before, after, real_peak: int, predicted: list) -> None:
+    """4j(b): what the real step holds at its peak that the dry run's live
+    storages at its own peak do not match. The real step's blocks at its
+    peak come from replaying the allocator's trace of the step (the blocks
+    alive before it, then each allocation and free); each predicted
+    storage is matched to a real block of its allocator size, and the
+    unmatched on both sides are reported by where they were made."""
+    live = {}
+    for seg in before["segments"]:
+        addr = seg["address"]
+        for b in seg["blocks"]:
+            if b["state"] == "active_allocated":
+                where = _origin(b.get("frames", [])) if b.get("frames") \
+                    else f"held before phase 4j ({b['size']} B)"
+                live[addr] = (b["size"], "before the step: " + where)
+            addr += b["size"]
+    start = len(before["device_traces"][0])
+    events = [e for e in after["device_traces"][0][start:]
+              if e["action"] in ("alloc", "free_requested")]
+    cur = peak = sum(n for n, _ in live.values())
+    at = -1
+    for i, e in enumerate(events):       # the peak's index
+        cur += e["size"] if e["action"] == "alloc" else -e["size"]
+        if cur > peak:
+            peak, at = cur, i
+    for e in events[:at + 1]:            # the blocks live at the peak
+        if e["action"] == "alloc":
+            live[e["addr"]] = (e["size"], _origin(e.get("frames", [])))
+        else:
+            live.pop(e["addr"], None)
+    real = Counter()
+    for n, where in live.values():
+        real[n, where] += 1
+    by_size = Counter()
+    for (n, _), c in real.items():
+        by_size[n] += c
+    pred = Counter(_block_size(n) for n, *_ in predicted)
+    matched = by_size & pred
+    real_left, pred_left = Counter(), Counter()
+    for (n, where), c in real.items():        # unmatched real blocks
+        take = min(c, matched[n])
+        matched[n] -= take
+        if c > take:
+            real_left[where] += (c - take) * n
+    taken = by_size & pred
+    for n, op, shape, dt in predicted:        # unmatched predicted storages
+        b = _block_size(n)
+        if taken[b]:
+            taken[b] -= 1
+        else:
+            pred_left[f"{op} {tuple(shape)} {dt}"] += b
+    rounding = sum(_block_size(n) - n for n, *_ in predicted)
+    earlier = sum(n for (n, where), c in real.items()
+                  if "held before phase 4j" in where for _ in range(c))
+    gib = 2 ** 30
+    print(f"4j(b) gap: the real step's peak replayed {peak / gib:.3f} GiB "
+          f"(max_memory_allocated {real_peak / gib:.3f}), predicted "
+          f"{sum(n for n, *_ in predicted) / gib:.3f} (allocator rounding of "
+          f"its storages {rounding / 2**20:.1f} MiB); blocks the phases "
+          f"before 4j hold {earlier / gib:.3f} GiB; unmatched real "
+          f"{sum(real_left.values()) / gib:.3f} GiB, unmatched predicted "
+          f"{sum(pred_left.values()) / gib:.3f} GiB", flush=True)
+    print("4j(b) gap, real blocks with no predicted storage of their size: "
+          + "; ".join(f"{w} {n / 2**20:.1f} MiB"
+                      for w, n in real_left.most_common(8)), flush=True)
+    print("4j(b) gap, predicted storages with no real block of their size: "
+          + "; ".join(f"{w} {n / 2**20:.1f} MiB"
+                      for w, n in pred_left.most_common(8)), flush=True)
+
+
+def dryrun_production_row() -> None:
+    """4j(c): one production row through the CLI, in a subprocess (this
+    process's phases start real process groups)."""
+    with tempfile.TemporaryDirectory() as out:
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+               MODEL_ARCH, "--shape", "train_4k", "--mesh", "single",
+               "--out", out]
+        env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
+                              text=True, timeout=DRYRUN_ROW_S)
+        wall = time.perf_counter() - t0
+        lines = [ln for ln in proc.stdout.splitlines()
+                 if ln.startswith(("OK", "FAIL"))]
+        check(proc.returncode == 0 and lines and lines[0].startswith("OK"),
+              f"the dry run's production row failed (exit "
+              f"{proc.returncode}): {proc.stdout[-2000:]}"
+              f"{proc.stderr[-2000:]}")
+        files = os.listdir(out)
+        check(len(files) == 1, f"the row's files: {files}")
+        with open(os.path.join(out, files[0])) as f:
+            row = json.load(f)
+    print(f"4j(c): {lines[0]} ({wall:.1f} s with the process)", flush=True)
+    print("4j(c) row: " + json.dumps(row), flush=True)
+
+
+def phase_dryrun(rows: dict, seed: int, llama_runs: dict) -> None:
+    """Phase 4j (see the module's docstring)."""
+    print("== phase 4j: the dry run (fake tensors, DTensor, the flash "
+          "custom ops)", flush=True)
+    from repro_torch.models import get_config
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import TrainConfig
+    from repro_torch.train.train_step import init_train_state
+    t0 = time.perf_counter()
+    cfg = get_config(MODEL_ARCH, "full")
+    tc = TrainConfig(model=cfg, optimizer=AdamWConfig(lr=TRAIN_LR))
+    torch.cuda.empty_cache()
+    op_host_cost()
+    held = torch.cuda.memory_allocated()
+    print(f"4j: {held / 2**20:.1f} MiB held by the phases before",
+          flush=True)
+    # from here on each block's stack is kept, for 4j(b)'s gap
+    torch.cuda.memory._record_memory_history(context="alloc",
+                                             stacks="python",
+                                             max_entries=1_000_000)
+    params, opt = init_train_state(tc, torch.Generator(device=DEV)
+                                   .manual_seed(seed), device=DEV)
+    dryrun_ops_against_kernels(rows, params, cfg)
+    dryrun_against_step(cfg, params, opt, tc, llama_runs, held)
+    del params, opt
+    torch.cuda.empty_cache()
+    dryrun_production_row()
+    print(f"phase 4j: {time.perf_counter() - t0:.1f} s", flush=True)
+
+
 def phase_profile_prefill(engine, prompt) -> None:
     """One prefill under ``torch.profiler``: device time by kernel and the
     flash kernel's share."""
@@ -2326,6 +2654,7 @@ def train_mode(cfg, mode: str, mesh, seed: int, rows: dict,
     batch, seq = case["batch"], case["seq"]
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()     # by the phases before
     t_init, trainer = make_trainer(cfg, mode, mesh, seed, batch, seq,
                                    TRAIN_STEPS)
     leaves = dict(trainer.params.named_parameters())
@@ -2428,7 +2757,8 @@ def train_mode(cfg, mode: str, mesh, seed: int, rows: dict,
         profile_train_step(trainer, leaves)
         if cfg.name == MODEL_ARCH:
             time_train_shape(seen["first"], rows)
-    return dict(losses=losses, warm_s=warm, quantized=seen.get("quantized"))
+    return dict(losses=losses, warm_s=warm, quantized=seen.get("quantized"),
+                peak=peak, held=held)
 
 
 def train_short_route(cfg, mesh, seed: int) -> dict:
@@ -3020,6 +3350,7 @@ def main() -> int:
     phase_moe_ssm(rows, args.seed)
     llama_runs = phase_train(rows, args.seed)
     phase_whisper(rows, args.seed, llama_runs)
+    phase_dryrun(rows, args.seed, llama_runs)
     phase_timing(x, plan, rows)
     phase_profile(x, plan)
     phase_profile_prefill(engine, prompt)

@@ -1,0 +1,1167 @@
+"""Multi-pod dry run (port of ``repro/launch/dryrun.py``).
+
+For every (architecture x input shape) pair this traces the port's real
+train, prefill and decode steps on the production meshes, (16, 16) over
+``("data", "model")`` and (2, 16, 16) over ``("pod", "data", "model")``,
+over fake tensors (no allocation, no kernel), as rank 0 of a fake process
+group, and counts what rank 0 would do:
+
+* the bytes it holds (proves a plan fits),
+* its FLOPs and the bytes its operations move,
+* the bytes its collectives move,
+
+and derives the three roofline terms from the NVIDIA H100 SXM5's datasheet
+constants (:mod:`.mesh`: ``PEAK_FLOPS_BF16``, ``HBM_BW``, ``LINK_BW``).
+The numbers are predictions, not measurements. Results land in
+``experiments/dryrun_torch/<arch>__<shape>__<mesh>[__<gradsync>].json``.
+
+    python -m repro_torch.launch.dryrun --arch llama3.2-1b --shape train_4k
+    python -m repro_torch.launch.dryrun --mesh both --device cpu
+
+How each part of the reference is carried over:
+
+* ``XLA_FLAGS=--xla_force_host_platform_device_count=512`` at import: a
+  ``"fake"`` process group of the mesh's world (256 or 512) at rank 0,
+  started by :func:`run_one` (never at import) and destroyed after it, so
+  the process is left as found. :func:`run_one` refuses to run while
+  another process group is up: a process has one default group.
+* ``jax.ShapeDtypeStruct`` with a ``NamedSharding``: ``FakeTensorMode``
+  tensors of each rank's local shape, wrapped as DTensors with the
+  placements of the port's sharding rules (:func:`param_placements` of
+  ``param_specs``, ``batch_spec``, ``cache_specs``).
+* GSPMD propagation over the traced step: DTensor's sharding propagation
+  over the port's own ``make_train_step``, ``forward`` and ``decode_step``.
+  Under ``auto`` the step is built with no mesh, as the reference's
+  ``auto`` has no explicit sync: DTensor's autograd inserts the gradient
+  reductions GSPMD would. Under the explicit modes (``--grad-sync
+  canary_fp``) the parameters are replicated over the data axes and
+  sharded over the model axis, the step runs per data rank on the model
+  axis (the reference's data-manual ``shard_map``), and the gradients'
+  local tensors ride ``canary_allreduce_tree`` over the fake data groups:
+  its trees and its ``all_reduce(MAX)`` are what the collective count sees.
+  Where DTensor's rules fail or replicate what GSPMD splits, the dry run
+  lays the operation out itself, on DTensor's own redistributions and each
+  rank's local tensors, and says so here:
+
+  - ``view``: the model code calls ``reshape``, DTensor sees the ``view``
+    it decomposes into, whose rule refuses to split a sharded dim unevenly
+    (the heads of q into (KV, G) groups); ``reshape``'s rule, which
+    reshards, is taken instead (:func:`_views_reshard`);
+  - a product (``mm``, ``bmm``) of an activation and a weight: the weight
+    is gathered over the data axes that split the tokens (FSDP), and the
+    activation is made whole over the model axis where it splits the
+    weight's output columns (Megatron) (:func:`_gather_weight`), where DTensor's
+    cost model, greedy an operation at a time and blind to the size of the
+    output, may gather the tokens or leave an output of every column;
+  - each parameter's gradient takes the parameter's layout as autograd
+    makes it (:func:`_grad_as_parameter`), not at the optimizer;
+  - the loss: the gradient of its mean is split over the data axes along
+    the batch (:func:`_expand_over_batch`), gather's backward stays split
+    over the vocabulary as the logits are (:func:`_zeros_like_source`,
+    :func:`_scatter_into_split`), and the logits' ``logsumexp`` reduces
+    each rank's share of the vocabulary (:func:`_split_logsumexp`), and
+    the accuracy's ``argmax`` gathers each rank's maximum and its index
+    (:func:`_argmax_layout`), each where DTensor gathers or moves all of
+    the logits;
+  - where torch 2.11's rules fail: ``argmax`` along an unsplit dim
+    (:func:`_argmax_layout`), and the embedding's lookup with its indices
+    split over two mesh dims, and its backward (:func:`_embedding_lookup`,
+    :func:`_embedding_grad`).
+
+  The rows are therefore estimates of an eager DTensor program with these
+  layouts, not of what GSPMD compiles: ``tests/test_torch_dryrun.py`` holds
+  a small step's FLOPs, temporaries and link bytes to the reference's
+  compiled ones (FLOPs equal where both run the same products; the rest
+  within stated bounds), and each layout against the operation on whole
+  tensors, on gloo ranks.
+* ``with_sharding_constraint`` at the period boundaries and on the logits:
+  ``models.transformer._activation_constraint`` and
+  ``train_step.make_loss_fn``'s ``constrain``, which redistribute a DTensor
+  and leave a plain tensor alone; the prefill's logits here, as the
+  reference's ``prefill_fn``.
+* ``cost_analysis()["flops"]``: ``per_device.flops``, the products and
+  attention counted on each operation's local tensors by
+  ``torch.utils.flop_counter``'s formulas (the flash custom ops by theirs:
+  4 D operations a live (query, key) pair forward, 10 D backward).
+  ``FlopCounterMode`` itself, around DTensors, counts global shapes.
+* ``cost_analysis()["bytes accessed"]``: ``per_device.bytes_accessed``, the
+  input and output bytes of every local operation that is not a view or a
+  bare allocation. That is what eager PyTorch moves with no fusion, so it is
+  an upper bound of XLA's fused count.
+* ``parse_collective_bytes(hlo)``: ``per_device.collective_bytes`` and
+  ``collective_counts`` by the reference's kinds, from the collectives the
+  trace makes on groups of more than one rank (DTensor's functional
+  collectives and ``torch.distributed``'s): all-reduce, all-gather,
+  reduce-scatter and all-to-all by their result's bytes, a point-to-point
+  send as a collective-permute of its bytes (the reference's trees are
+  ``ppermute``s; the matching receive is not counted again), and
+  ``collective_link_bytes`` with the reference's multipliers (all-reduce
+  2x, the others 1x). ``reduce_ops`` counts the all-reduces by reduction;
+  ``unknown_collectives`` names any other collective op the trace made,
+  uncounted, as the reference tallies an HLO dtype it does not know.
+* ``memory_analysis()``: ``argument_bytes`` exactly, the local storages of
+  the parameters, optimizer state, batch and cache (the decode cache's
+  position is a host integer here, where the reference's is a 0-d int32);
+  ``total_bytes`` the peak of live local storage over the step, tracked
+  through every operation's outputs until Python frees them;
+  ``temp_bytes`` the peak less the arguments; ``output_bytes`` the storage
+  of the step's outputs that is not an argument's (parameters and moments
+  are updated in place, so nothing aliases). What the caching allocator
+  rounds and what cuBLAS and NCCL hold are not tensors and are not seen.
+* ``per_device`` keys: ``hlo_flops`` -> ``flops``, ``hlo_bytes`` ->
+  ``bytes_accessed``, ``collectives_scanned_body`` -> ``collective_bytes``,
+  ``collective_counts_scanned_body`` -> ``collective_counts``;
+  ``raw_scanned_flops`` has no counterpart. ``compile_s`` is the trace's
+  wall. ``attention`` records how DTensor laid out each flash call
+  (batch, heads, batch+heads or replicated), by pass.
+* The private internals of torch that the accounting reaches into are in
+  one section, checked by :func:`check_torch` before a run: a torch
+  release it was not tried on is refused.
+* ``_probe_costs`` / ``extrapolated_costs``: not carried over. They exist
+  because XLA's cost analysis counts a ``while`` body once, and the
+  reference scans its layers; the port's layers are a Python loop, traced
+  in full.
+* ``--save-hlo``: no HLO exists; the flag is not carried over.
+"""
+from __future__ import annotations
+
+import argparse
+import contextlib
+import functools
+import heapq
+import json
+import os
+import sys
+import time
+import traceback
+import weakref
+from collections import Counter
+from typing import Any, Dict, List, Mapping, Optional, Tuple, Union
+
+import torch
+import torch.distributed as dist
+from torch import nn
+from torch.distributed.device_mesh import DeviceMesh
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+from torch.distributed.tensor.experimental import implicit_replication
+from torch._subclasses.fake_tensor import FakeTensor
+from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils.flop_counter import flop_registry
+
+from ..models import (decode_step, forward, get_config, init_cache,
+                      list_archs)
+from ..models import Transformer
+from ..models.config import ModelConfig
+from ..models.layers import torch_dtype
+from ..optim import AdamWConfig, AdamWState
+from ..parallel import (ParallelContext, batch_spec, cache_specs,
+                        get_parallel_context, mesh_shape, param_placements,
+                        param_specs, parallel_context)
+from ..parallel.sharding import P
+from ..train import TrainConfig, make_train_step
+from ..train.train_step import EXPLICIT_MODES, Mesh
+from .analysis import INPUT_SHAPES, model_flops_per_step
+from .mesh import (HBM_BW, LINK_BW, PEAK_FLOPS_BF16, PRODUCTION_SHAPES,
+                   make_production_mesh, mesh_axes)
+
+_COLLECTIVES = ("all-reduce", "all-gather", "reduce-scatter", "all-to-all",
+                "collective-permute")
+# DTensor's functional collectives and the torch.distributed calls of the
+# port's code (the Canary trees' sends, the metrics' and scales'
+# all-reduces, the MoE layer's gathers), by kind
+_FUNCOL = {"all_reduce": "all-reduce",
+           "all_gather_into_tensor": "all-gather",
+           "reduce_scatter_tensor": "reduce-scatter",
+           "all_to_all_single": "all-to-all"}
+_C10D = {"allreduce_": "all-reduce", "allgather_": "all-gather",
+         "_allgather_base_": "all-gather",
+         "reduce_scatter_": "reduce-scatter",
+         "_reduce_scatter_base_": "reduce-scatter",
+         "alltoall_base_": "all-to-all", "send": "collective-permute"}
+# ops of the collectives' namespaces that move nothing of their own (a
+# receive is counted as its matching send)
+_UNMOVED = {"wait_tensor", "_wrap_tensor_autograd", "recv_", "barrier",
+            "monitored_barrier_"}
+_ALLOCATIONS = {"empty", "empty_strided", "empty_like", "new_empty",
+                "new_empty_strided"}
+_FLASH = {"flash_attention_fwd": "fwd", "flash_attention_bwd": "bwd"}
+PEAK_LARGEST = 8         # the largest storages live at the peak, reported
+
+
+# -------------------------------------------------------- torch's internals
+# The accounting rests on torch's private internals, all of them in this
+# section: the "fake" backend of torch's test utilities; DTensor's local
+# tensor, its sharding propagator's shape inference, strategy table and
+# cache; c10d's group resolution; a storage's identity; the caller's frames.
+# They were tried on the releases below; on any other the dry run refuses
+# to run rather than count wrong.
+TORCH_TESTED = ("2.11", "2.13")
+
+
+def check_torch() -> None:
+    """Raise unless this torch is one :data:`TORCH_TESTED` names and has
+    every internal the accounting uses."""
+    from torch.distributed.tensor._sharding_prop import ShardingPropagator
+    release = ".".join(torch.__version__.split(".")[:2])
+    if release not in TORCH_TESTED:
+        raise RuntimeError(f"the dry run rests on torch internals tried on "
+                           f"torch {', '.join(TORCH_TESTED)}; this is "
+                           f"{torch.__version__}")
+    prop = DTensor._op_dispatcher.sharding_propagator
+    needs = [(ShardingPropagator, "_propagate_tensor_meta_non_cached"),
+             (prop, "op_strategy_funcs"), (prop, "propagate_op_sharding"),
+             (prop.propagate_op_sharding, "cache_clear"),
+             (dist.distributed_c10d, "_resolve_process_group"),
+             (dist.ProcessGroup, "unbox"),
+             (torch.UntypedStorage, "_cdata"), (sys, "_getframe")]
+    missing = [f"{getattr(o, '__name__', type(o).__name__)}.{n}"
+               for o, n in needs if not hasattr(o, n)]
+    if missing:
+        raise RuntimeError(f"torch {torch.__version__} lacks the internals "
+                           f"the dry run uses: {missing}")
+
+
+def _register_fake_backend() -> None:
+    """Register the ``"fake"`` backend of torch's test utilities with
+    ``torch.distributed``."""
+    import torch.testing._internal.distributed.fake_pg  # noqa: F401
+
+
+def _storage_key(t: torch.Tensor) -> int:
+    """The identity of ``t``'s storage (its views share it)."""
+    return t.untyped_storage()._cdata
+
+
+def _local(t: torch.Tensor) -> torch.Tensor:
+    return t._local_tensor if isinstance(t, DTensor) else t
+
+
+def _group_size(func_name: str, args) -> int:
+    if func_name in _FUNCOL:
+        name = [a for a in args if isinstance(a, str)][-1]
+        return dist.distributed_c10d._resolve_process_group(name).size()
+    pg = [a for a in args if isinstance(a, torch.ScriptObject)][0]
+    return dist.ProcessGroup.unbox(pg).size()
+
+
+def _from_torch_distributed() -> bool:
+    """Whether the Python code that made the current call is
+    ``torch.distributed``'s own (the first frame outside torch's dispatch
+    machinery), not the traced step's."""
+    f = sys._getframe(2)
+    while f is not None:
+        name = f.f_globals.get("__name__", "")
+        if name.startswith("torch.distributed"):
+            return True
+        if not name.startswith("torch."):
+            return False
+        f = f.f_back
+    return False
+
+
+@contextlib.contextmanager
+def _shape_inference_uncounted(acct: "Accountant"):
+    """Mark DTensor's shape inference while it runs (the operation run
+    once more on fake tensors of the global shapes: a fake mode sits below
+    every other mode, so it passes through the accountant), so that it is
+    not counted."""
+    from torch.distributed.tensor._sharding_prop import ShardingPropagator
+    real = ShardingPropagator._propagate_tensor_meta_non_cached
+
+    def inferring(self, op_schema):
+        acct.inferring += 1
+        try:
+            return real(self, op_schema)
+        finally:
+            acct.inferring -= 1
+
+    ShardingPropagator._propagate_tensor_meta_non_cached = inferring
+    try:
+        yield
+    finally:
+        ShardingPropagator._propagate_tensor_meta_non_cached = real
+
+
+@contextlib.contextmanager
+def _views_reshard():
+    """``view`` takes DTensor's ``reshape`` rule while the step traces (see
+    the module's docstring); restored after, with the sharding cache."""
+    prop = DTensor._op_dispatcher.sharding_propagator
+    view, reshape = torch.ops.aten.view.default, torch.ops.aten.reshape.default
+    funcs = prop.op_strategy_funcs
+    if view not in funcs or reshape not in funcs:
+        raise RuntimeError("DTensor registers no strategy for aten.view or "
+                           "aten.reshape in this torch")
+    real, resharding = funcs[view], funcs[reshape]
+
+    def view_or_reshard(op_schema):
+        try:
+            return real(op_schema)
+        except RuntimeError:      # a split the view rule refuses
+            return resharding(op_schema)
+
+    funcs[view] = view_or_reshard
+    prop.propagate_op_sharding.cache_clear()
+    try:
+        yield
+    finally:
+        funcs[view] = real
+        prop.propagate_op_sharding.cache_clear()
+
+
+
+# ------------------------------------------------------------ process group
+@contextlib.contextmanager
+def fake_process_group(world: int):
+    """A ``"fake"`` default process group of ``world`` ranks, this process
+    rank 0: every collective returns at once and moves nothing. Destroyed
+    on exit."""
+    check_torch()
+    if dist.is_initialized():
+        raise RuntimeError("a process group is already up; the dry run "
+                           "starts its own fake one (run it in a process "
+                           "with no process group)")
+    _register_fake_backend()
+    dist.init_process_group("fake", store=dist.HashStore(), rank=0,
+                            world_size=world)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+
+
+def _world(shape: Tuple[int, ...]) -> int:
+    n = 1
+    for s in shape:
+        n *= s
+    return n
+
+
+# ------------------------------------------------------------- fake inputs
+def _fake(shape, dtype, device: str, mesh: DeviceMesh, spec: P
+          ) -> torch.Tensor:
+    """An empty DTensor of global ``shape`` laid out as ``spec``: each rank
+    holds a fake local tensor of its shard's shape. Every rule of the port
+    shards only dims its mesh axes divide."""
+    placements = param_placements(spec, mesh)
+    local = list(shape)
+    for m, pl in enumerate(placements):
+        if pl.is_shard():
+            n = mesh.size(m)
+            if local[pl.dim] % n:
+                raise ValueError(f"dim {pl.dim} of {tuple(shape)} does not "
+                                 f"split over {n} ranks ({spec})")
+            local[pl.dim] //= n
+    t = torch.empty(local, dtype=dtype, device=device)
+    return DTensor.from_local(t, mesh, placements, run_check=False,
+                              shape=torch.Size(shape),
+                              stride=_contiguous_stride(shape))
+
+
+def _fake_params(cfg: ModelConfig, mesh: DeviceMesh, device: str,
+                 specs: Mapping[str, P]) -> Transformer:
+    """The model's parameters as fake DTensors laid out by ``specs``."""
+    model = Transformer(cfg, device="meta")
+    for name, p in list(model.named_parameters()):
+        owner, _, leaf = name.rpartition(".")
+        setattr(model.get_submodule(owner), leaf, nn.Parameter(
+            _fake(p.shape, p.dtype, device, mesh, specs[name]),
+            requires_grad=False))
+    return model
+
+
+def _batch(cfg: ModelConfig, kind: str, seq: int, gb: int, mesh: DeviceMesh,
+           bspec: P, device: str) -> Dict[str, torch.Tensor]:
+    text = seq - (cfg.num_patches if cfg.frontend == "vision_stub" else 0)
+    batch = {"tokens": _fake((gb, text), torch.int32, device, mesh, bspec)}
+    if kind == "train":
+        batch["labels"] = _fake((gb, text), torch.int32, device, mesh, bspec)
+    dt = torch_dtype(cfg.dtype)
+    if cfg.frontend == "audio_stub":
+        batch["frames"] = _fake((gb, cfg.encoder_seq, cfg.d_model), dt,
+                                device, mesh, bspec)
+    if cfg.frontend == "vision_stub":
+        batch["patches"] = _fake((gb, cfg.num_patches, cfg.d_model), dt,
+                                 device, mesh, bspec)
+    return batch
+
+
+def build_dryrun(arch: str, shape_name: Union[str, Mapping[str, Any]],
+                 mesh: DeviceMesh, grad_sync: str = "auto",
+                 cfg_override: Optional[ModelConfig] = None,
+                 microbatches: int = 1, moe_impl: str = "",
+                 device: str = "cuda") -> Tuple[Any, Tuple, ModelConfig]:
+    """``(fn, args, cfg)``: the step and its fake inputs, ready for
+    :func:`account` under the mesh's :class:`ParallelContext`.
+
+    ``shape_name`` is a key of ``INPUT_SHAPES`` or such a dict
+    (``kind``, ``seq_len``, ``global_batch``). ``mesh`` is a
+    :class:`DeviceMesh` whose axes are ``mesh_axes``'; its process group
+    (the fake one of :func:`run_one`) must be up. The inputs are fake
+    tensors on ``device`` in a ``FakeTensorMode`` of their own."""
+    spec = INPUT_SHAPES[shape_name] if isinstance(shape_name, str) \
+        else dict(shape_name)
+    kind = spec["kind"]
+    seq, gb = spec["seq_len"], spec["global_batch"]
+    cfg = cfg_override if cfg_override is not None else get_config(arch)
+    if moe_impl:
+        cfg = cfg.with_(moe_impl=moe_impl)
+    dp_axes, model_axis = mesh_axes(mesh)
+    dp = dp_axes if len(dp_axes) > 1 else dp_axes[0]
+    sizes = mesh_shape(mesh)
+    if kind == "decode" and shape_name == "long_500k":
+        if not cfg.supports_long_decode():
+            raise ValueError(f"{arch} skips long_500k (see DESIGN.md §5)")
+        cfg = cfg.long_context_variant(window=8192)
+
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    # DTensor's host arithmetic of shard offsets makes small real CPU
+    # tensors (see :class:`Accountant`), which may meet the fake ones
+    with FakeTensorMode(allow_non_fake_inputs=True):
+        if kind == "train":
+            return _build_train(cfg, mesh, sizes, dp, dp_axes, model_axis,
+                                seq, gb, grad_sync, microbatches, device)
+        params = _fake_params(cfg, mesh, device, param_specs(
+            Transformer(cfg, device="meta"), sizes, fsdp=dp,
+            model=model_axis))
+        bspec = batch_spec(sizes, gb, dp)
+        if kind == "prefill":
+            def prefill_fn(params, batch):
+                kw = {}
+                if "frames" in batch:
+                    kw["frames"] = batch["frames"]
+                if "patches" in batch:
+                    kw["extra_embeds"] = batch["patches"]
+                with torch.no_grad():
+                    logits, _ = forward(params, batch["tokens"], cfg, **kw)
+                return logits.redistribute(mesh, param_placements(
+                    P(dp, None, model_axis), mesh))
+
+            batch = _batch(cfg, kind, seq, gb, mesh, bspec, device)
+            return prefill_fn, (params, batch), cfg
+
+        # decode: shapes of the cache from init_cache, made fake
+        shapes = init_cache(cfg, gb, seq, device="cpu")
+        c_specs = cache_specs(shapes, sizes, dp_axes=dp, model=model_axis)
+
+        def fake_tree(node, sp):
+            if isinstance(node, Mapping):
+                return {k: fake_tree(v, sp[k]) for k, v in node.items()}
+            if isinstance(node, list):
+                return [fake_tree(v, s) for v, s in zip(node, sp)]
+            if isinstance(node, torch.Tensor):
+                return _fake(node.shape, node.dtype, device, mesh, sp)
+            return node                          # the host position
+
+        cache = fake_tree(shapes, c_specs)
+        tokens = _fake((gb, 1), torch.int32, device, mesh, bspec)
+
+        def serve(params, cache, tokens):
+            with torch.no_grad():
+                return decode_step(params, cache, tokens, cfg)
+
+        return serve, (params, cache, tokens), cfg
+
+
+def _build_train(cfg, mesh, sizes, dp, dp_axes, model_axis, seq, gb,
+                 grad_sync, microbatches, device):
+    oc = AdamWConfig(state_dtype="bfloat16" if cfg.param_count() > 1e11
+                     else "float32")
+    tc = TrainConfig(model=cfg, optimizer=oc, grad_sync=grad_sync,
+                     microbatches=microbatches)
+    meta = Transformer(cfg, device="meta")
+    if grad_sync == "auto":
+        p_specs = param_specs(meta, sizes, fsdp=dp, model=model_axis)
+        on, step = mesh, make_train_step(tc)
+        bspec = batch_spec(sizes, gb, dp)
+    elif grad_sync in EXPLICIT_MODES:
+        # per data rank, as the reference's data-manual shard_map: the
+        # model axis's mesh, parameters replicated over the data axes
+        p_specs = param_specs(meta, sizes, fsdp=dp, model=model_axis,
+                              use_fsdp=False)
+        data = _world(tuple(sizes[a] for a in dp_axes))
+        if gb % data:
+            raise ValueError(f"global batch {gb} does not split over "
+                             f"{data} data ranks")
+        gb //= data
+        on = mesh[model_axis]
+        groups = tuple(mesh.get_group(a) for a in dp_axes)
+        step = make_train_step(tc, mesh=Mesh(
+            inner=groups[-1], outer=groups[0] if len(groups) > 1 else None))
+        bspec = P(None)
+    else:
+        raise ValueError(f"unknown grad_sync {grad_sync}")
+    params = _fake_params(cfg, on, device, p_specs)
+    for p in params.parameters():       # value_and_grad turns them on too
+        p.requires_grad_(True)
+        p.register_hook(functools.partial(_grad_as_parameter, p))
+    sd = torch_dtype(oc.state_dtype)
+
+    def moments():
+        return {n: _fake(p.shape, sd, device, on, p_specs[n])
+                for n, p in params.named_parameters()}
+
+    opt = AdamWState(step=torch.zeros((), dtype=torch.int32, device=device),
+                     m=moments(), v=moments())
+    batch = _batch(cfg, "train", seq, gb, on, bspec, device)
+    return step, (params, opt, batch), cfg
+
+
+def _grad_as_parameter(p, g):
+    """A parameter's gradient laid out as the parameter as soon as autograd
+    makes it (a reduce-scatter of each layer's partial sums as its backward
+    ends), as GSPMD propagates a parameter's sharding to its gradient and
+    FSDP reduces layer by layer; DTensor alone keeps every layer's whole
+    partial gradient until the optimizer."""
+    return g.redistribute(p.device_mesh, p.placements) \
+        if isinstance(g, DTensor) else g
+
+
+# --------------------------------------------------------------- accounting
+def _leaves(tree: Any) -> List[torch.Tensor]:
+    """The tensors of a nest of modules, mappings, lists and tuples."""
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    if isinstance(tree, nn.Module):
+        return list(tree.parameters())
+    if isinstance(tree, Mapping):
+        tree = list(tree.values())
+    if isinstance(tree, (list, tuple)):
+        return [t for v in tree for t in _leaves(v)]
+    return []
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
+def _tensors(x: Any) -> List[torch.Tensor]:
+    if isinstance(x, torch.Tensor):
+        return [x]
+    if isinstance(x, (list, tuple)):
+        return [t for v in x for t in _tensors(v)]
+    return []
+
+
+_REDUCE_OPS = {int(getattr(dist.ReduceOp, n)): n.lower()
+               for n in ("SUM", "AVG", "PRODUCT", "MIN", "MAX")}
+
+
+class Accountant(TorchDispatchMode):
+    """Counts what one rank does, on its local tensors. It declines every
+    DTensor-level call, so DTensor's own local operations and collectives
+    come back through it.
+
+    No fake mode is active around the trace: an operation on fake tensors
+    goes to their fake mode by itself. A call that makes a tensor from
+    nothing runs in ``fake_mode``, except on the meta device (a model
+    built only for its names, as AdamW's decay rule builds one) and
+    DTensor's host arithmetic of shard sizes and offsets (small CPU
+    tensors it reads back as integers), which run for real and, as every
+    operation on real tensors only, are not counted."""
+
+    def __init__(self, fake_mode):
+        super().__init__()
+        self.fake_mode = fake_mode
+        self.flops = 0
+        self.bytes = 0
+        self.coll_bytes = dict.fromkeys(_COLLECTIVES, 0)
+        self.coll_counts = dict.fromkeys(_COLLECTIVES, 0)
+        self.reduce_ops: Counter = Counter()
+        self.unknown: Counter = Counter()
+        self.attention: Dict[str, Counter] = {"fwd": Counter(),
+                                              "bwd": Counter()}
+        self.inferring = 0          # inside DTensor's shape inference
+        self.live = 0               # bytes of local storage alive
+        self.peak = 0
+        self._storages: Dict[int, Tuple] = {}
+        self._peak_dirty = False
+        self.at_peak: List[Tuple] = []     # see live_at_peak
+        self._global_q: Optional[Tuple[int, ...]] = None
+
+    # -- storage
+    def track(self, t: torch.Tensor, origin: str = "argument") -> int:
+        """Count ``t``'s storage live until it is freed; its bytes if new.
+        ``origin`` names what made it, for :meth:`live_at_peak`."""
+        st = t.untyped_storage()
+        key = _storage_key(t)
+        if key in self._storages:
+            return 0
+        n = st.nbytes()
+        self._storages[key] = (n, origin, tuple(t.shape), str(t.dtype))
+        self.live += n
+        if self.live > self.peak:
+            self.peak = self.live
+            self._peak_dirty = True
+        weakref.finalize(st, self._free, key)
+        return n
+
+    def _free(self, key: int) -> None:
+        if self._peak_dirty:    # what is live at the peak, before one goes
+            self.at_peak = list(self._storages.values())
+            self._peak_dirty = False
+        self.live -= self._storages.pop(key)[0]
+
+    def live_at_peak(self) -> List[Tuple]:
+        """``(bytes, origin, shape, dtype)`` of every storage live at the
+        peak."""
+        return list(self._storages.values()) if self._peak_dirty \
+            else self.at_peak
+
+    # -- dispatch
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        if any(issubclass(t, DTensor) for t in types):
+            if func in _LAYOUTS and not self.inferring:
+                with self:
+                    out = _LAYOUTS[func](*args, **kwargs)
+                if out is not NotImplemented:
+                    return out
+            if func._overloadpacket.__name__ in _FLASH:
+                self._global_q = tuple(args[0].shape)
+            return NotImplemented
+        if self.inferring:
+            return func(*args, **kwargs)
+        flat = _tensors(list(args) + list(kwargs.values()))
+        if not flat:            # a tensor made from nothing
+            where = torch.device(kwargs.get("device") or "cpu").type
+            if where == "meta" or (where == "cpu"
+                                   and _from_torch_distributed()):
+                return func(*args, **kwargs)    # holds no bytes of the step
+            with self.fake_mode:
+                out = func(*args, **kwargs)
+            self._count(func, args, kwargs, out)
+            return out
+        if not any(isinstance(t, FakeTensor) for t in flat):
+            return func(*args, **kwargs)
+        if func is not torch.ops.prim.device.default:
+            with self:          # as FlopCounterMode: count what it decomposes to
+                r = func.decompose(*args, **kwargs)
+            if r is not NotImplemented:
+                return r
+        out = func(*args, **kwargs)
+        self._count(func, args, kwargs, out)
+        return out
+
+    def _count(self, func, args, kwargs, out) -> None:
+        packet = func._overloadpacket
+        name = packet.__name__
+        if packet in flop_registry:
+            self.flops += flop_registry[packet](*args, **kwargs, out_val=out)
+        if name in _FLASH:
+            self._layout(name, tuple(args[0].shape))
+        ins, outs = _tensors(list(args) + list(kwargs.values())), \
+            _tensors(out)
+        for t in outs:
+            self.track(t, str(packet))
+        ns = getattr(func, "namespace", "")
+        if ns == "_c10d_functional" and name in _FUNCOL:
+            self._collective(_FUNCOL[name], name, args, outs)
+        elif ns == "c10d" and name in _C10D:
+            self._collective(_C10D[name], name, args, _tensors(args[0]))
+        elif ns in ("_c10d_functional", "c10d") and name not in _UNMOVED:
+            self.unknown[name] += 1     # a collective not counted: reported
+        if func.is_view or name in _ALLOCATIONS or not (ins or outs):
+            return
+        self.bytes += sum(_nbytes(t) for t in ins + outs)
+
+    def _collective(self, kind, name, args, payload) -> None:
+        if _group_size(name, args) <= 1:
+            return
+        self.coll_bytes[kind] += sum(_nbytes(t) for t in payload)
+        self.coll_counts[kind] += 1
+        if kind == "all-reduce":
+            op = args[1] if name in _FUNCOL else _REDUCE_OPS.get(
+                args[2].op(), "?")
+            self.reduce_ops[str(op)] += 1
+
+    def _layout(self, name: str, local: Tuple[int, ...]) -> None:
+        g, self._global_q = self._global_q or local, None
+        split = [what for what, d in (("batch", 0), ("heads", 1))
+                 if local[d] < g[d]]
+        self.attention[_FLASH[name]]["+".join(split) or "replicated"] += 1
+
+    def link_bytes(self) -> float:
+        return float(sum(v * (2.0 if k == "all-reduce" else 1.0)
+                         for k, v in self.coll_bytes.items()))
+
+
+# ------------------------------------------------- layouts the dry run gives
+def _contiguous_stride(shape) -> Tuple[int, ...]:
+    stride, n = [], 1
+    for d in reversed(tuple(shape)):
+        stride.append(n)
+        n *= max(d, 1)
+    return tuple(reversed(stride))
+
+
+def _gather_weight(a, b):
+    """``a @ b`` (``mm``, ``bmm``) of an activation ``a`` and a weight
+    ``b``, laid out as FSDP and Megatron (and GSPMD) do over each mesh dim
+    that splits ``b`` off its batch dim. Over a data axis that also splits
+    ``a``'s tokens, ``b`` is gathered (FSDP: the weight gathered, the
+    tokens kept split). Over the model axis, where it splits ``b``'s output
+    columns, ``a`` is made whole (Megatron's column-parallel input: its
+    tokens or features gathered, a partial sum reduced). DTensor's own
+    choice, the cheapest redistribution of the inputs by its cost model,
+    may instead gather the tokens over the data axes, or gather the weight
+    and leave an output of every column to be moved after.
+    ``NotImplemented`` where none of these holds."""
+    ctx = get_parallel_context()
+    if ctx is None or not isinstance(a, DTensor) \
+            or not isinstance(b, DTensor):
+        return NotImplemented
+    rows, feats, mesh = a.ndim - 2, a.ndim - 1, a.device_mesh
+    names = mesh.mesh_dim_names or ()
+    gather_a, gather_b = [], []
+    for m, (pa, pb) in enumerate(zip(a.placements, b.placements)):
+        if mesh.size(m) == 1 or not pb.is_shard() or pb.dim == b.ndim - 3:
+            continue
+        if names[m] in ctx.data_axes and pa.is_shard(rows):
+            gather_b.append(m)
+        elif names[m] == ctx.model_axis and pb.dim == b.ndim - 1 and (
+                pa.is_partial() or pa.is_shard(rows) or pa.is_shard(feats)):
+            gather_a.append(m)
+    if not gather_a and not gather_b:
+        return NotImplemented
+    # below autograd already; detached, so that redistribute's autograd
+    # Function, run in the backward pass on a weight that needs a gradient,
+    # does not detach_ its output (DTensor 2.11 has no rule for detach_)
+    a, b = a.detach(), b.detach()
+    a = a.redistribute(mesh, [Replicate() if m in gather_a else p
+                              for m, p in enumerate(a.placements)])
+    b = b.redistribute(mesh, [Replicate() if m in gather_b else p
+                              for m, p in enumerate(b.placements)])
+    return torch.ops.aten.bmm.default(a, b) if a.ndim == 3 \
+        else torch.ops.aten.mm.default(a, b)
+
+
+def _embedding_lookup(table, indices):
+    """``table[idx]``, the embedding lookup, on DTensors. Where one mesh
+    dim splits the vocabulary and not the indices, each rank looks up the
+    rows it holds and zeroes the rest: a partial sum over that dim (as
+    DTensor's masked embedding does); where the indices are split too, the
+    table is gathered there. ``NotImplemented`` for any other indexing."""
+    if len(indices) != 1 or not isinstance(indices[0], DTensor) \
+            or not isinstance(table, DTensor):
+        return NotImplemented
+    idx, mesh = indices[0], table.device_mesh
+    vocab_dims = [m for m, t in enumerate(table.placements)
+                  if t.is_shard() and t.dim == 0]
+    tp, out, masked = [], [], None
+    for m, (t, i) in enumerate(zip(table.placements, idx.placements)):
+        if t.is_shard() and t.dim == 0 and len(vocab_dims) == 1 \
+                and not i.is_shard():
+            masked = m
+            tp.append(t), out.append(Partial())
+            continue
+        if t.is_partial() or (t.is_shard() and (t.dim == 0 or i.is_shard())):
+            t = Replicate()
+        tp.append(t)
+        out.append(i if i.is_shard() else Shard(idx.ndim + t.dim - 1)
+                   if t.is_shard() else Replicate())
+    rows = table.redistribute(mesh, tp).to_local()
+    ids = idx.to_local()
+    if masked is None:
+        local = torch.ops.aten.index.Tensor(rows, [ids])
+    else:           # this rank's vocabulary: [lo, lo + len(rows))
+        lo = mesh.get_coordinate()[masked] * rows.shape[0]
+        ids = ids - lo
+        keep = (ids >= 0) & (ids < rows.shape[0])
+        local = torch.ops.aten.index.Tensor(rows, [ids * keep])
+        local = local * keep.unsqueeze(-1).to(local.dtype)
+    shape = torch.Size(tuple(idx.shape) + tuple(table.shape[1:]))
+    return DTensor.from_local(local, mesh, out, run_check=False,
+                              shape=shape, stride=_contiguous_stride(shape))
+
+
+def _embedding_grad(dest, indices, values, accumulate=False):
+    """``dest.index_put([idx], values, accumulate=True)``, the embedding
+    lookup's backward, on DTensors: where the indices' rows are split, each
+    rank adds its rows' values (a partial sum); where the values' features
+    are split, so is the result's; else replicated. ``NotImplemented`` for
+    any other ``index_put``."""
+    if not accumulate or len(indices) != 1 or not all(
+            isinstance(t, DTensor) for t in (dest, indices[0], values)):
+        return NotImplemented
+    idx, mesh = indices[0], dest.device_mesh
+    k = idx.ndim
+    dp, ip, vp = [], [], []
+    for i, v in zip(idx.placements, values.placements):
+        rows = i.dim if i.is_shard() else v.dim \
+            if v.is_shard() and v.dim < k else None
+        if rows is not None:            # this rank's rows
+            dp.append(Partial()), ip.append(Shard(rows)), \
+                vp.append(Shard(rows))
+        elif v.is_shard():              # a feature dim of the values
+            dp.append(Shard(v.dim - k + 1)), ip.append(Replicate()), \
+                vp.append(v)
+        elif v.is_partial():
+            dp.append(Partial()), ip.append(Replicate()), vp.append(v)
+        else:
+            dp.append(Replicate()), ip.append(Replicate()), \
+                vp.append(Replicate())
+    # dest as a partial sum: whole on the ranks at coordinate 0 of the
+    # partial mesh dims, zero on the others (DTensor's redistribute turns
+    # nothing into a partial)
+    base = dest.redistribute(mesh, [Replicate() if p.is_partial() else p
+                                    for p in dp]).to_local()
+    coord = mesh.get_coordinate()
+    if any(p.is_partial() and coord[m] for m, p in enumerate(dp)):
+        base = torch.zeros_like(base)
+    local = torch.ops.aten.index_put.default(
+        base, [idx.redistribute(mesh, ip).to_local()],
+        values.redistribute(mesh, vp).to_local(), True)
+    return DTensor.from_local(local, mesh, dp, run_check=False,
+                              shape=dest.shape, stride=dest.stride())
+
+
+def _zeros_like_source(src, size, dtype=None, layout=None, device=None,
+                       pin_memory=None):
+    """``src.new_zeros(size)`` on a DTensor (the start of ``gather``'s
+    backward, ``grad.new_zeros(input.shape)``): split as ``src`` is where a
+    dim of ``size`` has ``src``'s extent; and under a context that
+    constrains activations, the last dim ``src`` holds one entry of (the
+    gathered dim: the logits' vocabulary) split over the model axis, as
+    the logits the gather read are (:func:`_scatter_into_split` then adds
+    each rank's entries). DTensor replicates the zeros whole: the global
+    (B, S, V) float32 logits on every rank."""
+    if not isinstance(src, DTensor) or len(size) != src.ndim:
+        return NotImplemented
+    mesh, shape = src.device_mesh, list(size)
+    placements = []
+    for m, p in enumerate(src.placements):
+        keep = p.is_shard() and size[p.dim] == src.shape[p.dim] \
+            and shape[p.dim] % mesh.size(m) == 0
+        placements.append(p if keep else Replicate())
+        if keep:
+            shape[p.dim] //= mesh.size(m)
+    ctx = get_parallel_context()
+    if ctx is not None and ctx.constrain_activations \
+            and ctx.model_axis in (mesh.mesh_dim_names or ()):
+        m = mesh.mesh_dim_names.index(ctx.model_axis)
+        gathered = [d for d in range(src.ndim)
+                    if src.shape[d] == 1 < size[d]
+                    and shape[d] % mesh.size(m) == 0]
+        if gathered and mesh.size(m) > 1 and placements[m].is_replicate():
+            placements[m] = Shard(gathered[-1])
+            shape[gathered[-1]] //= mesh.size(m)
+    local = src.to_local().new_zeros(shape, dtype=dtype or src.dtype)
+    size = torch.Size(size)
+    return DTensor.from_local(local, mesh, placements, run_check=False,
+                              shape=size, stride=_contiguous_stride(size))
+
+
+def _scatter_into_split(dest, dim, index, src):
+    """``dest.scatter_add(dim, index, src)`` on DTensors where one mesh dim
+    splits ``dest`` along ``dim`` and splits neither ``index`` nor ``src``
+    there (the end of ``gather``'s backward into the vocabulary-split
+    zeros): each rank adds the entries whose index falls in its share.
+    ``NotImplemented`` otherwise."""
+    if not all(isinstance(t, DTensor) for t in (dest, index, src)):
+        return NotImplemented
+    d, mesh = dim % dest.ndim, dest.device_mesh
+    split = [m for m, p in enumerate(dest.placements)
+             if p.is_shard(d) and mesh.size(m) > 1]
+    if len(split) != 1 or any(p.is_shard(d) for t in (index, src)
+                              for p in t.placements):
+        return NotImplemented
+    m = split[0]
+    others = [Replicate() if i == m else p
+              for i, p in enumerate(dest.placements)]
+    ids = index.redistribute(mesh, others).to_local()
+    vals = src.redistribute(mesh, others).to_local()
+    base = dest.to_local()
+    ids = ids - mesh.get_coordinate()[m] * base.shape[d]
+    keep = (ids >= 0) & (ids < base.shape[d])
+    local = torch.ops.aten.scatter_add.default(
+        base, d, ids * keep, vals * keep.to(vals.dtype))
+    return DTensor.from_local(local, mesh, dest.placements, run_check=False,
+                              shape=dest.shape, stride=dest.stride())
+
+
+def _argmax_layout(x, dim=None, keepdim=False):
+    """``x.argmax(dim)`` on a DTensor. Where no mesh dim of more than one
+    rank splits ``dim``, each rank's own (DTensor 2.11's handler gathers
+    over mesh dims of one rank and fails); where one does (the logits'
+    vocabulary), each rank's maximum and its index, gathered over that
+    mesh dim, pick the first of the largest (DTensor moves the whole
+    tensor to split it elsewhere)."""
+    if not isinstance(x, DTensor) or dim is None \
+            or any(p.is_partial() for p in x.placements):
+        return NotImplemented
+    d, mesh = dim % x.ndim, x.device_mesh
+    split = [m for m, p in enumerate(x.placements)
+             if mesh.size(m) > 1 and p.is_shard(d)]
+    if len(split) > 1:
+        return NotImplemented
+    kept = [Replicate() if not p.is_shard() or p.dim == d else p
+            for p in x.placements]              # the output's, keepdim
+    local = x.detach().to_local()
+    index = torch.ops.aten.argmax.default(local, d, True)
+    if split:
+        m = split[0]
+        top = torch.ops.aten.amax.default(local, [d], True)
+        index = index + mesh.get_coordinate()[m] * local.shape[d]
+        each = list(x.shape)
+        each[d] = mesh.size(m)
+
+        def over_ranks(t):      # (..., one a rank of m, ...) on every rank
+            return DTensor.from_local(
+                t, mesh, [Shard(d) if i == m else p
+                          for i, p in enumerate(kept)], run_check=False,
+                shape=torch.Size(each), stride=_contiguous_stride(each)
+            ).redistribute(mesh, kept).to_local()
+
+        top, index = over_ranks(top), over_ranks(index)
+        index = torch.ops.aten.gather.default(
+            index, d, torch.ops.aten.argmax.default(top, d, True))
+    shape = list(x.shape)
+    shape[d] = 1
+    placements = kept
+    if not keepdim:
+        index = index.squeeze(d)
+        del shape[d]
+        placements = [Shard(p.dim - (p.dim > d)) if p.is_shard() else p
+                      for p in kept]
+    shape = torch.Size(shape)
+    return DTensor.from_local(index, mesh, placements, run_check=False,
+                              shape=shape, stride=_contiguous_stride(shape))
+
+
+def _expand_over_batch(x, size, implicit=False):
+    """A replicated scalar expanded to ``size`` (the backward of the loss's
+    mean) on a DTensor: split over the data axes along dim 0, the batch,
+    as GSPMD carries the batch's sharding into the backward pass (DTensor
+    replicates it, and every gradient computed from it, down to the
+    (B, S, V) logits, whole on every rank)."""
+    ctx = get_parallel_context()
+    if ctx is None or not ctx.constrain_activations \
+            or not isinstance(x, DTensor) or x.device_mesh != ctx.mesh \
+            or x.numel() != 1 or not size or size[0] % ctx.dp_size \
+            or not all(p.is_replicate() for p in x.placements):
+        return NotImplemented
+    mesh = x.device_mesh
+    placements = param_placements(P(ctx.data_spec), mesh)
+    local = list(size)
+    local[0] //= ctx.dp_size
+    out = x.to_local().expand(local)
+    size = torch.Size(size)
+    return DTensor.from_local(out, mesh, placements, run_check=False,
+                              shape=size, stride=out.stride())
+
+
+def _split_logsumexp(x, dim, keepdim=False):
+    """``x.logsumexp(dim)`` along a dim that mesh dims split (the logits'
+    vocabulary) on a DTensor: each rank's max and sum of exponentials,
+    reduced over those mesh dims (two all-reduces of (B, S) values), where
+    DTensor gathers the whole dim (the (B, S, V) float32 logits)."""
+    if not isinstance(x, DTensor) or len(dim) != 1:
+        return NotImplemented
+    d, mesh = dim[0] % x.ndim, x.device_mesh
+    if not any(mesh.size(m) > 1 and p.is_shard() and p.dim == d
+               for m, p in enumerate(x.placements)) \
+            or any(p.is_partial() for p in x.placements):
+        return NotImplemented
+    top = torch.amax(x, d, keepdim=True)       # a partial max over the split
+    top = top.redistribute(mesh, [Replicate() if p.is_partial() else p
+                                  for p in top.placements])
+    out = torch.log(torch.sum(torch.exp(x - top), d, keepdim=True)) + top
+    return out if keepdim else out.squeeze(d)
+
+
+# operations DTensor's own rules (torch 2.11) lay out otherwise than GSPMD
+# (the weight of a product, gather's backward, the loss's gradient, the
+# logits' logsumexp and argmax) or fail on (argmax along an unsplit dim:
+# its handler gathers over mesh dims of one rank; the embedding's lookup
+# with its indices split over two mesh dims, and its backward, whose rule
+# builds an unnormalized Shard(-1)); each rule returns NotImplemented where
+# it does not apply, and DTensor's own rule runs
+_LAYOUTS = {torch.ops.aten.mm.default: _gather_weight,
+            torch.ops.aten.bmm.default: _gather_weight,
+            torch.ops.aten.index.Tensor: _embedding_lookup,
+            torch.ops.aten.index_put.default: _embedding_grad,
+            torch.ops.aten.new_zeros.default: _zeros_like_source,
+            torch.ops.aten.scatter_add.default: _scatter_into_split,
+            torch.ops.aten.expand.default: _expand_over_batch,
+            torch.ops.aten.logsumexp.default: _split_logsumexp,
+            torch.ops.aten.argmax.default: _argmax_layout}
+
+
+def _fake_mode_of(tensors: List[torch.Tensor]):
+    for t in tensors:
+        mode = getattr(_local(t), "fake_mode", None)
+        if mode is not None:
+            return mode
+    raise ValueError("the dry run's inputs must be fake tensors "
+                     "(build_dryrun's)")
+
+
+def account(fn, args: Tuple) -> Dict[str, Any]:
+    """Run ``fn(*args)`` over its fake inputs and count rank 0's work:
+    ``flops``, ``bytes_accessed``, ``collective_bytes`` /
+    ``collective_counts`` / ``collective_link_bytes`` / ``reduce_ops``,
+    ``attention`` (each flash call's layout), ``memory`` (argument,
+    output, temp and total bytes) and ``trace_s``."""
+    check_torch()
+    tensors = _leaves(args)
+    acct = Accountant(_fake_mode_of(tensors))
+    with implicit_replication(), _views_reshard(), \
+            _shape_inference_uncounted(acct), acct:
+        arg_bytes = sum(acct.track(_local(t)) for t in tensors)
+        held = {_storage_key(_local(t)) for t in tensors}
+        t0 = time.perf_counter()
+        out = fn(*args)
+        trace_s = time.perf_counter() - t0
+        new = {}
+        for t in _leaves(out):
+            key = _storage_key(_local(t))
+            if key not in held:
+                new[key] = _local(t).untyped_storage().nbytes()
+        del out
+    live = acct.live_at_peak()
+    return {
+        "flops": acct.flops, "bytes_accessed": acct.bytes,
+        "collective_link_bytes": acct.link_bytes(),
+        "collective_bytes": dict(acct.coll_bytes),
+        "collective_counts": dict(acct.coll_counts),
+        "reduce_ops": dict(acct.reduce_ops),
+        "unknown_collectives": dict(acct.unknown),
+        "attention": {k: dict(v) for k, v in acct.attention.items() if v},
+        "at_peak": [dict(bytes=n, op=op, shape=list(shape), dtype=dt)
+                    for n, op, shape, dt in heapq.nlargest(PEAK_LARGEST,
+                                                           live)],
+        "live_at_peak": live,
+        "memory": {"argument_bytes": arg_bytes,
+                   "output_bytes": sum(new.values()),
+                   "temp_bytes": acct.peak - arg_bytes,
+                   "total_bytes": acct.peak},
+        "trace_s": trace_s,
+    }
+
+
+# -------------------------------------------------------------------- rows
+def run_one(arch: str, shape_name: str, multi_pod: bool,
+            grad_sync: str = "auto", out_dir: str = "experiments/dryrun_torch",
+            seq_parallel: bool = False, microbatches: int = 1, tag: str = "",
+            moe_impl: str = "", device: str = "cuda") -> Dict[str, Any]:
+    """One row: trace the step on the production mesh under a fake process
+    group and write the row as JSON to ``out_dir``."""
+    shape, _ = PRODUCTION_SHAPES[multi_pod]
+    with fake_process_group(_world(shape)):
+        mesh = make_production_mesh(multi_pod=multi_pod, device_type=device)
+        dp_axes, model_axis = mesh_axes(mesh)
+        ctx = ParallelContext(mesh=mesh, data_axes=dp_axes,
+                              model_axis=model_axis,
+                              sequence_parallel=seq_parallel)
+        t0 = time.perf_counter()
+        with parallel_context(ctx):
+            fn, args, cfg = build_dryrun(arch, shape_name, mesh,
+                                         grad_sync=grad_sync,
+                                         microbatches=microbatches,
+                                         moe_impl=moe_impl, device=device)
+            acc = account(fn, args)
+            del fn, args
+        t_trace = time.perf_counter() - t0
+        chips = mesh.size()
+    spec = INPUT_SHAPES[shape_name]
+    flops_dev = acc["flops"]
+    mf = model_flops_per_step(cfg, spec["kind"], spec["seq_len"],
+                              spec["global_batch"])
+    terms = {"compute_s": flops_dev / PEAK_FLOPS_BF16,
+             "memory_s": acc["bytes_accessed"] / HBM_BW,
+             "collective_s": acc["collective_link_bytes"] / LINK_BW}
+    result = {
+        "arch": arch, "shape": shape_name,
+        "mesh": "2x16x16" if multi_pod else "16x16",
+        "chips": int(chips), "grad_sync": grad_sync,
+        "seq_parallel": seq_parallel, "microbatches": microbatches,
+        "compile_s": t_trace, "device": device,
+        "model_variant": cfg.name,
+        "per_device": {k: acc[k] for k in (
+            "flops", "bytes_accessed", "collective_link_bytes",
+            "collective_bytes", "collective_counts", "reduce_ops",
+            "unknown_collectives")},
+        "attention": acc["attention"],
+        "memory": acc["memory"],
+        "at_peak": acc["at_peak"],
+        "roofline": {
+            **terms,
+            "dominant": max(terms, key=terms.get),
+            "model_flops_global": mf,
+            "model_flops_per_device": mf / chips,
+            "useful_flops_ratio": (mf / chips) / flops_dev
+            if flops_dev else 0.0,
+        },
+    }
+    os.makedirs(out_dir, exist_ok=True)
+    suffix = f"__{grad_sync}" if grad_sync != "auto" else ""
+    if tag:
+        suffix += f"__{tag}"
+    fname = f"{arch.replace('/', '_')}__{shape_name}__" \
+            f"{result['mesh']}{suffix}.json"
+    with open(os.path.join(out_dir, fname), "w") as f:
+        json.dump(result, f, indent=1)
+    return result
+
+
+def should_skip(arch: str, shape_name: str) -> Optional[str]:
+    cfg = get_config(arch)
+    if shape_name == "long_500k" and not cfg.supports_long_decode():
+        return "enc-dec full attention — documented skip (DESIGN.md §5)"
+    return None
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser(description="multi-pod dry run")
+    ap.add_argument("--arch", default="all")
+    ap.add_argument("--shape", default="all",
+                    choices=["all"] + list(INPUT_SHAPES))
+    ap.add_argument("--mesh", default="single",
+                    choices=["single", "multi", "both"])
+    ap.add_argument("--grad-sync", default="auto")
+    ap.add_argument("--out", default="experiments/dryrun_torch")
+    ap.add_argument("--seq-parallel", action="store_true")
+    ap.add_argument("--microbatches", type=int, default=1)
+    ap.add_argument("--tag", default="")
+    ap.add_argument("--moe-impl", default="")
+    ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
+                    help="the fake tensors' device (no memory is taken)")
+    args = ap.parse_args(argv)
+    archs = list_archs() if args.arch == "all" else [args.arch]
+    shapes = list(INPUT_SHAPES) if args.shape == "all" else [args.shape]
+    meshes = {"single": [False], "multi": [True],
+              "both": [False, True]}[args.mesh]
+    failures = []
+    for arch in archs:
+        for shape in shapes:
+            skip = should_skip(arch, shape)
+            if skip:
+                print(f"SKIP  {arch:18s} {shape:12s}: {skip}", flush=True)
+                continue
+            for mp in meshes:
+                tag = f"{arch:18s} {shape:12s} {'2x16x16' if mp else '16x16 '}"
+                try:
+                    r = run_one(arch, shape, mp, grad_sync=args.grad_sync,
+                                out_dir=args.out,
+                                seq_parallel=args.seq_parallel,
+                                microbatches=args.microbatches, tag=args.tag,
+                                moe_impl=args.moe_impl, device=args.device)
+                    roof = r["roofline"]
+                    print(f"OK    {tag} compile={r['compile_s']:6.1f}s "
+                          f"mem/dev={r['memory']['total_bytes']/2**30:6.2f}GiB "
+                          f"dom={roof['dominant']:12s} "
+                          f"useful={roof['useful_flops_ratio']:.2f}",
+                          flush=True)
+                except Exception as e:  # noqa: BLE001
+                    failures.append((arch, shape, mp, repr(e)))
+                    print(f"FAIL  {tag}: {e}", flush=True)
+                    traceback.print_exc()
+    if failures:
+        print(f"\n{len(failures)} FAILURES")
+        raise SystemExit(1)
+    print("\nall dry-runs traced.")
+
+
+if __name__ == "__main__":
+    main()

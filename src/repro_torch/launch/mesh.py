@@ -11,9 +11,10 @@ function (never a module-level constant), so importing this module starts
 no process group; every rank of the default group must call it.
 
 The constants are the NVIDIA H100 SXM5's, from NVIDIA's H100 Tensor Core
-GPU datasheet. The workload compiler's ``HostSpec``
-(:mod:`repro_torch.core.workload.timeline`) takes its defaults from here,
-and ``chip_smoke.py`` its bounds.
+GPU datasheet, and ``LINK_BW`` the DGX H100's network. The workload
+compiler's ``HostSpec`` (:mod:`repro_torch.core.workload.timeline`) takes
+its defaults from here, ``chip_smoke.py`` its bounds, and the dry run
+(:mod:`.dryrun`) its roofline terms.
 """
 from __future__ import annotations
 
@@ -59,3 +60,11 @@ def mesh_axes(mesh: MeshLike) -> Tuple[Tuple[str, ...], str]:
 # Hardware constants for the roofline (NVIDIA H100 SXM5)
 PEAK_FLOPS_BF16 = 989e12      # per card, dense bf16 tensor-core peak
 HBM_BW = 3.35e12              # bytes/s per card (HBM3)
+# Bytes/s a card sends to a card outside its node: one 400 Gb/s NDR
+# InfiniBand port a card (a DGX H100 has one ConnectX-7 a GPU; NVIDIA DGX
+# H100 user guide). Both production axes leave an 8-card NVLink domain: the
+# model axis's 16 consecutive ranks span two nodes, and the data axis
+# strides across nodes. The collective term of the dry run divides by it
+# (the reference's ``ICI_BW``). NVLink 4 gives 450e9 bytes/s a direction
+# inside a node; no production axis stays inside one, so it is not used.
+LINK_BW = 50e9

@@ -36,9 +36,11 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import checkpoint
 
 from ..kernels.ops import resolve_device
+from ..parallel import P, get_parallel_context, param_placements
 from .config import ModelConfig
 from .layers import (MLP, Attention, Embeddings, RMSNorm, attention_forward,
                      decode_attention, embed, mlp_forward, project_qkv,
@@ -187,6 +189,27 @@ def _decoder_sublayer(p: DecoderLayer, x, positions, cfg: ModelConfig,
     return _feed_forward(p, x, cfg)
 
 
+def _activation_constraint(x: torch.Tensor) -> torch.Tensor:
+    """Pin (B, S, d) activations to batch-over-data sharding, and with
+    ``sequence_parallel`` the sequence over the model axis where it divides
+    (reference ``transformer.py:146-158``, a GSPMD sharding constraint).
+    Only a DTensor is laid out over devices: it is redistributed to that
+    layout under a context with ``constrain_activations``; any other tensor
+    (one rank's own rows) is returned as it is. It applies at the start of
+    each layer period and encoder layer, as the reference's, but outside
+    their checkpoint: the input that remat keeps has the pinned layout, as
+    the reference's scan carry has it."""
+    ctx = get_parallel_context()
+    if ctx is None or not ctx.constrain_activations or x.ndim != 3 \
+            or not isinstance(x, DTensor):
+        return x
+    seq = None
+    if ctx.sequence_parallel and x.shape[1] % ctx.tp_size == 0:
+        seq = ctx.model_axis
+    return x.redistribute(ctx.mesh, param_placements(
+        P(ctx.data_spec, seq, None), ctx.mesh))
+
+
 def _period_body(period: nn.ModuleList, x, aux, positions,
                  cfg: ModelConfig, enc_out=None
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -222,6 +245,7 @@ def encode(params: Transformer, frames: torch.Tensor,
     ecfg = cfg.with_(rope_mode="none", sliding_window=0)
     remat = cfg.remat and torch.is_grad_enabled()
     for p in params.encoder:
+        x = _activation_constraint(x)
         if remat:
             x = checkpoint(_encoder_layer, p, x, ecfg, use_reentrant=False)
         else:
@@ -253,15 +277,12 @@ def forward(params: Transformer, tokens: torch.Tensor, cfg: ModelConfig, *,
         if frames is None:
             raise ValueError("encoder-decoder model needs `frames`")
         enc_out = encode(params, frames, cfg)
-    # The reference pins activations to batch-over-data sharding (and, with
-    # ``sequence_parallel``, the sequence over the model axis) at each layer
-    # period (``_activation_constraint``): a GSPMD layout hint. Here each
-    # rank is a process holding its own rows, so no number depends on it.
     per = layer_period(cfg)
     remat = cfg.remat and torch.is_grad_enabled()
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(0, cfg.num_layers, per):
         period = params.layers[i:i + per]
+        x = _activation_constraint(x)
         if remat:
             x, aux = checkpoint(_period_body, period, x, aux, positions, cfg,
                                 enc_out, use_reentrant=False)

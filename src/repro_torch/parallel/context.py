@@ -27,17 +27,18 @@ class ParallelContext:
     mesh: DeviceMesh
     data_axes: Tuple[str, ...]   # batch-parallel axes, e.g. ("pod", "data")
     model_axis: str              # tensor/expert-parallel axis
-    # The reference pins activations to batch-over-data sharding at period
-    # boundaries; False inside its data-manual regions (the explicit
-    # grad-sync modes). A layout hint: no number here depends on it.
+    # Pin activations to batch-over-data sharding at period boundaries
+    # (``models.transformer._activation_constraint``, on DTensors only);
+    # False inside the reference's data-manual regions (the explicit
+    # grad-sync modes).
     constrain_activations: bool = True
     # False inside the explicit grad-sync modes, whose data-manual
     # shard_map the reference's layers cannot nest in: no expert-parallel
     # form, and the dense MoE path routes this rank's rows alone (True:
     # the whole data group's, as one program over the global batch).
     allow_shardmap_layers: bool = True
-    # Sequence parallelism of the boundary activations (set by the
-    # reference's dry run only; no number of one rank's run depends on it).
+    # Sequence parallelism of the boundary activations: the sequence is
+    # also split over the model axis there (set by the dry run only).
     sequence_parallel: bool = False
 
     @property

@@ -13,8 +13,11 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     """logits (B, S, V) float, labels (B, S) int. Stable fp32 reduction."""
     lg = logits.to(torch.float32)
     lse = torch.logsumexp(lg, dim=-1)
-    ll = torch.gather(lg, -1, labels[..., None].to(torch.int64))[..., 0]
-    nll = lse - ll
+    # the label's logit stays (B, S, 1) until the subtraction: on logits
+    # sharded over the vocabulary (a DTensor) the gather is a masked partial
+    # sum, which DTensor reduces correctly only in the gather's own shape
+    ll = torch.gather(lg, -1, labels[..., None].to(torch.int64))
+    nll = (lse[..., None] - ll)[..., 0]
     if z_loss > 0.0:
         nll = nll + z_loss * torch.square(lse)
     hit = (lg.argmax(-1) == labels).to(torch.float32)

@@ -29,10 +29,10 @@ the model ranks of one data rank get the same rows). Under a
 :class:`~repro_torch.parallel.ParallelContext` the mesh is its data groups
 (:meth:`Mesh.of`): the gradients are averaged, and the Canary trees run,
 over data ranks only, since every model rank ends its backward pass with
-the whole gradient. The reference's sharding constraint on the logits is a
-GSPMD layout hint; with one process a rank nothing is laid out over
-devices and no number depends on it, so it is left out, as ``forward``'s
-are.
+the whole gradient. The reference's sharding constraint on the logits
+applies where the logits are a DTensor (the dry run's trace over a mesh):
+they are redistributed to its layout; one rank's own logits are left as
+they are.
 
 Parameters are an ``nn.Module``; a step writes the updated parameters and
 moments into its tensors (see :func:`repro_torch.optim.update`).
@@ -45,6 +45,7 @@ from typing import Any, Callable, Dict, Optional, Tuple
 import torch
 import torch.distributed as dist
 from torch.distributed import ProcessGroup
+from torch.distributed.tensor import DTensor
 
 from ..convert import reference_leaves
 from ..core.collective import canary_allreduce_tree
@@ -53,7 +54,8 @@ from ..models.config import ModelConfig
 from ..optim import AdamWConfig, AdamWState
 from ..optim import init as adamw_init
 from ..optim import update as adamw_update
-from ..parallel import ParallelContext, get_parallel_context, parallel_context
+from ..parallel import (P, ParallelContext, get_parallel_context,
+                        param_placements, parallel_context)
 from .losses import cross_entropy
 
 EXPLICIT_MODES = ("canary", "ring", "hierarchical", "canary_fp")
@@ -127,7 +129,10 @@ class Mesh:
         tensors, in one all-reduce per group; the keys in ``first`` take
         data rank 0's value instead."""
         keys = list(values)
-        vec = torch.stack([values[k].to(torch.float32) for k in keys])
+        # a DTensor metric (a trace over a model mesh) whole on every rank
+        vec = torch.stack([(v.full_tensor() if isinstance(v, DTensor) else v)
+                           .to(torch.float32)
+                           for v in (values[k] for k in keys)])
         own = torch.tensor([k in first for k in keys], device=vec.device)
         vec = torch.where(own & (self.index != 0), 0.0, vec)
         for g in self.groups:
@@ -172,16 +177,29 @@ def value_and_grad(loss_fn: Callable, params: torch.nn.Module, batch
             dict(zip(named, grads)))
 
 
-def make_loss_fn(tc: TrainConfig) -> Callable:
+def make_loss_fn(tc: TrainConfig, constrain: str = "full") -> Callable:
+    """``constrain``: 'full' (batch over the data axes, vocab over the model
+    axis), 'model' (vocab only) or 'none': the layout the (B, S, V) logits
+    are redistributed to when they are a DTensor under a parallel context
+    (reference ``train_step.py:59-81``)."""
+    if constrain not in ("full", "model", "none"):
+        raise ValueError(f"unknown constrain {constrain!r}")
     cfg = tc.model
 
     def loss_fn(params, batch):
+        ctx = get_parallel_context()
         kwargs = {}
         if "frames" in batch:
             kwargs["frames"] = batch["frames"]
         if "patches" in batch:
             kwargs["extra_embeds"] = batch["patches"]
         logits, aux = forward(params, batch["tokens"], cfg, **kwargs)
+        if ctx is not None and constrain != "none" \
+                and isinstance(logits, DTensor):
+            spec = P(ctx.data_spec, None, ctx.model_axis) \
+                if constrain == "full" else P(None, None, ctx.model_axis)
+            logits = logits.redistribute(ctx.mesh,
+                                         param_placements(spec, ctx.mesh))
         labels = batch["labels"]
         if logits.shape[1] != labels.shape[1]:   # VLM prefix: score text only
             logits = logits[:, logits.shape[1] - labels.shape[1]:]
@@ -215,6 +233,20 @@ def _microbatched(loss_fn, params, batch, k: int):
     return m_acc, grads
 
 
+def _on_local(grads: Grads, sync: Callable[[Grads], Grads]) -> Grads:
+    """``sync`` over the gradients' local tensors: a DTensor gradient (the
+    dry run's model-sharded parameters) goes through as this rank's shard,
+    over its data groups, and comes back with its placements."""
+    if not any(isinstance(g, DTensor) for g in grads.values()):
+        return sync(grads)
+    out = sync({n: g.to_local() if isinstance(g, DTensor) else g
+                for n, g in grads.items()})
+    return {n: DTensor.from_local(out[n], g.device_mesh, g.placements,
+                                  run_check=False, shape=g.shape,
+                                  stride=g.stride())
+            if isinstance(g, DTensor) else out[n] for n, g in grads.items()}
+
+
 def make_train_step(tc: TrainConfig, mesh: Optional[Mesh] = None,
                     on_sync: Optional[Callable[[Grads, Grads], None]] = None
                     ) -> Callable:
@@ -231,7 +263,8 @@ def make_train_step(tc: TrainConfig, mesh: Optional[Mesh] = None,
     aux is the same on every rank). The explicit modes run the backward
     pass per data rank, as the reference's data-manual ``shard_map`` does:
     no activation constraint and no expert-parallel form inside it."""
-    loss_fn = make_loss_fn(tc)
+    loss_fn = make_loss_fn(tc, constrain="full" if tc.grad_sync == "auto"
+                           else "none")
 
     if tc.grad_sync == "auto":
         def train_step(params, opt_state, batch):
@@ -272,10 +305,10 @@ def make_train_step(tc: TrainConfig, mesh: Optional[Mesh] = None,
                           allow_shardmap_layers=False)
         with parallel_context(ctx):
             (_, metrics), grads = value_and_grad(loss_fn, params, batch)
-        synced = canary_allreduce_tree(
-            grads, group=mesh.inner, axis_size=mesh.inner_size, roots=roots,
+        synced = _on_local(grads, lambda local: canary_allreduce_tree(
+            local, group=mesh.inner, axis_size=mesh.inner_size, roots=roots,
             num_blocks=tc.canary_blocks, mode=mode, outer_group=mesh.outer,
-            fixed_point=fixed_point, groups=groups)
+            fixed_point=fixed_point, groups=groups))
         if on_sync is not None:
             on_sync(grads, synced)
         del grads
