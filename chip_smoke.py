@@ -172,10 +172,13 @@ printed:
               held); the gap attributed: the real step's blocks at its peak (the
               allocator's trace replayed) against the predicted storages
               at the dry run's, unmatched sizes by where they were made;
-              (c) one
-              production row, ``python -m repro_torch.launch.dryrun --arch
-              llama3.2-1b --shape train_4k --mesh single``, in a
-              subprocess, printed;
+              (c) (run after phase 5's profiles, before 4i: its processes
+              share the card) the production rows of ``DRYRUN_ROWS``
+              (``python -m repro_torch.launch.dryrun --arch <a> --shape
+              train_4k --mesh single``: llama3.2-1b, jamba-v0.1-52b and
+              qwen2-moe-a2.7b), each in a subprocess of its own, all
+              started together, each ``OK`` within ``DRYRUN_ROW_S``,
+              printed;
 6. summary  — one ``{"kernels": [...]}`` JSON line (quantize and dequantize
               also give their launches by path and their times at the
               training shape), the card line, and last
@@ -366,6 +369,11 @@ PAR_ARCH, PAR_S, PAR_B = "qwen2-moe-a2.7b", 4096, 1
 # subprocess must end within DRYRUN_ROW_S
 DRYRUN_PEAK = (0.90, 1.02)
 DRYRUN_ROW_S = 600
+# 4j(c)'s production rows, train_4k on (16, 16), each in its own process:
+# llama3.2-1b (the dense decoder), jamba-v0.1-52b (one row through Mamba-2,
+# the `ep` MoE's shard_map boundary and attention) and qwen2-moe-a2.7b (the
+# dense MoE route: 60 experts do not split 16 ways)
+DRYRUN_ROWS = (MODEL_ARCH, "jamba-v0.1-52b", "qwen2-moe-a2.7b")
 PAR_FORMS = (("ep", (1, 4), 1), ("ep", (2, 2), 2), ("ep_a2a", (1, 4), 1))
 PAR_LAYER_REL, PAR_LAYER_REPS = 1e-2, 3
 # (b) training through the launcher's code path at PAR_MESH, B 1, S 4096,
@@ -2051,29 +2059,53 @@ def peak_gap(before, after, real_peak: int, predicted: list) -> None:
 
 
 def dryrun_production_row() -> None:
-    """4j(c): one production row through the CLI, in a subprocess (this
-    process's phases start real process groups)."""
+    """4j(c): the production rows of ``DRYRUN_ROWS`` through the CLI, each in
+    a subprocess of its own (this process's phases start real process
+    groups), all started together; each must print ``OK`` within
+    ``DRYRUN_ROW_S``. Run after phase 5's profiles, as 4i: the row
+    processes share the card."""
+    print("== phase 4j(c): the dry run's production rows", flush=True)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as out:
-        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
-               MODEL_ARCH, "--shape", "train_4k", "--mesh", "single",
-               "--out", out]
-        env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
-        t0 = time.perf_counter()
-        proc = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
-                              text=True, timeout=DRYRUN_ROW_S)
-        wall = time.perf_counter() - t0
-        lines = [ln for ln in proc.stdout.splitlines()
-                 if ln.startswith(("OK", "FAIL"))]
-        check(proc.returncode == 0 and lines and lines[0].startswith("OK"),
-              f"the dry run's production row failed (exit "
-              f"{proc.returncode}): {proc.stdout[-2000:]}"
-              f"{proc.stderr[-2000:]}")
-        files = os.listdir(out)
-        check(len(files) == 1, f"the row's files: {files}")
-        with open(os.path.join(out, files[0])) as f:
-            row = json.load(f)
-    print(f"4j(c): {lines[0]} ({wall:.1f} s with the process)", flush=True)
-    print("4j(c) row: " + json.dumps(row), flush=True)
+        procs = []
+        for arch in DRYRUN_ROWS:
+            d = os.path.join(out, arch)
+            os.makedirs(d)
+            cmd = [sys.executable, "-m", "repro_torch.launch.dryrun",
+                   "--arch", arch, "--shape", "train_4k", "--mesh",
+                   "single", "--out", d]
+            procs.append((arch, d, time.perf_counter(), subprocess.Popen(
+                cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                stderr=subprocess.PIPE, text=True)))
+        for arch, d, start, proc in procs:
+            try:
+                stdout, stderr = proc.communicate(
+                    timeout=max(1.0, DRYRUN_ROW_S - (time.perf_counter()
+                                                     - start)))
+            except subprocess.TimeoutExpired:
+                for *_, other in procs:
+                    other.kill()
+                    other.communicate()
+                check(False, f"the dry run's {arch} row ran past "
+                      f"{DRYRUN_ROW_S} s")
+            wall = time.perf_counter() - start
+            lines = [ln for ln in stdout.splitlines()
+                     if ln.startswith(("OK", "FAIL"))]
+            check(proc.returncode == 0 and lines
+                  and lines[0].startswith("OK"),
+                  f"the dry run's {arch} row failed (exit "
+                  f"{proc.returncode}): {stdout[-2000:]}{stderr[-2000:]}")
+            files = os.listdir(d)
+            check(len(files) == 1, f"the {arch} row's files: {files}")
+            with open(os.path.join(d, files[0])) as f:
+                row = json.load(f)
+            print(f"4j(c): {lines[0]} ({wall:.1f} s with the process)",
+                  flush=True)
+            print("4j(c) row: " + json.dumps(row), flush=True)
+    print(f"phase 4j(c): {len(DRYRUN_ROWS)} rows, "
+          f"{time.perf_counter() - t0:.1f} s (the rows run together)",
+          flush=True)
 
 
 def phase_dryrun(rows: dict, seed: int, llama_runs: dict) -> None:
@@ -2102,7 +2134,6 @@ def phase_dryrun(rows: dict, seed: int, llama_runs: dict) -> None:
     dryrun_against_step(cfg, params, opt, tc, llama_runs, held)
     del params, opt
     torch.cuda.empty_cache()
-    dryrun_production_row()
     print(f"phase 4j: {time.perf_counter() - t0:.1f} s", flush=True)
 
 
@@ -3356,8 +3387,10 @@ def main() -> int:
     phase_profile_prefill(engine, prompt)
     # last: after its processes have shared the card, this process's
     # profiler recorded fewer of phase 5's kernel launches (on the H100: 3
-    # of 5 in one run, against 5 of 5 before it; 0 of 5 in another)
+    # of 5 in one run, against 5 of 5 before it; 0 of 5 in another, and 0
+    # of 5 after 4j(c)'s three row processes ran before phase 5)
     del engine, prompt
+    dryrun_production_row()
     phase_parallel(rows, args.seed, smi)
 
     # launches by path: the replay, switch or prefill run ("launches" so

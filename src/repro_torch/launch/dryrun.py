@@ -29,6 +29,12 @@ How each part of the reference is carried over:
   tensors of each rank's local shape, wrapped as DTensors with the
   placements of the port's sharding rules (:func:`param_placements` of
   ``param_specs``, ``batch_spec``, ``cache_specs``).
+* ``jax.shard_map`` around the expert-parallel MoE forms:
+  ``parallel.regions.shard_map``, which hands each rank's local tensors to
+  the form's body at the reference's in specs and wraps its outputs at the
+  out specs; inside, the routing, dispatch and the collectives over the
+  model group run on local tensors (the collectives counted as the Canary
+  trees' are).
 * GSPMD propagation over the traced step: DTensor's sharding propagation
   over the port's own ``make_train_step``, ``forward`` and ``decode_step``.
   Under ``auto`` the step is built with no mesh, as the reference's
@@ -43,16 +49,57 @@ How each part of the reference is carried over:
   lays the operation out itself, on DTensor's own redistributions and each
   rank's local tensors, and says so here:
 
-  - ``view``: the model code calls ``reshape``, DTensor sees the ``view``
-    it decomposes into, whose rule refuses to split a sharded dim unevenly
-    (the heads of q into (KV, G) groups); ``reshape``'s rule, which
-    reshards, is taken instead (:func:`_views_reshard`);
+  - ``view`` and ``_unsafe_view``: the model code calls ``reshape`` (and
+    ``einsum`` flattens its operands), DTensor sees the views they
+    decompose into, whose rule refuses to split a sharded dim unevenly
+    (the heads of q into (KV, G) groups; a decode step's grouped-query
+    logits, where torch 2.11 refuses the flattening); ``reshape``'s rule,
+    which reshards, is taken instead (:func:`_views_reshard`);
   - a product (``mm``, ``bmm``) of an activation and a weight: the weight
     is gathered over the data axes that split the tokens (FSDP), and the
     activation is made whole over the model axis where it splits the
     weight's output columns (Megatron) (:func:`_gather_weight`), where DTensor's
     cost model, greedy an operation at a time and blind to the size of the
-    output, may gather the tokens or leave an output of every column;
+    output, may gather the tokens or leave an output of every column; a
+    weight dim split with the data axes over the model axis too (``wq``
+    and ``wo`` where the heads do not divide it) is gathered over the
+    model axis as well, as GSPMD does; in the backward, a row-parallel
+    product's partial sum (the gradient of a column-parallel input) is
+    reduced whole, Megatron's all-reduce; the experts' stacked weights
+    against the dense MoE path's capacity buffer, which the data axes
+    leave whole, are gathered in the forward, and each data rank computes
+    its share of their gradient in their own layout, as GSPMD does
+    (DTensor computes it whole on every rank). The backward is autograd's
+    graph task with grad mode off; remat's recomputed forward, which runs
+    inside it with grad mode on, is laid out as the forward;
+  - pointwise operations (``add``, ``sub``, ``mul``, ``div``, ``pow``): a
+    partial sum over the model axis that meets an operand that is not one
+    is reduced whole, and of two operands the model axis splits along
+    different dims the smaller is gathered (:func:`_reduce_model_partials`),
+    where DTensor scatters the partial sum over the batch and then gathers
+    every activation that meets it; under sequence parallelism DTensor's
+    scatter onto the sequence split stands;
+  - the dense MoE route, on the global batch (the reference's one GSPMD
+    program): the ``searchsorted`` of the experts' sorted slots gathers
+    the sorted values whole (:func:`_searchsorted_layout`; DTensor's own
+    sort gathers the sorted dim), ``index_copy_`` copies into each rank's
+    share with the indices whole (:func:`_index_copy_layout`), the router's
+    load count (``scatter_add_``) adds each rank's slots and reduces the sum
+    (:func:`_scatter_add_layout`); in the backward, a gather of rows adds
+    each rank's rows back (``index_add``, :func:`_index_add_layout`: torch
+    2.11's rule meets the whole indices with the split rows) and
+    ``index_copy_``'s zeroes the copied rows of each rank's share
+    (``index_fill``, :func:`_index_fill_layout`; no rule in torch 2.11);
+    the reference's ``_constrain`` of the capacity buffer is
+    ``models.moe._constrain``;
+  - Mamba-2: the split of the column-split projection into (z, x, B, C,
+    dt) keeps each piece the ranks divide split along the columns, as
+    GSPMD keeps a slice of a split dim split, and its backward's ``cat``
+    keeps the split (:func:`_split_keeping`, :func:`_cat_keeping`); the
+    conv's ``F.pad`` of the sequence pads each rank's share
+    (:func:`_pad_layout`; torch 2.11's planner fails on it), and
+    ``cumsum``'s backward ``flip`` flips each rank's share
+    (:func:`_flip_layout`; torch 2.11 has no rule for it);
   - each parameter's gradient takes the parameter's layout as autograd
     makes it (:func:`_grad_as_parameter`), not at the optimizer;
   - the loss: the gradient of its mean is split over the data axes along
@@ -192,15 +239,17 @@ PEAK_LARGEST = 8         # the largest storages live at the peak, reported
 # The accounting rests on torch's private internals, all of them in this
 # section: the "fake" backend of torch's test utilities; DTensor's local
 # tensor, its sharding propagator's shape inference, strategy table and
-# cache; c10d's group resolution; a storage's identity; the caller's frames.
-# They were tried on the releases below; on any other the dry run refuses
-# to run rather than count wrong.
+# cache and local offsets; c10d's group resolution; a storage's identity;
+# the caller's frames; autograd's current graph task; the current dispatch
+# mode. They were tried on the releases below; on any other the dry run
+# refuses to run rather than count wrong.
 TORCH_TESTED = ("2.11", "2.13")
 
 
 def check_torch() -> None:
     """Raise unless this torch is one :data:`TORCH_TESTED` names and has
     every internal the accounting uses."""
+    from torch.distributed.tensor import _utils as dtensor_utils
     from torch.distributed.tensor._sharding_prop import ShardingPropagator
     release = ".".join(torch.__version__.split(".")[:2])
     if release not in TORCH_TESTED:
@@ -213,7 +262,10 @@ def check_torch() -> None:
              (prop.propagate_op_sharding, "cache_clear"),
              (dist.distributed_c10d, "_resolve_process_group"),
              (dist.ProcessGroup, "unbox"),
-             (torch.UntypedStorage, "_cdata"), (sys, "_getframe")]
+             (torch.UntypedStorage, "_cdata"), (sys, "_getframe"),
+             (torch._C, "_current_graph_task_id"),
+             (torch.utils._python_dispatch, "_get_current_dispatch_mode"),
+             (dtensor_utils, "compute_local_shape_and_global_offset")]
     missing = [f"{getattr(o, '__name__', type(o).__name__)}.{n}"
                for o, n in needs if not hasattr(o, n)]
     if missing:
@@ -236,12 +288,30 @@ def _local(t: torch.Tensor) -> torch.Tensor:
     return t._local_tensor if isinstance(t, DTensor) else t
 
 
+def _offset(t: DTensor, d: int) -> int:
+    """Where this rank's share of ``t`` starts along dim ``d`` (DTensor's
+    own reckoning, uneven shares included)."""
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+    return compute_local_shape_and_global_offset(
+        t.shape, t.device_mesh, t.placements)[1][d]
+
+
 def _group_size(func_name: str, args) -> int:
     if func_name in _FUNCOL:
         name = [a for a in args if isinstance(a, str)][-1]
         return dist.distributed_c10d._resolve_process_group(name).size()
     pg = [a for a in args if isinstance(a, torch.ScriptObject)][0]
     return dist.ProcessGroup.unbox(pg).size()
+
+
+def _in_backward() -> bool:
+    """Whether autograd's backward pass is computing a gradient: inside its
+    graph task, with grad mode off. ``torch.utils.checkpoint`` recomputes a
+    forward (remat) inside the backward's graph task with grad mode on:
+    that is the forward, laid out as the forward."""
+    return torch._C._current_graph_task_id() != -1 \
+        and not torch.is_grad_enabled()
 
 
 def _from_torch_distributed() -> bool:
@@ -284,30 +354,36 @@ def _shape_inference_uncounted(acct: "Accountant"):
 
 @contextlib.contextmanager
 def _views_reshard():
-    """``view`` takes DTensor's ``reshape`` rule while the step traces (see
-    the module's docstring); restored after, with the sharding cache."""
+    """``view`` and ``_unsafe_view`` (the flattening inside ``einsum`` and
+    ``flatten``) take DTensor's ``reshape`` rule where their own refuses a
+    split, while the step traces (see the module's docstring); restored
+    after, with the sharding cache."""
     prop = DTensor._op_dispatcher.sharding_propagator
-    view, reshape = torch.ops.aten.view.default, torch.ops.aten.reshape.default
+    reshape = torch.ops.aten.reshape.default
+    views = (torch.ops.aten.view.default, torch.ops.aten._unsafe_view.default)
     funcs = prop.op_strategy_funcs
-    if view not in funcs or reshape not in funcs:
-        raise RuntimeError("DTensor registers no strategy for aten.view or "
-                           "aten.reshape in this torch")
-    real, resharding = funcs[view], funcs[reshape]
+    if reshape not in funcs or any(v not in funcs for v in views):
+        raise RuntimeError("DTensor registers no strategy for aten.view, "
+                           "aten._unsafe_view or aten.reshape in this torch")
+    resharding = funcs[reshape]
+    real = {v: funcs[v] for v in views}
 
-    def view_or_reshard(op_schema):
-        try:
-            return real(op_schema)
-        except RuntimeError:      # a split the view rule refuses
-            return resharding(op_schema)
+    def or_reshard(rule):
+        def view_or_reshard(op_schema):
+            try:
+                return rule(op_schema)
+            except RuntimeError:      # a split the view rule refuses
+                return resharding(op_schema)
+        return view_or_reshard
 
-    funcs[view] = view_or_reshard
+    for v in views:
+        funcs[v] = or_reshard(real[v])
     prop.propagate_op_sharding.cache_clear()
     try:
         yield
     finally:
-        funcs[view] = real
+        funcs.update(real)
         prop.propagate_op_sharding.cache_clear()
-
 
 
 # ------------------------------------------------------------ process group
@@ -558,11 +634,22 @@ class Accountant(TorchDispatchMode):
     built only for its names, as AdamW's decay rule builds one) and
     DTensor's host arithmetic of shard sizes and offsets (small CPU
     tensors it reads back as integers), which run for real and, as every
-    operation on real tensors only, are not counted."""
+    operation on real tensors only, are not counted. ``weights``: the
+    step's arguments, whose trainable stacked weights (the experts')
+    :func:`_gather_weight` lays their gradients out as."""
 
-    def __init__(self, fake_mode):
+    def __init__(self, fake_mode, weights=()):
         super().__init__()
         self.fake_mode = fake_mode
+        # {global shape: placements} of the trainable 3-d weights, a shape
+        # two layouts share left out
+        layouts: Dict[Tuple[int, ...], set] = {}
+        for t in weights:
+            if isinstance(t, DTensor) and t.ndim == 3 and t.requires_grad:
+                layouts.setdefault(tuple(t.shape), set()).add(
+                    tuple(t.placements))
+        self.stacked = {s: next(iter(p)) for s, p in layouts.items()
+                        if len(p) == 1}
         self.flops = 0
         self.bytes = 0
         self.coll_bytes = dict.fromkeys(_COLLECTIVES, 0)
@@ -695,6 +782,24 @@ def _contiguous_stride(shape) -> Tuple[int, ...]:
     return tuple(reversed(stride))
 
 
+def _product_placement(pa, pb, nd: int):
+    """The placement of ``a @ b`` (``nd``-dim operands) over one mesh dim
+    where ``a``'s is ``pa`` and ``b``'s ``pb`` and neither needs moving;
+    ``None`` where one would."""
+    rows, feats = nd - 2, nd - 1
+    if pa.is_replicate() and pb.is_replicate():
+        return Replicate()
+    if pa.is_shard(rows) and pb.is_replicate():
+        return Shard(rows)
+    if pa.is_replicate() and pb.is_shard(feats):
+        return Shard(feats)
+    if pa.is_shard(feats) and pb.is_shard(rows):
+        return Partial()
+    if nd == 3 and pa.is_shard(0) and pb.is_shard(0):
+        return Shard(0)
+    return None
+
+
 def _gather_weight(a, b):
     """``a @ b`` (``mm``, ``bmm``) of an activation ``a`` and a weight
     ``b``, laid out as FSDP and Megatron (and GSPMD) do over each mesh dim
@@ -702,10 +807,30 @@ def _gather_weight(a, b):
     ``a``'s tokens, ``b`` is gathered (FSDP: the weight gathered, the
     tokens kept split). Over the model axis, where it splits ``b``'s output
     columns, ``a`` is made whole (Megatron's column-parallel input: its
-    tokens or features gathered, a partial sum reduced). DTensor's own
-    choice, the cheapest redistribution of the inputs by its cost model,
+    tokens or features gathered, a partial sum reduced); a weight dim the
+    model axis splits together with the data axes that gather it (FSDP
+    over the whole mesh, as the rules place ``wq`` and ``wo`` where the
+    heads do not divide the model axis) is gathered over it too, as GSPMD
+    does. DTensor's own choice, the cheapest redistribution of the inputs
+    by its cost model,
     may instead gather the tokens over the data axes, or gather the weight
-    and leave an output of every column to be moved after.
+    and leave an output of every column to be moved after. In the backward
+    pass, the gradient of a column-parallel input (its features and the
+    weight's rows split over the model axis, unless the sequence is) is
+    reduced whole at once, Megatron's all-reduce, where DTensor scatters
+    the partial sum over the batch.
+
+    A batched product of a stack of weights, one a batch entry (the
+    experts' (E, d, f)), against an operand a data axis leaves whole (the
+    dense MoE path's capacity buffer, whole over the data axes by the
+    reference's constraint) is laid out as GSPMD lays out that program:
+    the forward gathers the weight; the backward keeps the weight's split
+    where it splits the output's columns (each rank its share of the
+    input's gradient) and gathers it where it splits the contraction. A
+    product of two operands a data axis leaves whole whose output has the
+    shape of a stacked weight the step trains is that weight's gradient:
+    each rank computes its share, in the weight's layout (DTensor computes
+    it whole on every rank).
     ``NotImplemented`` where none of these holds."""
     ctx = get_parallel_context()
     if ctx is None or not isinstance(a, DTensor) \
@@ -713,27 +838,71 @@ def _gather_weight(a, b):
         return NotImplemented
     rows, feats, mesh = a.ndim - 2, a.ndim - 1, a.device_mesh
     names = mesh.mesh_dim_names or ()
-    gather_a, gather_b = [], []
+    stacked = a.ndim == 3 and a.shape[0] > 1
+    backward = _in_backward()
+    weight = _stacked_weight((a.shape[0], a.shape[1], b.shape[-1])) \
+        if stacked else None
+    gather_a, gather_b, split_a, split_b, reduce = [], [], [], [], []
     for m, (pa, pb) in enumerate(zip(a.placements, b.placements)):
-        if mesh.size(m) == 1 or not pb.is_shard() or pb.dim == b.ndim - 3:
+        data = names[m] in ctx.data_axes
+        if mesh.size(m) == 1:
             continue
-        if names[m] in ctx.data_axes and pa.is_shard(rows):
+        if data and weight is not None and pa.is_replicate() \
+                and pb.is_replicate():      # the weight's gradient, a^T @ g
+            if weight[m].is_shard(rows):
+                split_a.append(m)
+            elif weight[m].is_shard(feats):
+                split_b.append(m)
+            continue
+        if not pb.is_shard() or pb.dim == b.ndim - 3:
+            continue
+        if data and pa.is_shard(rows):
             gather_b.append(m)
+        elif data and stacked and pa.is_replicate():
+            if not backward or pb.dim == b.ndim - 2:   # or the contraction
+                gather_b.append(m)
         elif names[m] == ctx.model_axis and pb.dim == b.ndim - 1 and (
                 pa.is_partial() or pa.is_shard(rows) or pa.is_shard(feats)):
             gather_a.append(m)
-    if not gather_a and not gather_b:
+        elif names[m] == ctx.model_axis and pa.is_replicate() and any(
+                n in gather_b and q.is_shard(pb.dim)
+                for n, q in enumerate(b.placements)):
+            gather_b.append(m)      # a dim FSDP splits with the data axes
+        elif names[m] == ctx.model_axis and backward and pa.is_shard(feats) \
+                and pb.dim == b.ndim - 2 and not ctx.sequence_parallel:
+            reduce.append(m)
+    pa = [Replicate() if m in gather_a else Shard(rows) if m in split_a
+          else p for m, p in enumerate(a.placements)]
+    pb = [Replicate() if m in gather_b else Shard(b.ndim - 1) if m in split_b
+          else p for m, p in enumerate(b.placements)]
+    out = [_product_placement(x, y, a.ndim) for x, y in zip(pa, pb)]
+    if None in out:     # the reduction is left to DTensor's rule
+        reduce = []
+    if not (gather_a or gather_b or split_a or split_b or reduce):
         return NotImplemented
     # below autograd already; detached, so that redistribute's autograd
     # Function, run in the backward pass on a weight that needs a gradient,
     # does not detach_ its output (DTensor 2.11 has no rule for detach_)
-    a, b = a.detach(), b.detach()
-    a = a.redistribute(mesh, [Replicate() if m in gather_a else p
-                              for m, p in enumerate(a.placements)])
-    b = b.redistribute(mesh, [Replicate() if m in gather_b else p
-                              for m, p in enumerate(b.placements)])
-    return torch.ops.aten.bmm.default(a, b) if a.ndim == 3 \
-        else torch.ops.aten.mm.default(a, b)
+    a = a.detach().redistribute(mesh, pa)
+    b = b.detach().redistribute(mesh, pb)
+    product = torch.ops.aten.bmm.default if a.ndim == 3 \
+        else torch.ops.aten.mm.default
+    if not reduce:
+        return product(a, b)
+    # the product on each rank's shares, then its partial sum reduced
+    shape = tuple(a.shape[:-1]) + (b.shape[-1],)
+    return _dtensor(product(a.to_local(), b.to_local()), a, out, shape
+                    ).redistribute(mesh, [Replicate() if m in reduce else p
+                                          for m, p in enumerate(out)])
+
+
+def _stacked_weight(shape) -> Optional[Tuple]:
+    """The placements of the stacked weight of global ``shape`` that the
+    step being counted trains, if any (:class:`Accountant`)."""
+    from torch.utils._python_dispatch import _get_current_dispatch_mode
+    acct = _get_current_dispatch_mode()
+    return acct.stacked.get(tuple(shape)) \
+        if isinstance(acct, Accountant) else None
 
 
 def _embedding_lookup(table, indices):
@@ -769,7 +938,8 @@ def _embedding_lookup(table, indices):
         ids = ids - lo
         keep = (ids >= 0) & (ids < rows.shape[0])
         local = torch.ops.aten.index.Tensor(rows, [ids * keep])
-        local = local * keep.unsqueeze(-1).to(local.dtype)
+        local = local * keep.reshape(keep.shape + (1,) * (rows.ndim - 1)
+                                     ).to(local.dtype)
     shape = torch.Size(tuple(idx.shape) + tuple(table.shape[1:]))
     return DTensor.from_local(local, mesh, out, run_check=False,
                               shape=shape, stride=_contiguous_stride(shape))
@@ -970,13 +1140,305 @@ def _split_logsumexp(x, dim, keepdim=False):
     return out if keepdim else out.squeeze(d)
 
 
+def _whole(t, dims=None):
+    """``t`` with every partial sum reduced and, over each mesh dim that
+    splits one of ``dims`` (every dim when ``None``), gathered."""
+    keep = [p.is_shard() and dims is not None and p.dim % t.ndim not in dims
+            for p in t.placements]
+    want = [p if k or p.is_replicate() else Replicate()
+            for p, k in zip(t.placements, keep)]
+    return t if want == list(t.placements) \
+        else t.redistribute(t.device_mesh, want)
+
+
+def _dtensor(local, like, placements, shape):
+    shape = torch.Size(shape)
+    return DTensor.from_local(local, like.device_mesh, placements,
+                              run_check=False, shape=shape,
+                              stride=_contiguous_stride(shape))
+
+
+def _searchsorted_layout(seq, x, *, out_int32=False, right=False,
+                         side=None, sorter=None):
+    """``torch.searchsorted(seq, x)`` of a 1-D ``seq`` on DTensors: ``seq``
+    gathered whole, ``x``'s splits kept (each rank searches its values)."""
+    if not isinstance(seq, DTensor) or not isinstance(x, DTensor) \
+            or seq.ndim != 1 or sorter is not None:
+        return NotImplemented
+    seq, x = _whole(seq.detach()), _whole(x.detach(), [])
+    local = torch.ops.aten.searchsorted.Tensor(
+        seq.to_local(), x.to_local(), out_int32=out_int32, right=right,
+        side=side)
+    return _dtensor(local, x, x.placements, x.shape)
+
+
+def _index_copy_layout(dest, dim, index, source):
+    """``dest.index_copy_(dim, index, source)`` on DTensors, in place: the
+    indices gathered whole, ``source`` laid out as ``dest`` with ``dim``
+    whole, the copy made there and each rank's share of it written back
+    into ``dest`` (with ``dim`` unsplit, each rank copies into its own
+    share)."""
+    if not all(isinstance(t, DTensor) for t in (dest, index, source)) \
+            or any(p.is_partial() for p in dest.placements):
+        return NotImplemented
+    d, mesh = dim % dest.ndim, dest.device_mesh
+    index = _whole(index)
+    whole = _whole(dest.detach(), [d])
+    source = source.detach().redistribute(mesh, whole.placements)
+    split = whole.placements != dest.placements
+    local = whole.to_local() if split else dest.to_local()
+    torch.ops.aten.index_copy_.default(local, d, index.to_local(),
+                                       source.to_local())
+    if split:           # this rank's share of the copy, into dest's own
+        dest.to_local().copy_(whole.redistribute(mesh, dest.placements)
+                              .to_local())
+    return dest
+
+
+def _index_add_layout(dest, dim, index, source, alpha=1):
+    """``dest.index_add(dim, index, source)`` on DTensors (the backward of
+    ``index_select``: the gathered rows' gradients added back): ``dest``
+    whole along ``dim``; where a mesh dim splits ``source``'s rows each rank
+    adds its own rows (its block of ``index``), a partial sum over that
+    mesh dim; elsewhere ``source`` is laid out as ``dest``. torch 2.11's
+    rule meets the whole indices with the split rows."""
+    if not all(isinstance(t, DTensor) for t in (dest, index, source)) \
+            or index.ndim != 1:
+        return NotImplemented
+    d, mesh = dim % dest.ndim, dest.device_mesh
+    base = _whole(dest.detach(), [d])
+    rows = [m for m, p in enumerate(source.placements) if p.is_shard(d)]
+    src = source.detach().redistribute(mesh, [
+        p if m in rows else base.placements[m]
+        for m, p in enumerate(source.placements)])
+    ids = _whole(index).to_local()
+    n = src.to_local().shape[d]
+    ids = ids.narrow(0, _offset(src, d), n) if rows else ids
+    local = base.to_local()
+    coord = mesh.get_coordinate()
+    if any(coord[m] for m in rows):     # dest counted once in the sum
+        local = torch.zeros_like(local)
+    local = torch.ops.aten.index_add.default(local, d, ids, src.to_local(),
+                                             alpha=alpha)
+    return _dtensor(local, dest, [Partial() if m in rows else p
+                                  for m, p in enumerate(base.placements)],
+                    dest.shape)
+
+
+def _index_fill_layout(x, dim, index, value):
+    """``x.index_fill(dim, index, value)`` on DTensors (the backward of
+    ``index_copy_``, which zeroes the copied rows' gradient; torch 2.11 has
+    no rule for it): each rank fills the indexed entries of its own share
+    along ``dim``, the indices whole."""
+    if not isinstance(x, DTensor) or not isinstance(index, DTensor) \
+            or (value != 0 and any(p.is_partial() for p in x.placements)):
+        return NotImplemented
+    d = dim % x.ndim
+    x = x.detach()
+    ids = _whole(index).to_local()
+    local = x.to_local()
+    n = local.shape[d]
+    ids = ids - _offset(x, d)
+    keep = (ids >= 0) & (ids < n)
+    # the rows of this share the indices name, found without a host sync
+    hit = torch.zeros(n, dtype=torch.float32, device=local.device)
+    hit = torch.ops.aten.index_add.default(
+        hit, 0, torch.clamp(ids, 0, n - 1), keep.to(torch.float32)) > 0
+    shape = [1] * local.ndim
+    shape[d] = n
+    local = torch.ops.aten.masked_fill.Scalar(local, hit.view(shape), value)
+    return _dtensor(local, x, x.placements, x.shape)
+
+
+def _flip_layout(x, dims):
+    """``x.flip(dims)`` on a DTensor (the backward of ``cumsum``; torch 2.11
+    has no rule for it): each rank flips its share where no mesh dim splits
+    a flipped dim, which is gathered otherwise."""
+    if not isinstance(x, DTensor):
+        return NotImplemented
+    dims = [d % x.ndim for d in dims]
+    x = x.detach()
+    if any(p.is_shard() and p.dim % x.ndim in dims for p in x.placements):
+        x = x.redistribute(x.device_mesh, [
+            Replicate() if p.is_shard() and p.dim % x.ndim in dims else p
+            for p in x.placements])
+    return _dtensor(torch.ops.aten.flip.default(x.to_local(), dims), x,
+                    x.placements, x.shape)
+
+
+def _scatter_add_layout(dest, dim, index, src):
+    """``dest.scatter_add_(dim, index, src)`` on DTensors, in place, where
+    ``dest`` is whole and ``index`` and ``src`` are split alike along
+    ``dim`` (the router's expert loads, a count a slot): each rank adds its
+    slots into zeros, the sum over the splitting mesh dims is reduced and
+    added to ``dest``."""
+    d = dim % dest.ndim
+    if not all(isinstance(t, DTensor) for t in (dest, index, src)) \
+            or index.placements != src.placements \
+            or not all(p.is_replicate() for p in dest.placements) \
+            or any(p.is_shard() and p.dim != d or p.is_partial()
+                   for p in index.placements):
+        return NotImplemented
+    base = dest.to_local()
+    part = torch.ops.aten.scatter_add.default(
+        torch.zeros_like(base), d, index.to_local(), src.detach().to_local())
+    part = DTensor.from_local(
+        part, dest.device_mesh, [Partial() if p.is_shard() else Replicate()
+                                 for p in index.placements],
+        run_check=False, shape=dest.shape, stride=dest.stride()
+    ).redistribute(dest.device_mesh, dest.placements).to_local()
+    base.add_(part)
+    return dest
+
+
+def _split_dims(x, d: int) -> List[int]:
+    """The mesh dims of more than one rank that split ``x`` along ``d``."""
+    mesh = x.device_mesh
+    return [m for m, p in enumerate(x.placements)
+            if p.is_shard(d) and mesh.size(m) > 1]
+
+
+def _pieces_split(x, sizes, d: int, mdims: List[int]):
+    """``x``'s pieces of ``sizes`` along ``d`` (every placement but over
+    ``mdims`` kept): each piece whose size ``mdims`` divide split along
+    ``d`` over them, the others whole there. ``x`` is gathered over
+    ``mdims`` first."""
+    mesh = x.device_mesh
+    ways = _world(tuple(mesh.size(m) for m in mdims))
+    whole = x.redistribute(mesh, [Replicate() if m in mdims else p
+                                  for m, p in enumerate(x.placements)])
+    split = [Shard(d) if m in mdims else p
+             for m, p in enumerate(whole.placements)]
+    local, out, lo = whole.to_local(), [], 0
+    coord = mesh.get_coordinate()
+    block = 0               # this rank's block over mdims, outermost first
+    for m in mdims:
+        block = block * mesh.size(m) + coord[m]
+    for n in sizes:
+        piece = local.narrow(d, lo, n)
+        lo += n
+        shape = list(x.shape)
+        shape[d] = n
+        if n % ways:
+            out.append(_dtensor(piece, x, whole.placements, shape))
+            continue
+        piece = piece.narrow(d, block * (n // ways), n // ways)
+        out.append(_dtensor(piece, x, split, shape))
+    return out
+
+
+def _split_keeping(x, split_sizes, dim=0):
+    """``torch.split(x, sizes, dim)`` along a dim that mesh dims split (the
+    column-split projection's (z, x, B, C, dt) in Mamba-2) on a DTensor:
+    each piece whose size the splitting ranks divide stays split along
+    ``dim`` as GSPMD keeps a slice of a split dim split, the others are
+    whole; DTensor gathers every piece whole. ``NotImplemented`` where no
+    mesh dim splits ``dim``."""
+    if not isinstance(x, DTensor) or any(p.is_partial()
+                                         for p in x.placements):
+        return NotImplemented
+    d = dim % x.ndim
+    mdims = _split_dims(x, d)
+    if not mdims:
+        return NotImplemented
+    return tuple(_pieces_split(x.detach(), split_sizes, d, mdims))
+
+
+def _cat_keeping(tensors, dim=0):
+    """``torch.cat(tensors, dim)`` of DTensors that the same mesh dims split
+    along ``dim`` alike (the backward of :func:`_split_keeping`): the whole
+    split along ``dim`` over them as its pieces were. ``NotImplemented``
+    otherwise."""
+    if not tensors or not all(isinstance(t, DTensor) for t in tensors):
+        return NotImplemented
+    d = dim % tensors[0].ndim
+    first = tensors[0]
+    mdims = _split_dims(first, d)
+    if not mdims or any(t.placements != first.placements for t in tensors):
+        return NotImplemented
+    mesh = first.device_mesh
+    gathered = [p if m not in mdims else Replicate()
+                for m, p in enumerate(first.placements)]
+    whole = torch.cat([t.detach().redistribute(mesh, gathered).to_local()
+                       for t in tensors], dim=d)
+    shape = list(first.shape)
+    shape[d] = sum(t.shape[d] for t in tensors)
+    return _pieces_split(_dtensor(whole, first, gathered, shape), [shape[d]],
+                         d, mdims)[0]
+
+
+def _pad_layout(x, pad, value=0):
+    """``F.pad(x, pad)`` (``constant_pad_nd``) on a DTensor: the padded
+    dims gathered where mesh dims split them, every other split kept and
+    each rank padding its own share (torch 2.11's redistribution planner
+    fails on the Mamba-2 conv's pad of the sequence with the channels
+    split)."""
+    if not isinstance(x, DTensor):
+        return NotImplemented
+    padded = [x.ndim - 1 - i // 2 for i in range(len(pad)) if pad[i]]
+    x = x.detach()
+    if value != 0 or any(p.is_shard() and p.dim % x.ndim in padded
+                         for p in x.placements):
+        x = _whole(x, padded)
+    local = torch.ops.aten.constant_pad_nd.default(x.to_local(), pad, value)
+    shape = list(x.shape)
+    for i, n in enumerate(pad):
+        shape[x.ndim - 1 - i // 2] += n
+    return _dtensor(local, x, x.placements, shape)
+
+
+def _reduce_model_partials(func):
+    """``func`` (a pointwise op) on DTensors with each partial sum over the
+    model axis that meets an operand that is not one reduced whole first
+    (all-reduce), as Megatron reduces a row-parallel product's output; DTensor
+    scatters it over the batch instead (a reduce-scatter), and the batch split
+    over the model axis then meets every activation the model axis splits
+    along its features, each meeting a gather. Under sequence parallelism
+    DTensor's rule stands: it scatters the partial sum onto the sequence
+    split, as Megatron's sequence parallelism does."""
+    def layout(*args, **kwargs):
+        ctx = get_parallel_context()
+        dts = [a for a in args if isinstance(a, DTensor)]
+        if ctx is None or ctx.sequence_parallel or len(dts) < 1:
+            return NotImplemented
+        mesh = dts[0].device_mesh
+        names = mesh.mesh_dim_names or ()
+        if ctx.model_axis not in names:
+            return NotImplemented
+        m = names.index(ctx.model_axis)
+        if mesh.size(m) == 1:
+            return NotImplemented
+        part = [a.placements[m].is_partial() for a in dts]
+        gather = set()
+        if any(part) and not (all(part) and len(dts) > 1):
+            gather = {id(a) for a, q in zip(dts, part) if q}
+        else:   # split along different (broadcast) dims: the smaller whole
+            split = {(a.placements[m].dim - a.ndim) for a in dts
+                     if a.placements[m].is_shard() and a.shape[
+                         a.placements[m].dim] > 1}
+            if len(split) < 2:
+                return NotImplemented
+            small = min((a for a in dts if a.placements[m].is_shard()),
+                        key=lambda a: a.numel())
+            gather = {id(small)}
+        # detached, as in _gather_weight (DTensor 2.11 has no detach_ rule)
+        args = [a.detach().redistribute(mesh, [
+            Replicate() if i == m else p for i, p in enumerate(a.placements)])
+                if id(a) in gather else a for a in args]
+        return func(*args, **kwargs)
+    return layout
+
+
 # operations DTensor's own rules (torch 2.11) lay out otherwise than GSPMD
 # (the weight of a product, gather's backward, the loss's gradient, the
 # logits' logsumexp and argmax) or fail on (argmax along an unsplit dim:
 # its handler gathers over mesh dims of one rank; the embedding's lookup
 # with its indices split over two mesh dims, and its backward, whose rule
-# builds an unnormalized Shard(-1)); each rule returns NotImplemented where
-# it does not apply, and DTensor's own rule runs
+# builds an unnormalized Shard(-1)); the MoE and Mamba-2 layers' (the
+# dense route's search, copies and load count; the projection's split
+# and its cat, the partial sums and conflicting splits of pointwise ops) or
+# fail on (torch 2.11: the conv's pad, cumsum's flip); each rule returns
+# NotImplemented where it does not apply, and DTensor's own rule runs
 _LAYOUTS = {torch.ops.aten.mm.default: _gather_weight,
             torch.ops.aten.bmm.default: _gather_weight,
             torch.ops.aten.index.Tensor: _embedding_lookup,
@@ -985,7 +1447,20 @@ _LAYOUTS = {torch.ops.aten.mm.default: _gather_weight,
             torch.ops.aten.scatter_add.default: _scatter_into_split,
             torch.ops.aten.expand.default: _expand_over_batch,
             torch.ops.aten.logsumexp.default: _split_logsumexp,
-            torch.ops.aten.argmax.default: _argmax_layout}
+            torch.ops.aten.argmax.default: _argmax_layout,
+            torch.ops.aten.searchsorted.Tensor: _searchsorted_layout,
+            torch.ops.aten.index_copy_.default: _index_copy_layout,
+            torch.ops.aten.scatter_add_.default: _scatter_add_layout,
+            torch.ops.aten.split_with_sizes.default: _split_keeping,
+            torch.ops.aten.cat.default: _cat_keeping,
+            torch.ops.aten.constant_pad_nd.default: _pad_layout,
+            torch.ops.aten.flip.default: _flip_layout,
+            torch.ops.aten.index_add.default: _index_add_layout,
+            torch.ops.aten.index_fill.int_Scalar: _index_fill_layout}
+_LAYOUTS.update({op: _reduce_model_partials(op) for op in (
+    torch.ops.aten.add.Tensor, torch.ops.aten.sub.Tensor,
+    torch.ops.aten.mul.Tensor, torch.ops.aten.div.Tensor,
+    torch.ops.aten.pow.Tensor_Scalar)})
 
 
 def _fake_mode_of(tensors: List[torch.Tensor]):
@@ -1005,7 +1480,7 @@ def account(fn, args: Tuple) -> Dict[str, Any]:
     output, temp and total bytes) and ``trace_s``."""
     check_torch()
     tensors = _leaves(args)
-    acct = Accountant(_fake_mode_of(tensors))
+    acct = Accountant(_fake_mode_of(tensors), tensors)
     with implicit_replication(), _views_reshard(), \
             _shape_inference_uncounted(acct), acct:
         arg_bytes = sum(acct.track(_local(t)) for t in tensors)

@@ -97,8 +97,9 @@ def ssd_chunked(x, dt, A, Bm, Cm, chunk: int,
 
     # 3) inter-chunk recurrence, a chunk at a time
     chunk_decay = torch.exp(A_cum[..., -1])                     # (b,h,c)
-    st = torch.zeros((b, h, p, n), dtype=f32, device=x.device) \
-        if init_state is None else init_state.to(f32)
+    # made from x, so that a DTensor's zeros keep its batch's layout
+    st = x.new_zeros((b, h, p, n), dtype=f32) if init_state is None \
+        else init_state.to(f32)
     states_in = []
     for i in range(c):
         states_in.append(st)

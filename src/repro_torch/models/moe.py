@@ -33,12 +33,20 @@ Where the port differs in form, and why:
   tokens once a choice, for the same reason: its gradient
   then sums a token's k rows in order, with no atomics, so two ranks that
   run the same step hold the same bits.
-* The reference's expert-parallel forms run inside ``shard_map`` on
-  devices that hold only their experts' weights. Here every rank holds the
-  whole (replicated) weights and slices its experts out; the collectives
-  are the autograd-aware ones of :mod:`repro_torch.parallel.regions`, so
-  every rank ends the backward pass with the whole gradient of every
-  weight, the same bits on every model rank.
+* The reference's expert-parallel forms run inside ``shard_map``; here
+  their bodies (:func:`_ep_psum_local`, :func:`_ep_a2a_local`) run inside
+  :func:`~repro_torch.parallel.regions.shard_map` at the same specs. On
+  DTensors (the dry run) each rank gets its experts' block of the weights;
+  on plain tensors every rank holds the whole (replicated) weights and the
+  boundary slices its experts out, the collectives being the
+  autograd-aware ones of :mod:`repro_torch.parallel.regions`, so every rank
+  ends the backward pass with the whole gradient of every weight, the same
+  bits on every model rank.
+* On DTensors the dense path runs on the global batch, as the reference's
+  one GSPMD program, with the reference's ``_constrain`` of the capacity
+  buffer and the experts' outputs (:func:`_constrain`); its zeros are made
+  from the tokens (``new_zeros``), so that on a DTensor they carry its
+  layout.
 
 No step syncs with the host: the kept and dropped slots are masks on the
 device, and the experts' loads are a scatter-add, not ``bincount`` (which
@@ -46,16 +54,18 @@ reads its output's size from the card).
 """
 from __future__ import annotations
 
+import functools
 from types import SimpleNamespace
 from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.distributed.tensor import DTensor
 
-from ..parallel import get_parallel_context
-from ..parallel.regions import (all_to_all, copy_to, exchange, gather_from,
-                                gather_rows, mean_over, reduce_from, shard_of)
+from ..parallel import P, get_parallel_context, param_placements
+from ..parallel.regions import (all_to_all, exchange, gather_rows,
+                                mean_over, reduce_from, shard_map)
 from .config import ModelConfig
 from .layers import MLP, _weights, mlp_forward
 
@@ -91,9 +101,8 @@ def _route(p: MoE, x2d: torch.Tensor, cfg: ModelConfig
     e = cfg.moe_experts
     flat = top_e.reshape(-1)
     # a count a slot (exact in float32); bincount would sync with the host
-    frac = torch.zeros((e,), dtype=torch.float32, device=flat.device
-                       ).scatter_add_(0, flat, torch.ones_like(
-                           flat, dtype=torch.float32))
+    frac = flat.new_zeros((e,), dtype=torch.float32).scatter_add_(
+        0, flat, torch.ones_like(flat, dtype=torch.float32))
     frac = frac / top_e.numel()
     pmean = probs.mean(dim=0)
     aux = e * torch.sum(frac * pmean)
@@ -144,7 +153,7 @@ def _pack(x2d: torch.Tensor, dest: torch.Tensor, order: torch.Tensor,
     where the gradient of ``x2d.index_select(0, order // k)`` would add
     them with atomics."""
     n, d = x2d.shape
-    buf = torch.zeros((rows, d), dtype=x2d.dtype, device=x2d.device)
+    buf = x2d.new_zeros((rows, d))
     by_token = torch.empty_like(dest).index_copy_(0, order, dest).view(n, k)
     for j in range(k):
         buf.index_copy_(0, by_token[:, j], x2d)
@@ -163,7 +172,8 @@ def _experts(ex, x2d, top_w, sorted_e, pos_in_e, order, ok, lo: int,
     # lands in the last row, cut off below
     dest = torch.where(ok, le * cap + pos_in_e, e_loc * cap)
     buf = _pack(x2d, dest, order, k, e_loc * cap + 1)
-    out = _expert_ffn(ex, buf[:e_loc * cap].view(e_loc, cap, d))
+    out = _constrain(_expert_ffn(ex, _constrain(
+        buf[:e_loc * cap].view(e_loc, cap, d))))
     vals = out.reshape(e_loc * cap, d).index_select(
         0, torch.clamp(le, 0, e_loc - 1) * cap
         + torch.clamp(pos_in_e, max=cap - 1))
@@ -175,6 +185,26 @@ def _experts(ex, x2d, top_w, sorted_e, pos_in_e, order, ok, lo: int,
     return slots.view(n, k, d).sum(dim=1)
 
 
+def _constrain(t: torch.Tensor) -> torch.Tensor:
+    """The reference's ``_constrain`` of the dense path's (E, C, d)
+    capacity buffer and experts' output (``moe.py:110-125``, a GSPMD
+    sharding constraint): on a DTensor, split over the model axis along E
+    where it divides, else along C (qwen2-moe's 60 experts on a 16-way
+    axis), whole over the data axes. A plain tensor (one rank's own) is
+    returned as it is."""
+    ctx = get_parallel_context()
+    if ctx is None or not isinstance(t, DTensor):
+        return t
+    m, tp = ctx.model_axis, ctx.tp_size
+    if t.shape[0] % tp == 0:
+        spec = P(m, None, None)
+    elif t.shape[1] % tp == 0:
+        spec = P(None, m, None)
+    else:
+        return t
+    return t.redistribute(ctx.mesh, param_placements(spec, ctx.mesh))
+
+
 def _moe_dense(p: MoE, x2d: torch.Tensor, cfg: ModelConfig
                ) -> Tuple[torch.Tensor, torch.Tensor]:
     n, d = x2d.shape
@@ -183,49 +213,58 @@ def _moe_dense(p: MoE, x2d: torch.Tensor, cfg: ModelConfig
     sorted_e, pos_in_e, order = _dispatch_indices(top_e, k, e)
     cap = _capacity(n, cfg)
     keep = pos_in_e < cap
-    # The reference pins the capacity buffer and the experts' outputs to
-    # experts over the model axis here (``_constrain``), a GSPMD layout
-    # hint: on one rank a process nothing is laid out over devices, and no
-    # number changes.
     return _experts(p, x2d, top_w, sorted_e, pos_in_e, order, keep, 0, e,
                     cap, k), aux
 
 
-def _local_experts(p: MoE, ctx, e_loc: int) -> SimpleNamespace:
-    """This model rank's experts, sliced from the whole weights; their
-    gradients come back whole on every rank (:func:`shard_of`)."""
-    g = ctx.model_group
-    return SimpleNamespace(**{w: shard_of(getattr(p, w), g, e_loc)
-                              for w in ("w_up", "w_gate", "w_down")})
+def _ep_specs(ctx, x: torch.Tensor, seq: bool):
+    """The reference's ``shard_map`` specs of the expert-parallel forms:
+    the router whole, the experts split over the model axis, the tokens
+    over the data axes (the batch whole where it does not split over them,
+    as ``long_500k``'s one sequence) and, with ``seq``, the sequence over
+    the model axis; in (router, w_up, w_gate, w_down, x), out (y, aux)."""
+    m = ctx.model_axis
+    dp = ctx.data_spec if x.shape[0] % ctx.dp_size == 0 else None
+    tokens = P(dp, m if seq else None, None)
+    experts = P(m, None, None)
+    return (P(), experts, experts, experts, tokens), (tokens, P())
 
 
 def _moe_ep_psum(p: MoE, x: torch.Tensor, cfg: ModelConfig
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Expert-parallel path: local-expert dispatch + psum combine (the
-    reference's ``_moe_ep_shardmap``).
+    reference's ``_moe_ep_shardmap``), :func:`_ep_psum_local` inside the
+    :func:`shard_map` boundary."""
+    ins, outs = _ep_specs(get_parallel_context(), x, seq=False)
+    return shard_map(functools.partial(_ep_psum_local, cfg=cfg), ins, outs)(
+        p.router, p.w_up, p.w_gate, p.w_down, x)
+
+
+def _ep_psum_local(router, w_up, w_gate, w_down, x, *, cfg: ModelConfig
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One model rank's part of ``ep``, on its local tensors.
 
     Tokens are replicated along the model group; each rank serves only its
-    E/tp local experts at the capacity of all its tokens and contributes a
-    partial output, summed over the group — the direct analogue of
-    Canary's in-fabric partial aggregation. The tokens and the router
-    enter through :func:`copy_to`, so each rank's partial gradients are
-    summed; the aux loss is the group's mean.
+    E/tp local experts (``w_*``, this rank's block) at the capacity of all
+    its tokens and contributes a partial output, summed over the group —
+    the direct analogue of Canary's in-fabric partial aggregation. The aux
+    loss is the group's mean.
     """
     ctx = get_parallel_context()
-    g, tp = ctx.model_group, ctx.tp_size
+    g = ctx.model_group
     e, k = cfg.moe_experts, cfg.moe_top_k
-    e_loc = e // tp
+    e_loc = w_up.shape[0]
     lo = ctx.model_rank * e_loc
     B, S, d = x.shape
     n = B * S
-    x2d = copy_to(x.reshape(n, d), g)
-    top_w, top_e, aux = _route(SimpleNamespace(router=copy_to(p.router, g)),
-                               x2d, cfg)
+    x2d = x.reshape(n, d)
+    top_w, top_e, aux = _route(SimpleNamespace(router=router), x2d, cfg)
     sorted_e, pos_in_e, order = _dispatch_indices(top_e, k, e)
     cap = _capacity(n, cfg)
     local_ok = (sorted_e >= lo) & (sorted_e < lo + e_loc) & (pos_in_e < cap)
-    y = _experts(_local_experts(p, ctx, e_loc), x2d, top_w, sorted_e,
-                 pos_in_e, order, local_ok, lo, e_loc, cap, k)
+    ex = SimpleNamespace(w_up=w_up, w_gate=w_gate, w_down=w_down)
+    y = _experts(ex, x2d, top_w, sorted_e, pos_in_e, order, local_ok, lo,
+                 e_loc, cap, k)
     y = reduce_from(y, g)                    # combine expert partials
     return y.view(B, S, d), mean_over(aux, g)
 
@@ -233,27 +272,32 @@ def _moe_ep_psum(p: MoE, x: torch.Tensor, cfg: ModelConfig
 def _moe_ep_a2a(p: MoE, x: torch.Tensor, cfg: ModelConfig
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """All-to-all expert parallelism (the reference's
-    ``_moe_ep_a2a_shardmap``).
+    ``_moe_ep_a2a_shardmap``), :func:`_ep_a2a_local` inside the
+    :func:`shard_map` boundary, the sequence split over the model axis."""
+    ins, outs = _ep_specs(get_parallel_context(), x, seq=True)
+    return shard_map(functools.partial(_ep_a2a_local, cfg=cfg), ins, outs)(
+        p.router, p.w_up, p.w_gate, p.w_down, x)
 
-    Model rank ``m`` takes chunk ``m`` of the sequence, routes its own
-    tokens, packs them by destination rank, and two all-to-alls carry
-    them to the expert owners and back; the owner dispatches what it
-    received to its local experts at a second capacity. Per-rank link
-    bytes are ~2k/tp of the token stream against ~2x for the psum combine.
-    The layers after this one run replicated, so the chunks' outputs are
-    all-gathered back along the sequence; the aux loss is the mean of the
-    chunks'.
+
+def _ep_a2a_local(router, w_up, w_gate, w_down, x, *, cfg: ModelConfig
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One model rank's part of ``ep_a2a``, on its local tensors: ``x`` is
+    its chunk of the sequence.
+
+    The rank routes its own tokens, packs them by destination rank, and
+    two all-to-alls carry them to the expert owners and back; the owner
+    dispatches what it received to its local experts at a second capacity.
+    Per-rank link bytes are ~2k/tp of the token stream against ~2x for the
+    psum combine. The aux loss is the mean of the chunks'.
     """
     ctx = get_parallel_context()
     g, tp, m = ctx.model_group, ctx.tp_size, ctx.model_rank
     e, k, cf = cfg.moe_experts, cfg.moe_top_k, cfg.moe_capacity_factor
-    e_loc = e // tp
-    B, S, d = x.shape
-    s_loc = S // tp
+    e_loc = w_up.shape[0]
+    B, s_loc, d = x.shape
     n = B * s_loc
-    x2d = copy_to(x, g)[:, m * s_loc:(m + 1) * s_loc].reshape(n, d)
-    top_w, top_e, aux = _route(SimpleNamespace(router=copy_to(p.router, g)),
-                               x2d, cfg)
+    x2d = x.reshape(n, d)
+    top_w, top_e, aux = _route(SimpleNamespace(router=router), x2d, cfg)
     flat_e = top_e.reshape(-1)                        # (n*k,)
     order, sd, pos = _positions(flat_e // e_loc)      # by destination rank
     cap = max(8, -(-int(n * k / tp * cf) // 8) * 8)
@@ -271,7 +315,8 @@ def _moe_ep_a2a(p: MoE, x: torch.Tensor, cfg: ModelConfig
     order2, se2, pos2 = _positions(torch.where(valid, le, e_loc))
     cap2 = max(8, -(-int(tp * cap / e_loc * cf) // 8) * 8)
     ok2 = (pos2 < cap2) & (se2 < e_loc)
-    vals2 = _experts(_local_experts(p, ctx, e_loc), recv_x,
+    ex = SimpleNamespace(w_up=w_up, w_gate=w_gate, w_down=w_down)
+    vals2 = _experts(ex, recv_x,
                      torch.ones((tp * cap, 1), dtype=torch.float32,
                                 device=x2d.device), se2, pos2, order2, ok2,
                      0, e_loc, cap2, 1)               # (tp*cap, d), unpermuted
@@ -284,7 +329,7 @@ def _moe_ep_a2a(p: MoE, x: torch.Tensor, cfg: ModelConfig
     slots = torch.empty_like(got).index_copy_(0, order,
                                               got * w_sorted[:, None])
     y = slots.view(B, s_loc, k, d).sum(dim=2)
-    return gather_from(y, g, dim=1), mean_over(aux, g)
+    return y, mean_over(aux, g)
 
 
 def moe_forward(p: MoE, x: torch.Tensor, cfg: ModelConfig
@@ -315,11 +360,12 @@ def moe_forward(p: MoE, x: torch.Tensor, cfg: ModelConfig
     else:
         x2d = x.reshape(B * S, d)
         # the reference's dense path is one program over the global batch:
-        # route the data group's tokens, keep this rank's rows. Inside an
-        # explicit sync mode (its data-manual ``shard_map``, where the
-        # expert-parallel forms are off too) it routes per data rank.
+        # route the data group's tokens, keep this rank's rows (a DTensor
+        # holds the global batch already). Inside an explicit sync mode
+        # (its data-manual ``shard_map``, where the expert-parallel forms
+        # are off too) it routes per data rank.
         gather = (ctx is not None and ctx.allow_shardmap_layers
-                  and ctx.dp_size > 1)
+                  and ctx.dp_size > 1 and not isinstance(x, DTensor))
         if gather:
             x2d = gather_rows(x2d, ctx.data_groups, ctx.data_index)
         y2d, aux = _moe_dense(p, x2d, cfg)

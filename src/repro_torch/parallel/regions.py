@@ -16,8 +16,8 @@ it so:
   the gradient ``1 / n``;
 * :func:`gather_from` — forward all-gather along a dim, backward this
   rank's own slice;
-* :func:`shard_of` — this rank's rows of a weight that every rank holds
-  whole, its gradient all-gathered back to the whole weight;
+* :func:`shard_of` — this rank's block along a dim of a tensor that every
+  rank holds whole, its gradient all-gathered back to the whole tensor;
 * :func:`all_to_all` — equal chunks of dim 0 exchanged (chunk ``j`` to
   rank ``j``); its backward is the same exchange;
 * :func:`gather_rows` — rows gathered over the data groups (outermost
@@ -26,15 +26,22 @@ it so:
 
 Sums run in float32 and are cast back, so a bf16 tensor's sum rounds once.
 On a group of one rank each is the identity.
+
+:func:`shard_map` is the reference's ``jax.shard_map`` boundary around a
+body written on each rank's local tensors with these collectives.
 """
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Callable, Sequence
 
 import torch
 import torch.distributed as dist
 from torch.autograd import Function
 from torch.distributed import ProcessGroup
+from torch.distributed.tensor import DTensor, Partial
+
+from .context import get_parallel_context
+from .sharding import P, param_placements
 
 
 def _size(group: ProcessGroup) -> int:
@@ -100,14 +107,14 @@ class _GatherFrom(Function):
 
 class _ShardOf(Function):
     @staticmethod
-    def forward(ctx, w, group, rows):
-        ctx.group = group
-        lo = dist.get_rank(group) * rows
-        return w.narrow(0, lo, rows)
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        rows = x.shape[dim] // _size(group)
+        return x.narrow(dim, dist.get_rank(group) * rows, rows)
 
     @staticmethod
     def backward(ctx, g):
-        return _gather(g, ctx.group, 0), None, None
+        return _gather(g, ctx.group, ctx.dim), None, None
 
 
 def _exchange(t: torch.Tensor, group: ProcessGroup) -> torch.Tensor:
@@ -160,9 +167,11 @@ def gather_from(x: torch.Tensor, group: ProcessGroup, dim: int
     return x if _size(group) == 1 else _GatherFrom.apply(x, group, dim)
 
 
-def shard_of(w: torch.Tensor, group: ProcessGroup, rows: int) -> torch.Tensor:
-    """Rows ``[r * rows, (r + 1) * rows)`` of ``w`` on group rank ``r``."""
-    return w if _size(group) == 1 else _ShardOf.apply(w, group, rows)
+def shard_of(x: torch.Tensor, group: ProcessGroup, dim: int = 0
+             ) -> torch.Tensor:
+    """Block ``r`` of ``x``'s equal blocks along ``dim`` on group rank
+    ``r``."""
+    return x if _size(group) == 1 else _ShardOf.apply(x, group, dim)
 
 
 def all_to_all(x: torch.Tensor, group: ProcessGroup) -> torch.Tensor:
@@ -179,3 +188,56 @@ def gather_rows(x: torch.Tensor, groups: Sequence[ProcessGroup],
     """Every data rank's rows of ``x`` in data-major order; ``index`` is
     this rank's data-parallel index (its rows' block)."""
     return _GatherRows.apply(x, tuple(groups), index)
+
+
+def _model_dim(spec: P, axis: str):
+    """The dim ``spec`` splits over mesh axis ``axis``, or ``None``."""
+    for d, axes in enumerate(spec):
+        if axes == axis or (isinstance(axes, tuple) and axis in axes):
+            return d
+    return None
+
+
+def shard_map(body: Callable, in_specs: Sequence[P],
+              out_specs: Sequence[P]) -> Callable:
+    """The reference's ``jax.shard_map(body, mesh, in_specs, out_specs)``
+    on the installed context's mesh: ``body`` runs on each rank's local
+    tensors, with the collectives of this module over the context's model
+    group, and returns a tuple.
+
+    * On DTensors (the dry run), each input is redistributed to the
+      placements of its spec and handed in as its local tensor, whose
+      gradient is a partial sum over every mesh dim its spec does not
+      split (the transpose of ``shard_map``'s unmentioned axes); each
+      output is the DTensor of the local ones at its spec. A spec may leave
+      the batch whole (``P(None, ...)``) where it does not split over the
+      data axes.
+    * On plain tensors (a rank a process: each rank holds its own rows
+      over the data axes, and every tensor whole over the model group),
+      an input whose spec splits a dim over the model axis comes in as
+      this rank's block (:func:`shard_of`), any other through
+      :func:`copy_to`; an output whose spec splits a dim over the model
+      axis is gathered along it (:func:`gather_from`). Over the data axes
+      nothing moves: the train step averages the gradients there.
+    """
+    def run(*args):
+        ctx = get_parallel_context()
+        axis = ctx.model_axis
+        if not any(isinstance(a, DTensor) for a in args):
+            g = ctx.model_group
+            ins = [copy_to(a, g) if _model_dim(s, axis) is None
+                   else shard_of(a, g, _model_dim(s, axis))
+                   for a, s in zip(args, in_specs)]
+            return tuple(o if _model_dim(s, axis) is None
+                         else gather_from(o, g, _model_dim(s, axis))
+                         for o, s in zip(body(*ins), out_specs))
+        mesh = ctx.mesh
+        ins = []
+        for a, s in zip(args, in_specs):
+            pl = param_placements(s, mesh)
+            ins.append(a.redistribute(mesh, pl).to_local(grad_placements=[
+                p if p.is_shard() else Partial() for p in pl]))
+        return tuple(DTensor.from_local(o, mesh, param_placements(s, mesh),
+                                        run_check=False)
+                     for o, s in zip(body(*ins), out_specs))
+    return run

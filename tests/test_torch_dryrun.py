@@ -11,14 +11,18 @@ package's (``repro.launch.dryrun``), and the flash kernels' custom ops.
   a 0-d int32 in the reference's cache, a host integer in the port's (4
   bytes). JAX runs in a subprocess: ``repro.launch.dryrun`` forces 512 host
   devices at import.
-* Costs: one small step (llama smoke, 8 sequences of 64 tokens) at (4, 1)
-  (``auto`` and ``canary_fp``), (2, 2) (train, prefill, decode) and
-  (2, 2, 2) against the reference's compiled step, counted as its cost
-  probes count (the layers unrolled, each remaining while body times its
-  trip count): FLOPs (the HLO's dots) equal where both run the same
-  products; the Canary trees' bytes equal the reference's ppermutes'; the
-  rest (DTensor's layouts against GSPMD's, eager lifetimes against XLA's
-  buffer assignment) within stated bounds.
+* Costs: one small step (8 sequences of 64 tokens) at (4, 1) (``auto``
+  and ``canary_fp``), (2, 2) (train, prefill, decode) and (2, 2, 2) on
+  llama smoke, and at (2, 2) on the MoE forms (deepseek-moe's ``ep`` and
+  ``ep_a2a``, qwen2-moe's dense route, also at (4, 1)), mamba2 and jamba,
+  llama and the dense route under remat, and qwen2-7b with heads the model
+  axis does not divide, against the reference's compiled step, counted as
+  its cost probes count
+  (the layers unrolled, each remaining while body times its trip count):
+  FLOPs (the HLO's dots) equal where both run the same products; the
+  Canary trees' bytes equal the reference's ppermutes'; the rest
+  (DTensor's layouts against GSPMD's, eager lifetimes against XLA's buffer
+  assignment) within stated bounds.
 * FLOPs: at a one-rank fake mesh the dry run's count equals
   ``FlopCounterMode`` over the real CPU step at the same shape, through
   remat and the flash ops; at (4, 1) rank 0 counts a quarter of world 1's
@@ -38,8 +42,11 @@ package's (``repro.launch.dryrun``), and the flash kernels' custom ops.
   group is left after ``run_one``, which refuses to run beside one.
 * The layouts the dry run gives operations DTensor lays out badly or not
   at all compute those operations: on 4 gloo ranks at (2, 2), real
-  tensors, each against the operation on the whole tensors.
+  tensors, each against the operation on the whole tensors; and the MoE
+  forms (through the ``shard_map`` boundary) and the Mamba-2 layer on
+  DTensors, forward and backward, against the layer on whole tensors.
 """
+import contextlib
 import json
 import math
 import os
@@ -52,6 +59,7 @@ import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import init_device_mesh
 from torch.distributed.tensor import DTensor, Replicate, Shard
+from torch.distributed.tensor.experimental import implicit_replication
 from torch.utils.checkpoint import checkpoint
 from torch.utils.flop_counter import FlopCounterMode
 
@@ -75,8 +83,11 @@ from repro_torch.train.train_step import (TrainConfig,  # noqa: E402
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ARCH = "llama3.2-1b"
-ARG_CASES = [("train_4k", (2, 2)), ("prefill_32k", (2, 2)),
-             ("decode_32k", (2, 2)), ("train_4k", (2, 2, 2))]
+MOE, DENSE_MOE, MAMBA, HYBRID = ("deepseek-moe-16b", "qwen2-moe-a2.7b",
+                                 "mamba2-130m", "jamba-v0.1-52b")
+ARG_CASES = [(ARCH, "train_4k", (2, 2)), (ARCH, "prefill_32k", (2, 2)),
+             (ARCH, "decode_32k", (2, 2)), (ARCH, "train_4k", (2, 2, 2)),
+             (MOE, "train_4k", (2, 2)), (MAMBA, "decode_32k", (2, 2))]
 CACHE_POS_BYTES = 4        # the reference cache's 0-d int32 position
 # the costs of one small step on both packages: llama3.2-1b's smoke config,
 # SMALL_B sequences of SMALL_S tokens; the attention by the plain route on
@@ -86,19 +97,45 @@ CACHE_POS_BYTES = 4        # the reference cache's 0-d int32 position
 # on (2, 2, 2): DTensor's einsum strategy search on a 3-d mesh (torch 2.13)
 # takes minutes for the plain route's 5-d products.
 SMALL_S, SMALL_B = 64, 8
-COST_CASES = [("train", (4, 1), "plain", "auto"),
-              ("train", (4, 1), "plain", "canary_fp"),
-              ("train", (2, 2), "plain", "auto"),
-              ("prefill", (2, 2), "plain", "auto"),
-              ("decode", (2, 2), "plain", "auto"),
-              ("train", (2, 2, 2), "flash", "auto")]
+# each route's changes to the smoke config, on both sides: "remat" the plain
+# route under remat, whose recomputed forward runs inside the backward pass;
+# "odd-heads" 3 query heads and 1 KV head, which a 2-way model axis does not
+# split (as qwen2-7b's 28 and 4 on a 16-way one)
+ROUTES = {"plain": {},
+          "flash": dict(attn_chunk_threshold=SMALL_S, attn_chunk=SMALL_S),
+          "remat": dict(remat=True),
+          "odd-heads": dict(num_heads=3, num_kv_heads=1, head_dim=64)}
+QWEN = "qwen2-7b"
+# Each case (arch, kind, mesh, route, grad sync, moe_impl): the MoE forms at
+# (2, 2), where the model axis splits the experts (deepseek-moe's ``ep`` and
+# ``ep_a2a``, jamba's ``ep`` beside its Mamba-2 and attention layers), and
+# the dense route (qwen2-moe with ``moe_impl="dense"``: the capacity buffer
+# under the reference's ``_constrain``) at (4, 1) and (2, 2), also under
+# remat (every full config trains under remat).
+COST_CASES = [(ARCH, "train", (4, 1), "plain", "auto", ""),
+              (ARCH, "train", (4, 1), "plain", "canary_fp", ""),
+              (ARCH, "train", (2, 2), "plain", "auto", ""),
+              (ARCH, "prefill", (2, 2), "plain", "auto", ""),
+              (ARCH, "decode", (2, 2), "plain", "auto", ""),
+              (ARCH, "train", (2, 2, 2), "flash", "auto", ""),
+              (DENSE_MOE, "train", (4, 1), "plain", "auto", "dense"),
+              (DENSE_MOE, "train", (2, 2), "plain", "auto", "dense"),
+              (MOE, "train", (2, 2), "plain", "auto", ""),
+              (MOE, "decode", (2, 2), "plain", "auto", ""),
+              (MOE, "train", (2, 2), "plain", "auto", "ep_a2a"),
+              (MAMBA, "train", (2, 2), "plain", "auto", ""),
+              (MAMBA, "prefill", (2, 2), "plain", "auto", ""),
+              (HYBRID, "train", (2, 2), "plain", "auto", ""),
+              (ARCH, "train", (2, 2), "remat", "auto", ""),
+              (DENSE_MOE, "train", (2, 2), "remat", "auto", "dense"),
+              (QWEN, "train", (2, 2), "odd-heads", "auto", "")]
 
 JAX_SCRIPT = r"""
 import json, re, sys
 import numpy as np
 import repro.launch.dryrun as R
 import jax
-ARCH, SMALL_S, SMALL_B = json.loads(sys.argv[3])
+SMALL_S, SMALL_B = json.loads(sys.argv[3])
 from jax.sharding import Mesh
 from repro.launch.analysis import _COLLECTIVES, parse_collective_bytes
 from repro.launch.mesh import mesh_axes
@@ -169,7 +206,7 @@ for arch, shape_name, mshape in json.loads(sys.argv[1]):
             .argument_size_in_bytes
     shards = sum(int(np.prod(a.sharding.shard_shape(a.shape)))
                  * a.dtype.itemsize for a in jax.tree.leaves(args))
-    out["args"][f"{shape_name}|{mshape}"] = [size, shards]
+    out["args"][f"{arch}|{shape_name}|{mshape}"] = [size, shards]
 mesh = mesh_of([2, 2])
 for sp in (False, True):
     for S in (8, 7):
@@ -182,23 +219,23 @@ for sp in (False, True):
         out["constraint"][f"{sp}|{S}"] = [
             a if a is None or isinstance(a, str) else list(a)
             for a in c.output_shardings.spec]
-for kind, mshape, route, sync in json.loads(sys.argv[2]):
+for arch, kind, mshape, route, over, sync, impl in json.loads(sys.argv[2]):
     R.INPUT_SHAPES["small"] = dict(kind=kind, seq_len=SMALL_S,
                                    global_batch=SMALL_B)
     # the layers unrolled, as the reference's cost probes lower them
-    cfg = get_config(ARCH, "smoke").with_(scan_layers=False)
-    if route == "flash":
-        cfg = cfg.with_(attn_chunk_threshold=SMALL_S, attn_chunk=SMALL_S)
+    cfg = get_config(arch, "smoke").with_(scan_layers=False, **over)
+    if impl:
+        cfg = cfg.with_(moe_impl=impl)
     mesh = mesh_of(mshape)
     dp, ma = mesh_axes(mesh)
     with parallel_context(ParallelContext(mesh=mesh, data_axes=dp,
                                           model_axis=ma)):
-        fn, args, _ = R.build_dryrun(ARCH, "small", mesh, grad_sync=sync,
+        fn, args, _ = R.build_dryrun(arch, "small", mesh, grad_sync=sync,
                                      cfg_override=cfg)
         c = jax.jit(fn).lower(*args).compile()
     hlo, m = c.as_text(), c.memory_analysis()
     flops, moved = costs(hlo)
-    out["costs"][f"{kind}|{mshape}|{sync}"] = dict(
+    out["costs"][f"{arch}|{kind}|{mshape}|{route}|{sync}|{impl}"] = dict(
         flops=flops, moved=moved, temp=m.temp_size_in_bytes,
         link=sum(b * (2 if k == "all-reduce" else 1)
                  for k, b in moved.items()),
@@ -213,11 +250,12 @@ def reference():
     env = dict(os.environ, JAX_PLATFORMS="cpu",
                PYTHONPATH="src" + os.pathsep + os.environ.get("PYTHONPATH",
                                                               ""))
-    cases = [[ARCH, s, list(m)] for s, m in ARG_CASES]
-    costs = [[k, list(m), r, g] for k, m, r, g in COST_CASES]
+    cases = [[a, s, list(m)] for a, s, m in ARG_CASES]
+    costs = [[a, k, list(m), r, ROUTES[r], g, i]
+             for a, k, m, r, g, i in COST_CASES]
     proc = subprocess.run([sys.executable, "-c", JAX_SCRIPT,
                            json.dumps(cases), json.dumps(costs),
-                           json.dumps([ARCH, SMALL_S, SMALL_B])],
+                           json.dumps([SMALL_S, SMALL_B])],
                           env=env, cwd=ROOT,
                           capture_output=True, text=True, timeout=600)
     line = [ln for ln in proc.stdout.splitlines()
@@ -230,7 +268,8 @@ def _names(shape):
     return ("data", "model") if len(shape) == 2 else ("pod", "data", "model")
 
 
-def _account(shape, spec, cfg, grad_sync="auto", seq_parallel=False):
+def _account(shape, spec, cfg, grad_sync="auto", seq_parallel=False,
+             arch=ARCH):
     """:func:`D.account` of the step at ``spec`` on a fake CPU mesh."""
     with D.fake_process_group(D._world(shape)):
         mesh = init_device_mesh("cpu", shape, mesh_dim_names=_names(shape))
@@ -238,19 +277,26 @@ def _account(shape, spec, cfg, grad_sync="auto", seq_parallel=False):
         ctx = ParallelContext(mesh=mesh, data_axes=dp, model_axis=model,
                               sequence_parallel=seq_parallel)
         with parallel_context(ctx):
-            fn, args, _ = D.build_dryrun(ARCH, spec, mesh, grad_sync=grad_sync,
+            fn, args, _ = D.build_dryrun(arch, spec, mesh, grad_sync=grad_sync,
                                          cfg_override=cfg, device="cpu")
             return D.account(fn, args)
 
 
 # ------------------------------------------------------------ argument bytes
-@pytest.mark.parametrize("shape_name,mesh", ARG_CASES,
-                         ids=[f"{s}-{'x'.join(map(str, m))}"
-                              for s, m in ARG_CASES])
-def test_argument_bytes_match_reference(reference, shape_name, mesh):
-    size, shards = reference["args"][f"{shape_name}|{list(mesh)}"]
+def _case_id(arch, *rest):
+    """``kind-mesh-route-sync``, ``shape-mesh``; led by the arch and ended
+    by the MoE form where not llama's."""
+    words = ["x".join(map(str, r)) if isinstance(r, tuple) else r
+             for r in rest if r]
+    return "-".join(words if arch == ARCH else [arch] + words)
+
+
+@pytest.mark.parametrize("arch,shape_name,mesh", ARG_CASES,
+                         ids=[_case_id(*c) for c in ARG_CASES])
+def test_argument_bytes_match_reference(reference, arch, shape_name, mesh):
+    size, shards = reference["args"][f"{arch}|{shape_name}|{list(mesh)}"]
     assert size == shards           # XLA pads no argument here
-    got = _account(mesh, shape_name, get_config(ARCH, "smoke"))
+    got = _account(mesh, shape_name, get_config(arch, "smoke"), arch=arch)
     pos = CACHE_POS_BYTES if shape_name.startswith("decode") else 0
     assert got["memory"]["argument_bytes"] == size - pos
     assert got["memory"]["total_bytes"] >= got["memory"]["argument_bytes"]
@@ -261,9 +307,23 @@ def test_argument_bytes_match_reference(reference, shape_name, mesh):
 # GSPMD's (a product's operands and the collectives around it), eager
 # storage lifetimes against XLA's buffer assignment, the flash kernel's live
 # pairs against chunked_attention's whole blocks. The readings (PERF.md §6)
-# lie inside these bounds with room; a layout rule that stops applying moves
-# a ratio by a multiple, as before the product rules (FLOPs 1.4-2.3x).
-EXACT_FLOPS = {("train", (4, 1)), ("prefill", (2, 2)), ("decode", (2, 2))}
+# lie inside these bounds, the nearest a decode's temporaries (0.14) and
+# link bytes (0.55) and llama's prefill link bytes (0.51); a layout rule
+# that stops applying moves a ratio by a multiple, as before the product
+# rules (FLOPs 1.4-2.3x) and the Mamba-2 layouts (FLOPs 1.34x); the
+# odd-heads case read 0.906 before the weights split with the data axes were
+# gathered over the model axis too.
+EXACT_FLOPS = {(ARCH, "train", (4, 1), "plain", ""),
+               (ARCH, "train", (2, 2), "plain", ""),
+               (ARCH, "prefill", (2, 2), "plain", ""),
+               (ARCH, "decode", (2, 2), "plain", ""),
+               (ARCH, "train", (2, 2), "remat", ""),
+               (DENSE_MOE, "train", (4, 1), "plain", "dense"),
+               (DENSE_MOE, "train", (2, 2), "plain", "dense"),
+               (DENSE_MOE, "train", (2, 2), "remat", "dense"),
+               (MOE, "train", (2, 2), "plain", ""),
+               (MOE, "decode", (2, 2), "plain", ""),
+               (MAMBA, "prefill", (2, 2), "plain", "")}
 # the Canary trees' int32 sends: the same bytes as the reference's
 # ppermutes (XLA sends a stacked leaf where the port sends a tensor, so
 # the counts differ)
@@ -272,27 +332,32 @@ TEMP_BOUND = (0.1, 1.25)
 LINK_BOUND = (0.5, 2.0)
 
 
-@pytest.mark.parametrize("kind,mesh,route,sync", COST_CASES,
-                         ids=[f"{k}-{'x'.join(map(str, m))}-{r}-{g}"
-                              for k, m, r, g in COST_CASES])
-def test_costs_against_reference(reference, kind, mesh, route, sync):
+@pytest.mark.parametrize("arch,kind,mesh,route,sync,impl", COST_CASES,
+                         ids=[_case_id(*c) for c in COST_CASES])
+def test_costs_against_reference(reference, arch, kind, mesh, route, sync,
+                                 impl):
     """Per-device FLOPs (the reference's dots, each while body times its
     trip count), peak bytes and collective link bytes of one small step
     against the reference's compiled one: FLOPs exact where both run the
-    same products (the data-only mesh, prefill and decode at (2, 2)), the
-    rest within the stated bounds."""
-    want = reference["costs"][f"{kind}|{list(mesh)}|{sync}"]
-    cfg = get_config(ARCH, "smoke")
-    if route == "flash":
-        cfg = cfg.with_(attn_chunk_threshold=SMALL_S, attn_chunk=SMALL_S)
+    same products (EXACT_FLOPS), the rest within the stated bounds (GSPMD
+    runs some products in other layouts: the grouped-query and the
+    Mamba-2 SSD's products, ``ep_a2a``'s shared expert)."""
+    want = reference["costs"][
+        f"{arch}|{kind}|{list(mesh)}|{route}|{sync}|{impl}"]
+    cfg = get_config(arch, "smoke").with_(**ROUTES[route])
+    if impl:
+        cfg = cfg.with_(moe_impl=impl)
     got = _account(mesh, dict(kind=kind, seq_len=SMALL_S,
-                              global_batch=SMALL_B), cfg, grad_sync=sync)
+                              global_batch=SMALL_B), cfg, grad_sync=sync,
+                   arch=arch)
     ratios = {"flops": got["flops"] / want["flops"],
               "temp": got["memory"]["temp_bytes"] / want["temp"],
               "total": got["memory"]["total_bytes"] / want["total"],
               "link": got["collective_link_bytes"] / want["link"]}
-    print(f"{kind} {mesh} {route} {sync}: port / reference {ratios}")
-    if (kind, mesh) in EXACT_FLOPS:
+    print(f"{arch} {kind} {mesh} {route} {sync} {impl}: port / reference "
+          f"{ratios}")
+    assert not got["unknown_collectives"]
+    if (arch, kind, mesh, route, impl) in EXACT_FLOPS:
         assert got["flops"] == want["flops"]
     if sync == "canary_fp":
         assert got["collective_bytes"]["collective-permute"] == \
@@ -612,6 +677,18 @@ def _layouts_rank(rank: int, init_file: str):
             assert D._gather_weight(dt(x2, Replicate(), Replicate()),
                                     dt(w2, Replicate(), Shard(1))) \
                 is NotImplemented
+            # a weight dim split over data and model together (FSDP over
+            # the whole mesh) against tokens split over data: gathered over
+            # both; against tokens whole over data (not FSDP-gathered), not
+            x3, w3 = torch.randn(4, 8, generator=g), torch.randn(
+                8, 6, generator=g)
+            got = D._gather_weight(dt(x3, Shard(0), Replicate()),
+                                   dt(w3, Shard(0), Shard(0)))
+            assert list(got.placements) == [Shard(0), Replicate()]
+            assert torch.allclose(got.full_tensor(), x3 @ w3, atol=1e-5)
+            assert D._gather_weight(dt(x3, Replicate(), Replicate()),
+                                    dt(w3, Shard(0), Shard(0))) \
+                is NotImplemented
         src = dt(torch.randn(4, 3, 1, generator=g), Shard(0), Replicate())
         z = D._zeros_like_source(src, [4, 3, 6])
         assert list(z.placements) == [Shard(0), Replicate()]
@@ -658,3 +735,236 @@ def test_dry_run_layouts_compute_the_operations(tmp_path):
     import torch.multiprocessing as mp
     mp.spawn(_layouts_rank, args=(str(tmp_path / "rendezvous"),), nprocs=4,
              join=True)
+
+
+# ------------------------------ the MoE and Mamba-2 layouts, on real tensors
+@contextlib.contextmanager
+def _dry_run_layouts(weights=()):
+    """The dry run's layouts (and its view fallback) over real DTensors: an
+    :class:`D.Accountant` whose factories make real tensors, training
+    ``weights``."""
+    acct = D.Accountant(contextlib.nullcontext(), weights)
+    with implicit_replication(), D._views_reshard(), \
+            D._shape_inference_uncounted(acct), acct:
+        yield
+
+
+def _distributed(module, mesh, rules_mesh):
+    """A copy of ``module`` whose parameters are DTensors laid out by the
+    port's sharding rules (FSDP over data, the model axis as the rules
+    say)."""
+    from torch.distributed.tensor import distribute_tensor
+    from torch import nn
+    from repro_torch.parallel import leaf_spec
+    import copy
+    out = copy.deepcopy(module)
+    for name, p in list(out.named_parameters()):
+        owner, _, leaf = name.rpartition(".")
+        spec = leaf_spec(leaf, tuple(p.shape), rules_mesh, "data", "model")
+        setattr(out.get_submodule(owner) if owner else out, leaf,
+                nn.Parameter(distribute_tensor(
+                    p.detach(), mesh, param_placements(spec, mesh))))
+    return out
+
+
+def _grads(module):
+    return {n: (p.grad.full_tensor() if isinstance(p.grad, DTensor)
+                else p.grad) for n, p in module.named_parameters()}
+
+
+def _region_layouts_rank(rank: int, init_file: str):
+    """On 4 gloo ranks at (2, 2), real float32 tensors: the MoE forms (the
+    dense route, ``ep``, ``ep_a2a``) and the Mamba-2 layer, run on DTensors
+    laid out by the sharding rules through the ``shard_map`` boundary and
+    the dry run's layouts, forward and backward, against the same layer on
+    the whole tensors; and each new layout alone against its operation."""
+    from torch.distributed.tensor import Partial, distribute_tensor
+    import torch.nn.functional as F
+    from repro_torch.models.mamba2 import Mamba2, mamba2_forward
+    from repro_torch.models.moe import MoE, _moe_dense, moe_forward
+    from repro_torch.models.layers import mlp_forward
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"file://{init_file}",
+                            world_size=4, rank=rank)
+    try:
+        mesh = init_device_mesh("cpu", (2, 2),
+                                mesh_dim_names=("data", "model"))
+        ctx = ParallelContext(mesh=mesh, data_axes=("data",),
+                              model_axis="model")
+        sizes = {"data": 2, "model": 2}
+        g = torch.Generator().manual_seed(0)
+
+        def dt(t, *placements):
+            return distribute_tensor(t, mesh, list(placements))
+
+        def close(got, want, what, tol=1e-5):
+            got = got.full_tensor() if isinstance(got, DTensor) else got
+            err = (got - want).abs().max().item()
+            assert err <= tol * max(1.0, want.abs().max().item()), \
+                (what, err)
+
+        # -- the layouts alone
+        keys = torch.randint(0, 4, (16,), generator=g)
+        seq = torch.sort(keys).values
+        q = torch.randint(0, 5, (12,), generator=g)
+        got = D._searchsorted_layout(dt(seq, Shard(0), Replicate()),
+                                     dt(q, Replicate(), Shard(0)), side="left")
+        assert list(got.placements) == [Replicate(), Shard(0)]
+        assert torch.equal(got.full_tensor(),
+                           torch.searchsorted(seq, q, side="left"))
+        dest, src = torch.randn(10, 6, generator=g), torch.randn(
+            4, 6, generator=g)
+        idx = torch.tensor([7, 1, 4, 2])
+        d = dt(dest, Replicate(), Shard(1))
+        assert D._index_copy_layout(d, 0, dt(idx, Replicate(), Replicate()),
+                                    dt(src, Shard(0), Replicate())) is d
+        assert torch.equal(d.full_tensor(), dest.index_copy(0, idx, src))
+        # a destination its copy dim splits: each rank its share
+        d = dt(dest, Shard(0), Replicate())
+        assert D._index_copy_layout(d, 0, dt(idx, Replicate(), Shard(0)),
+                                    dt(src, Replicate(), Replicate())) is d
+        assert list(d.placements) == [Shard(0), Replicate()]
+        assert torch.equal(d.full_tensor(), dest.index_copy(0, idx, src))
+        rows = torch.randn(8, 6, generator=g)
+        at = torch.tensor([3, 0, 3, 9, 1, 1, 7, 2])
+        for dest_pl, rows_pl in (((Replicate(), Shard(1)),
+                                  (Shard(0), Shard(1))),
+                                 ((Replicate(), Replicate()),
+                                  (Shard(0), Replicate())),
+                                 ((Shard(0), Replicate()),
+                                  (Replicate(), Replicate()))):
+            got = D._index_add_layout(dt(dest, *dest_pl), 0,
+                                      dt(at, Replicate(), Replicate()),
+                                      dt(rows, *rows_pl))
+            close(got, dest.index_add(0, at, rows), "index_add")
+        for pl in ((Shard(0), Replicate()), (Replicate(), Shard(1)),
+                   (Shard(0), Shard(0))):
+            got = D._index_fill_layout(dt(dest, *pl), 0,
+                                       dt(idx, Replicate(), Shard(0)), 0.0)
+            assert list(got.placements) == list(pl)
+            assert torch.equal(got.full_tensor(), dest.index_fill(0, idx, 0))
+        for dims in ([1], [0, 2]):
+            got = D._flip_layout(dt(torch.arange(32.).view(2, 4, 4),
+                                    Shard(1), Shard(2)), dims)
+            assert torch.equal(got.full_tensor(),
+                               torch.arange(32.).view(2, 4, 4).flip(dims))
+        ids = torch.randint(0, 5, (12,), generator=g)
+        ones = torch.ones(12)
+        d = dt(torch.full((5,), 2.0), Replicate(), Replicate())
+        assert D._scatter_add_layout(d, 0, dt(ids, Shard(0), Replicate()),
+                                     dt(ones, Shard(0), Replicate())) is d
+        assert torch.equal(d.full_tensor(), torch.full((5,), 2.0)
+                           .scatter_add(0, ids, ones))
+        whole = torch.randn(4, 3, 12, generator=g)
+        pieces = D._split_keeping(dt(whole, Shard(0), Shard(2)), [4, 6, 2],
+                                  -1)
+        for got, want in zip(pieces, torch.split(whole, [4, 6, 2], -1)):
+            assert list(got.placements) == [Shard(0), Shard(2)]
+            assert torch.equal(got.full_tensor(), want)
+        odd = D._split_keeping(dt(whole, Shard(0), Shard(2)), [5, 7], 2)
+        assert [list(t.placements) for t in odd] == [[Shard(0),
+                                                       Replicate()]] * 2
+        back = D._cat_keeping(list(pieces), 2)
+        assert list(back.placements) == [Shard(0), Shard(2)]
+        assert torch.equal(back.full_tensor(), whole)
+        padded = D._pad_layout(dt(whole, Shard(0), Shard(2)), [0, 0, 2, 0])
+        assert list(padded.placements) == [Shard(0), Shard(2)]
+        assert torch.equal(padded.full_tensor(), F.pad(whole, (0, 0, 2, 0)))
+        padded = D._pad_layout(dt(whole, Shard(0), Shard(2)), [1, 1])
+        assert list(padded.placements) == [Shard(0), Replicate()]
+        assert torch.equal(padded.full_tensor(), F.pad(whole, (1, 1)))
+        with parallel_context(ctx):
+            # a partial sum over model meeting a whole operand: reduced
+            a = torch.randn(4, 6, generator=g)
+            coord = mesh.get_coordinate()
+            part = DTensor.from_local(a / 2, mesh, [Replicate(), Partial()],
+                                      run_check=False)
+            b = torch.randn(4, 6, generator=g)
+            got = D._reduce_model_partials(torch.ops.aten.mul.Tensor)(
+                part, dt(b, Replicate(), Shard(1)))
+            close(got, a * b, "partial * split")
+            # split along different (broadcast) dims: the smaller gathered
+            c = torch.randn(4, 1, generator=g)
+            got = D._reduce_model_partials(torch.ops.aten.mul.Tensor)(
+                dt(b, Replicate(), Shard(1)), dt(c, Replicate(), Shard(0)))
+            close(got, b * c, "conflicting splits")
+            # a stacked weight split over data against a buffer whole over
+            # data, through autograd, plain and under remat (the forward
+            # recomputed inside the backward pass): the forward gathers the
+            # weight; the backward computes the weight's gradient in its
+            # layout, each data rank its share of the rows
+            buf = torch.randn(4, 5, 6, generator=g)
+            w = torch.randn(4, 6, 8, generator=g)
+            gy = torch.randn(4, 5, 8, generator=g)
+            for remat in (False, True):
+                wd = dt(w, Shard(1), Shard(0)).requires_grad_(True)
+                bd = dt(buf, Replicate(), Shard(0)).requires_grad_(True)
+                with _dry_run_layouts([wd]):
+                    out = checkpoint(torch.bmm, bd, wd, use_reentrant=False) \
+                        if remat else torch.bmm(bd, wd)
+                    assert list(out.placements) == [Replicate(), Shard(0)]
+                    out.backward(dt(gy, Replicate(), Shard(0)))
+                close(out, buf @ w, "stacked forward")
+                assert list(wd.grad.placements) == [Shard(1), Shard(0)]
+                close(wd.grad, buf.transpose(1, 2) @ gy,
+                      "the weight's gradient")
+                close(bd.grad, gy @ w.transpose(1, 2), "the input's gradient")
+
+        # -- the MoE forms on DTensors, through the shard_map boundary (the
+        # dense route also under remat)
+        for arch, impl, remat in ((DENSE_MOE, "dense", False),
+                                  (DENSE_MOE, "dense", True),
+                                  (MOE, "ep", False), (MOE, "ep_a2a", False)):
+            cfg = get_config(arch, "smoke").with_(
+                dtype="float32", moe_impl=impl, moe_capacity_factor=4.0)
+            p = MoE(cfg, torch.float32, gen=torch.Generator().manual_seed(1))
+            p.requires_grad_(True)
+            xs = torch.randn(4, 8, cfg.d_model, generator=g)
+            x = xs.clone().requires_grad_(True)
+            y2d, _ = _moe_dense(p, x.reshape(-1, cfg.d_model), cfg)
+            y = y2d.view(x.shape) + mlp_forward(p.shared, x, "swiglu")
+            (y ** 2).sum().backward()
+            pd = _distributed(p, mesh, sizes)
+            xd = dt(xs, Shard(0), Replicate()).requires_grad_(True)
+            with parallel_context(ctx), _dry_run_layouts(pd.parameters()):
+                yd, _ = checkpoint(moe_forward, pd, xd, cfg,
+                                   use_reentrant=False) if remat \
+                    else moe_forward(pd, xd, cfg)
+                (yd ** 2).sum().backward()
+            if impl == "dense":     # each data rank its share of each
+                for n in ("w_up", "w_gate", "w_down"):  # expert's gradient
+                    w = getattr(pd, n)
+                    assert w.grad.placements == w.placements, (n, remat)
+            close(yd, y.detach(), f"{impl} y")
+            close(xd.grad, x.grad, f"{impl} dx", 1e-4)
+            want = _grads(p)
+            for n, gr in _grads(pd).items():
+                close(gr, want[n], f"{impl} d{n}", 1e-4)
+
+        # -- the Mamba-2 layer on DTensors
+        cfg = get_config(MAMBA, "smoke").with_(dtype="float32")
+        p = Mamba2(cfg, torch.float32, gen=torch.Generator().manual_seed(2))
+        p.requires_grad_(True)
+        xs = torch.randn(4, 32, cfg.d_model, generator=g)
+        x = xs.clone().requires_grad_(True)
+        y = mamba2_forward(p, x, cfg)
+        (y ** 2).sum().backward()
+        pd = _distributed(p, mesh, sizes)
+        assert list(pd.w_in.placements) == [Shard(0), Shard(1)]
+        xd = dt(xs, Shard(0), Replicate()).requires_grad_(True)
+        with parallel_context(ctx), _dry_run_layouts():
+            yd = mamba2_forward(pd, xd, cfg)
+            (yd ** 2).sum().backward()
+        close(yd, y.detach(), "mamba2 y")
+        close(xd.grad, x.grad, "mamba2 dx", 1e-4)
+        want = _grads(p)
+        for n, gr in _grads(pd).items():
+            close(gr, want[n], f"mamba2 d{n}", 1e-4)
+    finally:
+        dist.destroy_process_group()
+
+
+def test_moe_and_mamba2_layouts_compute_the_layers(tmp_path):
+    import torch.multiprocessing as mp
+    mp.spawn(_region_layouts_rank, args=(str(tmp_path / "rendezvous"),),
+             nprocs=4, join=True)

@@ -277,7 +277,13 @@ def _launcher_rank(rank: int, world: int, init_file: str, argv: list,
     """One rank of the port's launcher (``_rank_main``, which builds the
     trainer with ``make_trainer`` and runs it under the context), patched
     as the reference's side is: the config turned to float32, and the
-    reference trainer's initial state restored before ``run()``."""
+    reference trainer's initial state restored before ``run()``. Each rank
+    computes on one intra-op thread: with the launcher's share of the
+    host's cores (two a rank on eight), the rounding of some sums follows
+    how the host's load schedules a rank's threads, and AdamW turns such a
+    difference in a gradient near 0 into a whole step of that weight (the
+    second step's loss moved in 2 of 8 runs beside other processes, once
+    by 2.1e-5 relative in a full test run)."""
     import repro_torch.launch.train as lt
     from repro_torch.checkpoint import restore_checkpoint
     config, make = lt.get_config, lt.make_trainer
@@ -285,6 +291,7 @@ def _launcher_rank(rank: int, world: int, init_file: str, argv: list,
         dtype="float32")
 
     def from_init(*a, **k):
+        torch.set_num_threads(1)        # after _rank_main's share
         trainer, ctx = make(*a, **k)
         restore_checkpoint(init_dir, 0, trainer.params, trainer.opt_state)
         return trainer, ctx
