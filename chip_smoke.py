@@ -175,10 +175,11 @@ printed:
               (c) (run after phase 5's profiles, before 4i: its processes
               share the card) the production rows of ``DRYRUN_ROWS``
               (``python -m repro_torch.launch.dryrun --arch <a> --shape
-              train_4k --mesh single``: llama3.2-1b, jamba-v0.1-52b and
-              qwen2-moe-a2.7b), each in a subprocess of its own, all
-              started together, each ``OK`` within ``DRYRUN_ROW_S``,
-              printed;
+              train_4k --mesh single``: llama3.2-1b, jamba-v0.1-52b,
+              qwen2-moe-a2.7b and mamba2-130m), each in a subprocess of its
+              own, all started together, each ``OK`` within
+              ``DRYRUN_ROW_S``, printed, with its TFLOP a device, peak a
+              device and useful share on a line of its own;
 6. summary  — one ``{"kernels": [...]}`` JSON line (quantize and dequantize
               also give their launches by path and their times at the
               training shape), the card line, and last
@@ -371,9 +372,12 @@ DRYRUN_PEAK = (0.90, 1.02)
 DRYRUN_ROW_S = 600
 # 4j(c)'s production rows, train_4k on (16, 16), each in its own process:
 # llama3.2-1b (the dense decoder), jamba-v0.1-52b (one row through Mamba-2,
-# the `ep` MoE's shard_map boundary and attention) and qwen2-moe-a2.7b (the
-# dense MoE route: 60 experts do not split 16 ways)
-DRYRUN_ROWS = (MODEL_ARCH, "jamba-v0.1-52b", "qwen2-moe-a2.7b")
+# the `ep` MoE's shard_map boundary and attention), qwen2-moe-a2.7b (the
+# dense MoE route: 60 experts do not split 16 ways, nor its capacity) and
+# mamba2-130m (3352 projection columns, 24 heads and a vocabulary of 50280
+# split unevenly)
+DRYRUN_ROWS = (MODEL_ARCH, "jamba-v0.1-52b", "qwen2-moe-a2.7b",
+               "mamba2-130m")
 PAR_FORMS = (("ep", (1, 4), 1), ("ep", (2, 2), 2), ("ep_a2a", (1, 4), 1))
 PAR_LAYER_REL, PAR_LAYER_REPS = 1e-2, 3
 # (b) training through the launcher's code path at PAR_MESH, B 1, S 4096,
@@ -2103,6 +2107,11 @@ def dryrun_production_row() -> None:
             print(f"4j(c): {lines[0]} ({wall:.1f} s with the process)",
                   flush=True)
             print("4j(c) row: " + json.dumps(row), flush=True)
+            print(f"4j(c) {arch} train_4k 16x16: "
+                  f"{row['per_device']['flops'] / 1e12:.1f} TFLOP/dev, peak "
+                  f"{row['memory']['total_bytes'] / 2**30:.2f} GiB/dev, "
+                  f"useful {row['roofline']['useful_flops_ratio']:.3f}",
+                  flush=True)
     print(f"phase 4j(c): {len(DRYRUN_ROWS)} rows, "
           f"{time.perf_counter() - t0:.1f} s (the rows run together)",
           flush=True)
@@ -3388,7 +3397,7 @@ def main() -> int:
     # last: after its processes have shared the card, this process's
     # profiler recorded fewer of phase 5's kernel launches (on the H100: 3
     # of 5 in one run, against 5 of 5 before it; 0 of 5 in another, and 0
-    # of 5 after 4j(c)'s three row processes ran before phase 5)
+    # of 5 after 4j(c)'s row processes ran before phase 5)
     del engine, prompt
     dryrun_production_row()
     phase_parallel(rows, args.seed, smi)

@@ -67,11 +67,19 @@ How each part of the reference is carried over:
     product's partial sum (the gradient of a column-parallel input) is
     reduced whole, Megatron's all-reduce; the experts' stacked weights
     against the dense MoE path's capacity buffer, which the data axes
-    leave whole, are gathered in the forward, and each data rank computes
-    its share of their gradient in their own layout, as GSPMD does
-    (DTensor computes it whole on every rank). The backward is autograd's
-    graph task with grad mode off; remat's recomputed forward, which runs
-    inside it with grad mode on, is laid out as the forward;
+    leave whole, are gathered in the forward (but for the output columns
+    of a product the model axis contracts: those stay split, and the
+    partial sum is reduced at that size), an activation that is a partial
+    sum over the data axes is reduced against them, and each data rank
+    computes its share of their gradient in their own layout, as GSPMD
+    does (DTensor computes it whole on every rank); a trainable matrix's
+    gradient (or its transpose) is split as the matrix over each mesh dim
+    that splits it and not the contraction (:func:`_as_weight_gradient`:
+    the logits' gradient gathered over the vocabulary for an embedding
+    split along d, where DTensor computes the embedding's whole
+    gradient on every model rank). The backward is autograd's graph task
+    with grad mode off; remat's recomputed forward, which runs inside it
+    with grad mode on, is laid out as the forward;
   - pointwise operations (``add``, ``sub``, ``mul``, ``div``, ``pow``): a
     partial sum over the model axis that meets an operand that is not one
     is reduced whole, and of two operands the model axis splits along
@@ -91,15 +99,21 @@ How each part of the reference is carried over:
     ``index_copy_``'s zeroes the copied rows of each rank's share
     (``index_fill``, :func:`_index_fill_layout`; no rule in torch 2.11);
     the reference's ``_constrain`` of the capacity buffer is
-    ``models.moe._constrain``;
-  - Mamba-2: the split of the column-split projection into (z, x, B, C,
+    ``models.moe._constrain``, and where neither E nor C divides the model
+    axis (qwen2-moe) the buffer is born split along d as the experts'
+    weights split it, the layout GSPMD takes from them
+    (``models.moe._buffer_placements``);
+  - Mamba-2: the layer runs by heads over the model axis, B and C whole,
+    inside the ``shard_map`` boundary (``models.mamba2._mamba2_by_heads``:
+    24 heads on 16 ranks give rank 0 two, GSPMD's padded share); a
+    decode step's split of the column-split projection into (z, x, B, C,
     dt) keeps each piece the ranks divide split along the columns, as
-    GSPMD keeps a slice of a split dim split, and its backward's ``cat``
-    keeps the split (:func:`_split_keeping`, :func:`_cat_keeping`); the
-    conv's ``F.pad`` of the sequence pads each rank's share
-    (:func:`_pad_layout`; torch 2.11's planner fails on it), and
-    ``cumsum``'s backward ``flip`` flips each rank's share
-    (:func:`_flip_layout`; torch 2.11 has no rule for it);
+    GSPMD keeps a slice of a split dim split (:func:`_split_keeping`);
+  - the logits' constraint onto a vocabulary the model axis does not
+    divide (mamba2-130m's 50280, whisper-large-v3's 51866) reduces their
+    partial sum whole, in float32, before each rank keeps its share, as
+    GSPMD does (``parallel.sharding_constraint``), where DTensor scatters
+    the padded sum;
   - each parameter's gradient takes the parameter's layout as autograd
     makes it (:func:`_grad_as_parameter`), not at the optimizer;
   - the loss: the gradient of its mean is split over the data axes along
@@ -167,7 +181,15 @@ How each part of the reference is carried over:
 * ``_probe_costs`` / ``extrapolated_costs``: not carried over. They exist
   because XLA's cost analysis counts a ``while`` body once, and the
   reference scans its layers; the port's layers are a Python loop, traced
-  in full.
+  in full. So the rows differ where the layouts agree: the reference's
+  FLOPs and bytes come from probes of one and two layer periods with
+  ``remat=False``, extrapolated over the depth, where the port's row
+  counts the step it runs, remat's recomputed forward included; and in a
+  probe the reference still counts each remaining ``while`` body once
+  (``chunked_attention``'s blocks, the SSD's scan), where the port counts
+  every iteration. ``tests/test_torch_dryrun_production.py`` holds one
+  unrolled layer period without remat, the reference's probe, to the
+  reference's compiled one with each while body counted its trip count.
 * ``--save-hlo``: no HLO exists; the flag is not carried over.
 """
 from __future__ import annotations
@@ -203,7 +225,7 @@ from ..models.layers import torch_dtype
 from ..optim import AdamWConfig, AdamWState
 from ..parallel import (ParallelContext, batch_spec, cache_specs,
                         get_parallel_context, mesh_shape, param_placements,
-                        param_specs, parallel_context)
+                        param_specs, parallel_context, sharding_constraint)
 from ..parallel.sharding import P
 from ..train import TrainConfig, make_train_step
 from ..train.train_step import EXPLICIT_MODES, Mesh
@@ -220,6 +242,9 @@ _FUNCOL = {"all_reduce": "all-reduce",
            "all_gather_into_tensor": "all-gather",
            "reduce_scatter_tensor": "reduce-scatter",
            "all_to_all_single": "all-to-all"}
+# DTensor's own all-to-all of a shard onto another dim (on CUDA meshes; a
+# CPU mesh all-gathers and chunks instead)
+_DTENSOR = {"shard_dim_alltoall": "all-to-all"}
 _C10D = {"allreduce_": "all-reduce", "allgather_": "all-gather",
          "_allgather_base_": "all-gather",
          "reduce_scatter_": "reduce-scatter",
@@ -298,7 +323,7 @@ def _offset(t: DTensor, d: int) -> int:
 
 
 def _group_size(func_name: str, args) -> int:
-    if func_name in _FUNCOL:
+    if func_name in _FUNCOL or func_name in _DTENSOR:
         name = [a for a in args if isinstance(a, str)][-1]
         return dist.distributed_c10d._resolve_process_group(name).size()
     pg = [a for a in args if isinstance(a, torch.ScriptObject)][0]
@@ -510,8 +535,8 @@ def build_dryrun(arch: str, shape_name: Union[str, Mapping[str, Any]],
                     kw["extra_embeds"] = batch["patches"]
                 with torch.no_grad():
                     logits, _ = forward(params, batch["tokens"], cfg, **kw)
-                return logits.redistribute(mesh, param_placements(
-                    P(dp, None, model_axis), mesh))
+                return sharding_constraint(logits, P(dp, None, model_axis),
+                                           mesh)
 
             batch = _batch(cfg, kind, seq, gb, mesh, bspec, device)
             return prefill_fn, (params, batch), cfg
@@ -635,20 +660,26 @@ class Accountant(TorchDispatchMode):
     DTensor's host arithmetic of shard sizes and offsets (small CPU
     tensors it reads back as integers), which run for real and, as every
     operation on real tensors only, are not counted. ``weights``: the
-    step's arguments, whose trainable stacked weights (the experts')
-    :func:`_gather_weight` lays their gradients out as."""
+    step's arguments, whose trainable matrices and stacked weights (the
+    experts') :func:`_gather_weight` lays their gradients out as."""
 
     def __init__(self, fake_mode, weights=()):
         super().__init__()
         self.fake_mode = fake_mode
-        # {global shape: placements} of the trainable 3-d weights, a shape
-        # two layouts share left out
+        # {global shape: placements} of the trainable 2-d and 3-d weights
+        # (and of each matrix's transpose), a shape two layouts share left
+        # out
         layouts: Dict[Tuple[int, ...], set] = {}
         for t in weights:
-            if isinstance(t, DTensor) and t.ndim == 3 and t.requires_grad:
-                layouts.setdefault(tuple(t.shape), set()).add(
-                    tuple(t.placements))
-        self.stacked = {s: next(iter(p)) for s, p in layouts.items()
+            if not (isinstance(t, DTensor) and t.ndim in (2, 3)
+                    and t.requires_grad):
+                continue
+            layouts.setdefault(tuple(t.shape), set()).add(tuple(t.placements))
+            if t.ndim == 2:
+                layouts.setdefault(tuple(t.shape)[::-1], set()).add(tuple(
+                    Shard(1 - p.dim) if p.is_shard() else p
+                    for p in t.placements))
+        self.weights = {s: next(iter(p)) for s, p in layouts.items()
                         if len(p) == 1}
         self.flops = 0
         self.bytes = 0
@@ -658,6 +689,11 @@ class Accountant(TorchDispatchMode):
         self.unknown: Counter = Counter()
         self.attention: Dict[str, Counter] = {"fwd": Counter(),
                                               "bwd": Counter()}
+        # the flash ops' FLOPs, and what attention that issues every
+        # (query, key) pair with the forward's probabilities kept (the
+        # reference's chunked_attention: 2 products forward, 4 backward)
+        # would count for the same calls
+        self.attention_flops = {"kernel": 0, "all_pairs": 0}
         self.inferring = 0          # inside DTensor's shape inference
         self.live = 0               # bytes of local storage alive
         self.peak = 0
@@ -733,10 +769,15 @@ class Accountant(TorchDispatchMode):
     def _count(self, func, args, kwargs, out) -> None:
         packet = func._overloadpacket
         name = packet.__name__
-        if packet in flop_registry:
-            self.flops += flop_registry[packet](*args, **kwargs, out_val=out)
+        flops = flop_registry[packet](*args, **kwargs, out_val=out) \
+            if packet in flop_registry else 0
+        self.flops += flops
         if name in _FLASH:
             self._layout(name, tuple(args[0].shape))
+            (b, h, sq, d), sk = args[0].shape, args[1].shape[2]
+            self.attention_flops["kernel"] += flops
+            self.attention_flops["all_pairs"] += \
+                (4 if _FLASH[name] == "fwd" else 8) * b * h * sq * sk * d
         ins, outs = _tensors(list(args) + list(kwargs.values())), \
             _tensors(out)
         for t in outs:
@@ -746,6 +787,8 @@ class Accountant(TorchDispatchMode):
             self._collective(_FUNCOL[name], name, args, outs)
         elif ns == "c10d" and name in _C10D:
             self._collective(_C10D[name], name, args, _tensors(args[0]))
+        elif ns == "_dtensor" and name in _DTENSOR:
+            self._collective(_DTENSOR[name], name, args, outs)
         elif ns in ("_c10d_functional", "c10d") and name not in _UNMOVED:
             self.unknown[name] += 1     # a collective not counted: reported
         if func.is_view or name in _ALLOCATIONS or not (ins or outs):
@@ -824,13 +867,18 @@ def _gather_weight(a, b):
     experts' (E, d, f)), against an operand a data axis leaves whole (the
     dense MoE path's capacity buffer, whole over the data axes by the
     reference's constraint) is laid out as GSPMD lays out that program:
-    the forward gathers the weight; the backward keeps the weight's split
+    the forward gathers the weight, but for the output columns of a
+    product whose contraction the model axis splits (its partial sum is
+    then reduced at that size); the backward keeps the weight's split
     where it splits the output's columns (each rank its share of the
-    input's gradient) and gathers it where it splits the contraction. A
+    input's gradient), reducing an operand that is a partial sum over the
+    data axes, and gathers it where it splits the contraction. A
     product of two operands a data axis leaves whole whose output has the
     shape of a stacked weight the step trains is that weight's gradient:
     each rank computes its share, in the weight's layout (DTensor computes
-    it whole on every rank).
+    it whole on every rank). In the backward, a sum over the tokens whose
+    output has a trainable matrix's shape is that matrix's gradient, laid
+    out by :func:`_as_weight_gradient`.
     ``NotImplemented`` where none of these holds."""
     ctx = get_parallel_context()
     if ctx is None or not isinstance(a, DTensor) \
@@ -840,8 +888,23 @@ def _gather_weight(a, b):
     names = mesh.mesh_dim_names or ()
     stacked = a.ndim == 3 and a.shape[0] > 1
     backward = _in_backward()
-    weight = _stacked_weight((a.shape[0], a.shape[1], b.shape[-1])) \
+    weight = _weight_layout((a.shape[0], a.shape[1], b.shape[-1])) \
         if stacked else None
+    tokens = any(names[m] in ctx.data_axes and mesh.size(m) > 1
+                 and pa.is_shard(1) and pb.is_shard(0)
+                 for m, (pa, pb) in enumerate(zip(a.placements,
+                                                  b.placements)))
+    if backward and a.ndim == 2 and tokens:   # a sum over the tokens
+        grad = _weight_layout((a.shape[0], b.shape[1]))
+        if grad is not None:
+            out = _as_weight_gradient(a, b, grad)
+            if out is not NotImplemented:
+                return out
+    model = names.index(ctx.model_axis) if ctx.model_axis in names else None
+    # the model axis splits the contraction: a partial sum over it
+    row_parallel = model is not None and mesh.size(model) > 1 \
+        and a.placements[model].is_shard(feats) \
+        and b.placements[model].is_shard(b.ndim - 2)
     gather_a, gather_b, split_a, split_b, reduce = [], [], [], [], []
     for m, (pa, pb) in enumerate(zip(a.placements, b.placements)):
         data = names[m] in ctx.data_axes
@@ -859,8 +922,10 @@ def _gather_weight(a, b):
         if data and pa.is_shard(rows):
             gather_b.append(m)
         elif data and stacked and pa.is_replicate():
-            if not backward or pb.dim == b.ndim - 2:   # or the contraction
+            if pb.dim == b.ndim - 2 or not (backward or row_parallel):
                 gather_b.append(m)
+        elif data and stacked and pa.is_partial() and pb.dim == b.ndim - 1:
+            gather_a.append(m)      # reduced, the weight's split kept
         elif names[m] == ctx.model_axis and pb.dim == b.ndim - 1 and (
                 pa.is_partial() or pa.is_shard(rows) or pa.is_shard(feats)):
             gather_a.append(m)
@@ -896,12 +961,41 @@ def _gather_weight(a, b):
                                           for m, p in enumerate(out)])
 
 
-def _stacked_weight(shape) -> Optional[Tuple]:
-    """The placements of the stacked weight of global ``shape`` that the
-    step being counted trains, if any (:class:`Accountant`)."""
+def _as_weight_gradient(a, b, want):
+    """``a @ b`` in the backward pass, a sum over the tokens the data axes
+    split whose output has the shape of a trainable matrix (or of its
+    transpose): the matrix's gradient, split as the matrix (``want``) over
+    each mesh dim that splits the matrix and not the contraction, as GSPMD
+    carries a parameter's sharding to its gradient: the operand that holds
+    the matrix's split dim split there, the other whole (the logits'
+    gradient gathered over the vocabulary for an embedding the model axis
+    splits along d). Over a mesh dim that splits the contraction the
+    partial sum stands, for the gradient's reduction
+    (:func:`_grad_as_parameter`), and over one that leaves the matrix whole
+    the product is laid out as the operands are (a replicated weight
+    split for its product, Mamba-2's ``w_in``, has its gradient split as
+    that product was). ``NotImplemented`` where nothing would move."""
+    mesh = a.device_mesh
+    pa, pb = list(a.placements), list(b.placements)
+    for m, p in enumerate(want):
+        if mesh.size(m) == 1 or p.is_replicate() \
+                or (pa[m].is_shard(1) and pb[m].is_shard(0)):
+            continue
+        pa[m], pb[m] = (Shard(0) if p.is_shard(0) else Replicate(),
+                        Shard(1) if p.is_shard(1) else Replicate())
+    if pa == list(a.placements) and pb == list(b.placements):
+        return NotImplemented
+    return torch.ops.aten.mm.default(a.detach().redistribute(mesh, pa),
+                                     b.detach().redistribute(mesh, pb))
+
+
+def _weight_layout(shape) -> Optional[Tuple]:
+    """The placements of the weight (or matrix transposed) of global
+    ``shape`` that the step being counted trains, if any
+    (:class:`Accountant`)."""
     from torch.utils._python_dispatch import _get_current_dispatch_mode
     acct = _get_current_dispatch_mode()
-    return acct.stacked.get(tuple(shape)) \
+    return acct.weights.get(tuple(shape)) \
         if isinstance(acct, Accountant) else None
 
 
@@ -1250,22 +1344,6 @@ def _index_fill_layout(x, dim, index, value):
     return _dtensor(local, x, x.placements, x.shape)
 
 
-def _flip_layout(x, dims):
-    """``x.flip(dims)`` on a DTensor (the backward of ``cumsum``; torch 2.11
-    has no rule for it): each rank flips its share where no mesh dim splits
-    a flipped dim, which is gathered otherwise."""
-    if not isinstance(x, DTensor):
-        return NotImplemented
-    dims = [d % x.ndim for d in dims]
-    x = x.detach()
-    if any(p.is_shard() and p.dim % x.ndim in dims for p in x.placements):
-        x = x.redistribute(x.device_mesh, [
-            Replicate() if p.is_shard() and p.dim % x.ndim in dims else p
-            for p in x.placements])
-    return _dtensor(torch.ops.aten.flip.default(x.to_local(), dims), x,
-                    x.placements, x.shape)
-
-
 def _scatter_add_layout(dest, dim, index, src):
     """``dest.scatter_add_(dim, index, src)`` on DTensors, in place, where
     ``dest`` is whole and ``index`` and ``src`` are split alike along
@@ -1344,49 +1422,6 @@ def _split_keeping(x, split_sizes, dim=0):
     return tuple(_pieces_split(x.detach(), split_sizes, d, mdims))
 
 
-def _cat_keeping(tensors, dim=0):
-    """``torch.cat(tensors, dim)`` of DTensors that the same mesh dims split
-    along ``dim`` alike (the backward of :func:`_split_keeping`): the whole
-    split along ``dim`` over them as its pieces were. ``NotImplemented``
-    otherwise."""
-    if not tensors or not all(isinstance(t, DTensor) for t in tensors):
-        return NotImplemented
-    d = dim % tensors[0].ndim
-    first = tensors[0]
-    mdims = _split_dims(first, d)
-    if not mdims or any(t.placements != first.placements for t in tensors):
-        return NotImplemented
-    mesh = first.device_mesh
-    gathered = [p if m not in mdims else Replicate()
-                for m, p in enumerate(first.placements)]
-    whole = torch.cat([t.detach().redistribute(mesh, gathered).to_local()
-                       for t in tensors], dim=d)
-    shape = list(first.shape)
-    shape[d] = sum(t.shape[d] for t in tensors)
-    return _pieces_split(_dtensor(whole, first, gathered, shape), [shape[d]],
-                         d, mdims)[0]
-
-
-def _pad_layout(x, pad, value=0):
-    """``F.pad(x, pad)`` (``constant_pad_nd``) on a DTensor: the padded
-    dims gathered where mesh dims split them, every other split kept and
-    each rank padding its own share (torch 2.11's redistribution planner
-    fails on the Mamba-2 conv's pad of the sequence with the channels
-    split)."""
-    if not isinstance(x, DTensor):
-        return NotImplemented
-    padded = [x.ndim - 1 - i // 2 for i in range(len(pad)) if pad[i]]
-    x = x.detach()
-    if value != 0 or any(p.is_shard() and p.dim % x.ndim in padded
-                         for p in x.placements):
-        x = _whole(x, padded)
-    local = torch.ops.aten.constant_pad_nd.default(x.to_local(), pad, value)
-    shape = list(x.shape)
-    for i, n in enumerate(pad):
-        shape[x.ndim - 1 - i // 2] += n
-    return _dtensor(local, x, x.placements, shape)
-
-
 def _reduce_model_partials(func):
     """``func`` (a pointwise op) on DTensors with each partial sum over the
     model axis that meets an operand that is not one reduced whole first
@@ -1435,10 +1470,10 @@ def _reduce_model_partials(func):
 # its handler gathers over mesh dims of one rank; the embedding's lookup
 # with its indices split over two mesh dims, and its backward, whose rule
 # builds an unnormalized Shard(-1)); the MoE and Mamba-2 layers' (the
-# dense route's search, copies and load count; the projection's split
-# and its cat, the partial sums and conflicting splits of pointwise ops) or
-# fail on (torch 2.11: the conv's pad, cumsum's flip); each rule returns
-# NotImplemented where it does not apply, and DTensor's own rule runs
+# dense route's search, copies and load count; a decode's projection
+# split, the partial sums and conflicting splits of pointwise ops); each
+# rule returns NotImplemented where it does not apply, and DTensor's own
+# rule runs
 _LAYOUTS = {torch.ops.aten.mm.default: _gather_weight,
             torch.ops.aten.bmm.default: _gather_weight,
             torch.ops.aten.index.Tensor: _embedding_lookup,
@@ -1452,9 +1487,6 @@ _LAYOUTS = {torch.ops.aten.mm.default: _gather_weight,
             torch.ops.aten.index_copy_.default: _index_copy_layout,
             torch.ops.aten.scatter_add_.default: _scatter_add_layout,
             torch.ops.aten.split_with_sizes.default: _split_keeping,
-            torch.ops.aten.cat.default: _cat_keeping,
-            torch.ops.aten.constant_pad_nd.default: _pad_layout,
-            torch.ops.aten.flip.default: _flip_layout,
             torch.ops.aten.index_add.default: _index_add_layout,
             torch.ops.aten.index_fill.int_Scalar: _index_fill_layout}
 _LAYOUTS.update({op: _reduce_model_partials(op) for op in (
@@ -1476,8 +1508,12 @@ def account(fn, args: Tuple) -> Dict[str, Any]:
     """Run ``fn(*args)`` over its fake inputs and count rank 0's work:
     ``flops``, ``bytes_accessed``, ``collective_bytes`` /
     ``collective_counts`` / ``collective_link_bytes`` / ``reduce_ops``,
-    ``attention`` (each flash call's layout), ``memory`` (argument,
-    output, temp and total bytes) and ``trace_s``."""
+    ``attention`` (each flash call's layout), ``attention_flops`` (the
+    flash calls' FLOPs, ``kernel``, beside ``all_pairs``: the same calls
+    counted over every (query, key) pair, 4 S_q S_k D a forward and 8 a
+    backward, as the reference's ``chunked_attention`` issues them),
+    ``memory`` (argument, output, temp and total bytes) and
+    ``trace_s``."""
     check_torch()
     tensors = _leaves(args)
     acct = Accountant(_fake_mode_of(tensors), tensors)
@@ -1503,6 +1539,7 @@ def account(fn, args: Tuple) -> Dict[str, Any]:
         "reduce_ops": dict(acct.reduce_ops),
         "unknown_collectives": dict(acct.unknown),
         "attention": {k: dict(v) for k, v in acct.attention.items() if v},
+        "attention_flops": dict(acct.attention_flops),
         "at_peak": [dict(bytes=n, op=op, shape=list(shape), dtype=dt)
                     for n, op, shape, dt in heapq.nlargest(PEAK_LARGEST,
                                                            live)],

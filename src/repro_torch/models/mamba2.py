@@ -13,12 +13,17 @@ cache in place (the port's decode convention).
 """
 from __future__ import annotations
 
+import functools
 from typing import Dict, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
+from ..parallel import P, get_parallel_context
+from ..parallel.regions import shard_map, sum_over
 from .config import ModelConfig
 from .layers import _param, _weights
 
@@ -59,8 +64,8 @@ def _segsum(x: torch.Tensor) -> torch.Tensor:
     return diff.masked_fill(~mask, -torch.inf)
 
 
-def ssd_chunked(x, dt, A, Bm, Cm, chunk: int,
-                init_state=None) -> Tuple[torch.Tensor, torch.Tensor]:
+def ssd_chunked(x, dt, A, Bm, Cm, chunk: int, init_state=None, scores=None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """SSD forward.
 
     x:  (b, s, h, p)   head inputs
@@ -68,6 +73,9 @@ def ssd_chunked(x, dt, A, Bm, Cm, chunk: int,
     A:  (h,)           negative per-head decay rates
     Bm: (b, s, n)      input projection (group-shared)
     Cm: (b, s, n)      output projection (group-shared)
+    scores: where given, ``scores(Cc, Bc)`` makes each chunk's (b, c, l,
+    s) products C B^T from the chunked (b, c, q, n) C and B (the dry run's
+    layout sums them over ranks that each hold a share of n)
     Returns (y (b, s, h, p), final_state (b, h, p, n)), both float32.
     """
     b, s, h, p = x.shape
@@ -88,7 +96,11 @@ def ssd_chunked(x, dt, A, Bm, Cm, chunk: int,
 
     # 1) intra-chunk (quadratic) term
     L = torch.exp(_segsum(dAc))                                 # (b,h,c,q,q)
-    Y_diag = torch.einsum("bcln,bcsn,bhcls,bcshp->bclhp", Cc, Bc, L, xc)
+    if scores is None:
+        Y_diag = torch.einsum("bcln,bcsn,bhcls,bcshp->bclhp", Cc, Bc, L, xc)
+    else:
+        Y_diag = torch.einsum("bcls,bhcls,bcshp->bclhp", scores(Cc, Bc), L,
+                              xc)
 
     # 2) chunk end-states
     A_cum = torch.cumsum(dAc, dim=-1)                           # (b,h,c,q)
@@ -122,36 +134,128 @@ def _gated_norm(y: torch.Tensor, z: torch.Tensor, p: Mamba2,
     return g * torch.rsqrt(var + eps) * p.norm_scale
 
 
+def _causal_conv(t: torch.Tensor, w: torch.Tensor, b: torch.Tensor
+                 ) -> torch.Tensor:
+    """The causal depthwise conv of ``t`` (B, S, ch) by ``w`` (K, ch), as
+    the sum of K shifted products, plus ``b``, through SiLU."""
+    S, K = t.shape[1], w.shape[0]
+    pad = F.pad(t, (0, 0, K - 1, 0))
+    conv = sum(pad[:, i:i + S, :] * w[i][None, None, :] for i in range(K))
+    return F.silu(conv + b)
+
+
+def _ssd(xs, dt, A, Bm, Cm, chunk: int, scores=None) -> torch.Tensor:
+    """``ssd_chunked``'s y over any sequence length: S padded to a multiple
+    of the chunk and cut back."""
+    S = xs.shape[1]
+    pad = (-S) % chunk
+    if not pad:
+        return ssd_chunked(xs, dt, A, Bm, Cm, chunk, scores=scores)[0]
+    # dt = 0 padding is state-neutral: decay exp(0 A) = 1, input weight 0
+    y, _ = ssd_chunked(F.pad(xs, (0, 0, 0, 0, 0, pad)),
+                       F.pad(dt, (0, 0, 0, pad)), A,
+                       F.pad(Bm, (0, 0, 0, pad)),
+                       F.pad(Cm, (0, 0, 0, pad)), chunk, scores=scores)
+    return y[:, :S]
+
+
 def mamba2_forward(p: Mamba2, x: torch.Tensor, cfg: ModelConfig
                    ) -> torch.Tensor:
     """Full-sequence forward (training / prefill). x: (B, S, d)."""
+    if isinstance(x, DTensor) and get_parallel_context() is not None:
+        return _mamba2_by_heads(p, x, cfg)
     B, S, _ = x.shape
     di, n, h = cfg.ssm_d_inner, cfg.ssm_state, cfg.ssm_heads
     proj = x @ p.w_in                                           # (B, S, ...)
     z, xBC, dt = torch.split(proj, [di, di + 2 * n, h], dim=-1)
     # causal depthwise conv over (x, B, C)
-    w = p.conv_w                                                # (K, ch)
-    K = w.shape[0]
-    pad = F.pad(xBC, (0, 0, K - 1, 0))
-    conv = sum(pad[:, i:i + S, :] * w[i][None, None, :] for i in range(K))
-    xBC = F.silu(conv + p.conv_b)
+    xBC = _causal_conv(xBC, p.conv_w, p.conv_b)
     xs, Bm, Cm = torch.split(xBC, [di, n, n], dim=-1)
     xs = xs.reshape(B, S, h, cfg.ssm_head_dim)
     dt = F.softplus(dt.to(torch.float32) + p.dt_bias)           # (B, S, h)
     A = -torch.exp(p.A_log)                                     # (h,)
-    pad = (-S) % cfg.ssm_chunk
-    if pad:
-        # dt = 0 padding is state-neutral: decay exp(0 A) = 1, input weight 0
-        y, _ = ssd_chunked(F.pad(xs, (0, 0, 0, 0, 0, pad)),
-                           F.pad(dt, (0, 0, 0, pad)), A,
-                           F.pad(Bm, (0, 0, 0, pad)),
-                           F.pad(Cm, (0, 0, 0, pad)), cfg.ssm_chunk)
-        y = y[:, :S]
-    else:
-        y, _ = ssd_chunked(xs, dt, A, Bm, Cm, cfg.ssm_chunk)
+    y = _ssd(xs, dt, A, Bm, Cm, cfg.ssm_chunk)
     y = y + xs.to(torch.float32) * p.D[None, None, :, None]
     g = _gated_norm(y.reshape(B, S, di), z, p, cfg.norm_eps)
     return g.to(x.dtype) @ p.w_out
+
+
+def _mamba2_by_heads(p: Mamba2, x: torch.Tensor, cfg: ModelConfig
+                     ) -> torch.Tensor:
+    """:func:`mamba2_forward` on DTensors (the dry run), laid out as GSPMD
+    lays out the reference's layer: the input projection's output columns
+    split over the model axis (unevenly where it does not divide them, as
+    GSPMD pads: ``w_in`` is replicated where the rules cannot split it),
+    then z, x and dt split by heads over the model axis (24 heads over 16
+    ranks: 2 on the first 12, as DTensor's and GSPMD's padded shares), B
+    and C whole; the conv, the SSD and the gated norm run on each rank's
+    heads inside the :func:`shard_map` boundary (:func:`_heads_local`), and
+    the output projection contracts the gathered heads against
+    ``w_out``'s split."""
+    ctx = get_parallel_context()
+    mesh, model = x.device_mesh, ctx.model_axis
+    B, S, _ = x.shape
+    di, n, h, hp = (cfg.ssm_d_inner, cfg.ssm_state, cfg.ssm_heads,
+                    cfg.ssm_head_dim)
+    K = p.conv_w.shape[0]
+
+    def over_model(t: torch.Tensor, placement) -> torch.Tensor:
+        m = mesh.mesh_dim_names.index(model)
+        return t.redistribute(mesh, [placement if i == m else q
+                                     for i, q in enumerate(t.placements)])
+
+    proj = x @ over_model(p.w_in, Shard(1))
+    z, xs, bc, dt = torch.split(over_model(proj, Replicate()),
+                                [di, di, 2 * n, h], dim=-1)
+    conv_w = over_model(p.conv_w, Replicate())
+    conv_b = over_model(p.conv_b, Replicate())
+    dp = ctx.data_spec if B % ctx.dp_size == 0 else None
+    heads, whole = P(dp, None, model, None), P(dp, None, None)
+    body = functools.partial(_heads_local, cfg=cfg, group=ctx.model_group)
+    g, = shard_map(body, (
+        heads, heads, whole, P(dp, None, model), P(None, model, None), P(),
+        P(model, None), P(), P(model), P(model), P(model), P(model, None)),
+        (heads,), out_shapes=[(B, S, h, hp)])(
+        z.reshape(B, S, h, hp), xs.reshape(B, S, h, hp), bc, dt,
+        conv_w[:, :di].reshape(K, h, hp), conv_w[:, di:],
+        conv_b[:di].reshape(h, hp), conv_b[di:], p.A_log, p.D, p.dt_bias,
+        p.norm_scale.reshape(h, hp))
+    return g.reshape(B, S, di) @ p.w_out
+
+
+def _heads_local(z, xs, bc, dt, conv_x, conv_bc, b_x, b_bc, A_log, D,
+                 dt_bias, norm_scale, *, cfg: ModelConfig, group
+                 ) -> Tuple[torch.Tensor]:
+    """One rank's heads of the Mamba-2 layer between its projections, on
+    local tensors: z, xs (B, S, h', P), dt (B, S, h') and their
+    parameters for this rank's h' heads; bc (B, S, 2 N) and its conv's
+    parameters whole. The products C B^T run on this rank's share of N,
+    summed over the model group, as GSPMD splits them. Returns the gated
+    norm's output (B, S, h', P) in z's dtype."""
+    B, S, hl, hp = xs.shape
+    n = cfg.ssm_state
+    K = conv_x.shape[0]
+    xs = _causal_conv(xs.reshape(B, S, hl * hp), conv_x.reshape(K, hl * hp),
+                      b_x.reshape(hl * hp)).reshape(B, S, hl, hp)
+    Bm, Cm = torch.split(_causal_conv(bc, conv_bc, b_bc), [n, n], dim=-1)
+    dt = F.softplus(dt.to(torch.float32) + dt_bias)
+    tp, rank = dist.get_world_size(group), dist.get_rank(group)
+
+    def scores(Cc, Bc):     # C B^T over this rank's share of n, summed
+        if n % tp:
+            return torch.einsum("bcln,bcsn->bcls", Cc, Bc)
+        k = n // tp
+        return sum_over(torch.einsum("bcln,bcsn->bcls",
+                                     Cc[..., rank * k:(rank + 1) * k],
+                                     Bc[..., rank * k:(rank + 1) * k]), group)
+
+    y = _ssd(xs, dt, -torch.exp(A_log), Bm, Cm, cfg.ssm_chunk, scores)
+    y = y + xs.to(torch.float32) * D[None, None, :, None]
+    g = y * F.silu(z.to(torch.float32))
+    var = sum_over(g.square().sum(dim=(-2, -1), keepdim=True),
+                   group) / cfg.ssm_d_inner
+    g = g * torch.rsqrt(var + cfg.norm_eps) * norm_scale
+    return (g.to(z.dtype),)
 
 
 def mamba2_init_cache(cfg: ModelConfig, batch: int,

@@ -44,9 +44,11 @@ Where the port differs in form, and why:
   bits on every model rank.
 * On DTensors the dense path runs on the global batch, as the reference's
   one GSPMD program, with the reference's ``_constrain`` of the capacity
-  buffer and the experts' outputs (:func:`_constrain`); its zeros are made
-  from the tokens (``new_zeros``), so that on a DTensor they carry its
-  layout.
+  buffer and the experts' outputs (:func:`_constrain`); where the model
+  axis divides neither E nor C, the layout GSPMD takes from the experts'
+  weights instead (:func:`_buffer_placements`: d split as they split it).
+  Its zeros are made from the tokens (``new_zeros``), so that on a DTensor
+  they carry its layout.
 
 No step syncs with the host: the kept and dropped slots are masks on the
 device, and the experts' loads are a scatter-add, not ``bincount`` (which
@@ -61,7 +63,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.distributed.tensor import DTensor
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from ..parallel import P, get_parallel_context, param_placements
 from ..parallel.regions import (all_to_all, exchange, gather_rows,
@@ -131,10 +133,22 @@ def _dispatch_indices(top_e: torch.Tensor, k: int, num_experts: int
 
 def _expert_ffn(p: MoE, buf: torch.Tensor) -> torch.Tensor:
     """buf: (E, C, d) -> (E, C, d) through each expert's SwiGLU FFN."""
-    up = torch.einsum("ecd,edf->ecf", buf, p.w_up)
-    gate = torch.einsum("ecd,edf->ecf", buf, p.w_gate)
+    up = _reduced(torch.einsum("ecd,edf->ecf", buf, p.w_up))
+    gate = _reduced(torch.einsum("ecd,edf->ecf", buf, p.w_gate))
     h = F.silu(gate) * up
     return torch.einsum("ecf,efd->ecd", h, p.w_down)
+
+
+def _reduced(t: torch.Tensor) -> torch.Tensor:
+    """On a DTensor, ``t`` with its partial sums reduced whole (the experts'
+    products against a buffer split along d, their contraction: GSPMD's
+    all-reduce before the activation, where DTensor would scatter the sum
+    over E). Any other tensor is returned as it is."""
+    if not isinstance(t, DTensor) or not any(p.is_partial()
+                                             for p in t.placements):
+        return t
+    return t.redistribute(t.device_mesh, [Replicate() if p.is_partial()
+                                          else p for p in t.placements])
 
 
 def _capacity(n_tokens: int, cfg: ModelConfig) -> int:
@@ -168,12 +182,14 @@ def _experts(ex, x2d, top_w, sorted_e, pos_in_e, order, ok, lo: int,
     Returns (N, d): each token's slots summed over k."""
     n, d = x2d.shape
     le = sorted_e - lo
+    rows = x2d
+    x2d = _by_features(x2d, ex.w_up, e_loc, cap)
     # rows of the flattened (e_loc * cap + 1, d) buffer; a slot not kept
     # lands in the last row, cut off below
     dest = torch.where(ok, le * cap + pos_in_e, e_loc * cap)
     buf = _pack(x2d, dest, order, k, e_loc * cap + 1)
     out = _constrain(_expert_ffn(ex, _constrain(
-        buf[:e_loc * cap].view(e_loc, cap, d))))
+        buf[:e_loc * cap].view(e_loc, cap, d), ex.w_up)), ex.w_up)
     vals = out.reshape(e_loc * cap, d).index_select(
         0, torch.clamp(le, 0, e_loc - 1) * cap
         + torch.clamp(pos_in_e, max=cap - 1))
@@ -182,27 +198,59 @@ def _experts(ex, x2d, top_w, sorted_e, pos_in_e, order, ok, lo: int,
     # un-permute to (N, k, d) and sum over k: no atomics, the same bits
     slots = torch.empty_like(vals).index_copy_(0, order,
                                                vals * w_sorted[:, None])
-    return slots.view(n, k, d).sum(dim=1)
+    y = slots.view(n, k, d).sum(dim=1)
+    return y.redistribute(rows.device_mesh, rows.placements) \
+        if x2d is not rows else y
 
 
-def _constrain(t: torch.Tensor) -> torch.Tensor:
-    """The reference's ``_constrain`` of the dense path's (E, C, d)
-    capacity buffer and experts' output (``moe.py:110-125``, a GSPMD
-    sharding constraint): on a DTensor, split over the model axis along E
-    where it divides, else along C (qwen2-moe's 60 experts on a 16-way
-    axis), whole over the data axes. A plain tensor (one rank's own) is
-    returned as it is."""
+def _buffer_placements(ctx, mesh, shape, w_up) -> Optional[list]:
+    """The placements of the dense path's (E, C, d) capacity buffer (and
+    the experts' output) on a DTensor, as the reference lays it out: its
+    ``_constrain`` (``moe.py:110-125``, a GSPMD sharding constraint) splits
+    it over the model axis along E where that divides, else along C, whole
+    over the data axes; where neither divides (qwen2-moe's 60 experts and
+    capacity 87384 on a 16-way axis) the constraint is the identity and
+    GSPMD takes the layout from the experts' weights: d split as ``w_up``
+    splits its d (FSDP, over the data axes), E and C whole."""
+    m, tp = ctx.model_axis, ctx.tp_size
+    if shape[0] % tp == 0:
+        return param_placements(P(m, None, None), mesh)
+    if shape[1] % tp == 0:
+        return param_placements(P(None, m, None), mesh)
+    if not isinstance(w_up, DTensor) or w_up.device_mesh != mesh:
+        return None
+    return [Shard(2) if p.is_shard(1) else Replicate()
+            for p in w_up.placements]
+
+
+def _constrain(t: torch.Tensor, w_up) -> torch.Tensor:
+    """``t`` (the capacity buffer or the experts' output) laid out by
+    :func:`_buffer_placements`. A plain tensor (one rank's own) is returned
+    as it is."""
     ctx = get_parallel_context()
     if ctx is None or not isinstance(t, DTensor):
         return t
-    m, tp = ctx.model_axis, ctx.tp_size
-    if t.shape[0] % tp == 0:
-        spec = P(m, None, None)
-    elif t.shape[1] % tp == 0:
-        spec = P(None, m, None)
-    else:
-        return t
-    return t.redistribute(ctx.mesh, param_placements(spec, ctx.mesh))
+    placements = _buffer_placements(ctx, t.device_mesh, t.shape, w_up)
+    return t if placements is None \
+        else t.redistribute(t.device_mesh, placements)
+
+
+def _by_features(x2d: torch.Tensor, w_up, e_loc: int, cap: int
+                 ) -> torch.Tensor:
+    """The tokens the capacity buffer is packed from, on a DTensor whose
+    buffer :func:`_buffer_placements` splits along d: every row, with d
+    split as the buffer's, so that the buffer is born in its layout
+    (GSPMD's, where the reference's constraint leaves it to the weights).
+    Any other tensor is returned as it is."""
+    ctx = get_parallel_context()
+    if ctx is None or not isinstance(x2d, DTensor):
+        return x2d
+    mesh = x2d.device_mesh
+    placements = _buffer_placements(ctx, mesh, (e_loc, cap), w_up)
+    if placements is None or not any(p.is_shard(2) for p in placements):
+        return x2d
+    return x2d.redistribute(mesh, [Shard(1) if p.is_shard(2)
+                                   else Replicate() for p in placements])
 
 
 def _moe_dense(p: MoE, x2d: torch.Tensor, cfg: ModelConfig

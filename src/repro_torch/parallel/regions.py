@@ -14,6 +14,9 @@ it so:
   the ranks' partial outputs;
 * :func:`mean_over` — the mean of the ranks' values, each rank's share of
   the gradient ``1 / n``;
+* :func:`sum_over` — the sum of the ranks' values where each rank uses
+  the sum for its own part of the work (``psum``): backward, the sum of
+  the ranks' gradients;
 * :func:`gather_from` — forward all-gather along a dim, backward this
   rank's own slice;
 * :func:`shard_of` — this rank's block along a dim of a tensor that every
@@ -32,7 +35,7 @@ body written on each rank's local tensors with these collectives.
 """
 from __future__ import annotations
 
-from typing import Callable, Sequence
+from typing import Callable, Optional, Sequence
 
 import torch
 import torch.distributed as dist
@@ -91,6 +94,17 @@ class _MeanOver(Function):
     @staticmethod
     def backward(ctx, g):
         return g / ctx.n, None
+
+
+class _SumOver(Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _sum(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _sum(g, ctx.group), None
 
 
 class _GatherFrom(Function):
@@ -162,6 +176,10 @@ def mean_over(x: torch.Tensor, group: ProcessGroup) -> torch.Tensor:
     return x if _size(group) == 1 else _MeanOver.apply(x, group)
 
 
+def sum_over(x: torch.Tensor, group: ProcessGroup) -> torch.Tensor:
+    return x if _size(group) == 1 else _SumOver.apply(x, group)
+
+
 def gather_from(x: torch.Tensor, group: ProcessGroup, dim: int
                 ) -> torch.Tensor:
     return x if _size(group) == 1 else _GatherFrom.apply(x, group, dim)
@@ -199,19 +217,26 @@ def _model_dim(spec: P, axis: str):
 
 
 def shard_map(body: Callable, in_specs: Sequence[P],
-              out_specs: Sequence[P]) -> Callable:
+              out_specs: Sequence[P],
+              out_shapes: Optional[Sequence[Sequence[int]]] = None
+              ) -> Callable:
     """The reference's ``jax.shard_map(body, mesh, in_specs, out_specs)``
     on the installed context's mesh: ``body`` runs on each rank's local
     tensors, with the collectives of this module over the context's model
     group, and returns a tuple.
 
     * On DTensors (the dry run), each input is redistributed to the
-      placements of its spec and handed in as its local tensor, whose
+      placements of its spec on the inputs' mesh (the context's, or its
+      model axis alone under an explicit gradient sync) and handed in as
+      its local tensor, whose
       gradient is a partial sum over every mesh dim its spec does not
       split (the transpose of ``shard_map``'s unmentioned axes); each
-      output is the DTensor of the local ones at its spec. A spec may leave
-      the batch whole (``P(None, ...)``) where it does not split over the
-      data axes.
+      output is the DTensor of the local ones at its spec, of the global
+      shape ``out_shapes`` gives (needed where a spec splits a dim its
+      axes do not divide: the local shares are then uneven, as
+      DTensor's, GSPMD's padded ones); else of the local shapes times the
+      splits. A spec may leave the batch whole (``P(None, ...)``) where it
+      does not split over the data axes.
     * On plain tensors (a rank a process: each rank holds its own rows
       over the data axes, and every tensor whole over the model group),
       an input whose spec splits a dim over the model axis comes in as
@@ -231,13 +256,17 @@ def shard_map(body: Callable, in_specs: Sequence[P],
             return tuple(o if _model_dim(s, axis) is None
                          else gather_from(o, g, _model_dim(s, axis))
                          for o, s in zip(body(*ins), out_specs))
-        mesh = ctx.mesh
+        mesh = next(a.device_mesh for a in args if isinstance(a, DTensor))
         ins = []
         for a, s in zip(args, in_specs):
             pl = param_placements(s, mesh)
             ins.append(a.redistribute(mesh, pl).to_local(grad_placements=[
                 p if p.is_shard() else Partial() for p in pl]))
-        return tuple(DTensor.from_local(o, mesh, param_placements(s, mesh),
-                                        run_check=False)
-                     for o, s in zip(body(*ins), out_specs))
+        shapes = out_shapes or [None] * len(out_specs)
+        return tuple(DTensor.from_local(
+            o, mesh, param_placements(s, mesh), run_check=False,
+            shape=None if n is None else torch.Size(n),
+            stride=None if n is None
+            else torch.empty(n, device="meta").stride())
+            for o, s, n in zip(body(*ins), out_specs, shapes))
     return run

@@ -24,6 +24,7 @@ from __future__ import annotations
 
 from typing import Any, Dict, Mapping, Tuple, Union
 
+import torch
 from torch.distributed.device_mesh import DeviceMesh
 from torch.distributed.tensor import Replicate, Shard
 
@@ -157,6 +158,23 @@ def param_placements(spec: P, device_mesh: DeviceMesh) -> list:
         dims = [d for d, axes in enumerate(spec) if axis in _t(axes)]
         out.append(Shard(dims[0]) if dims else Replicate())
     return out
+
+
+def sharding_constraint(t, spec: P, device_mesh: DeviceMesh):
+    """A DTensor ``t`` laid out as ``spec`` (the reference's
+    ``with_sharding_constraint``). Where a partial sum is to be split along
+    a dim its mesh dim does not divide (the logits over a vocabulary the
+    model axis does not divide), it is first reduced whole, in float32 as
+    the port's sums over ranks are (:mod:`.regions`), and each rank then
+    keeps its share: GSPMD's all-reduce there, where DTensor would
+    scatter the padded sum."""
+    placements = param_placements(spec, device_mesh)
+    if any(p.is_partial() and q.is_shard()
+           and t.shape[q.dim] % device_mesh.size(m)
+           for m, (p, q) in enumerate(zip(t.placements, placements))):
+        t = t.to(torch.float32).redistribute(device_mesh, [
+            Replicate() if p.is_partial() else p for p in t.placements])
+    return t.redistribute(device_mesh, placements)
 
 
 def batch_spec(mesh: MeshLike, global_batch: int, dp_axes: Axes) -> P:

@@ -55,7 +55,7 @@ from ..optim import AdamWConfig, AdamWState
 from ..optim import init as adamw_init
 from ..optim import update as adamw_update
 from ..parallel import (P, ParallelContext, get_parallel_context,
-                        param_placements, parallel_context)
+                        parallel_context, sharding_constraint)
 from .losses import cross_entropy
 
 EXPLICIT_MODES = ("canary", "ring", "hierarchical", "canary_fp")
@@ -198,8 +198,7 @@ def make_loss_fn(tc: TrainConfig, constrain: str = "full") -> Callable:
                 and isinstance(logits, DTensor):
             spec = P(ctx.data_spec, None, ctx.model_axis) \
                 if constrain == "full" else P(None, None, ctx.model_axis)
-            logits = logits.redistribute(ctx.mesh,
-                                         param_placements(spec, ctx.mesh))
+            logits = sharding_constraint(logits, spec, ctx.mesh)
         labels = batch["labels"]
         if logits.shape[1] != labels.shape[1]:   # VLM prefix: score text only
             logits = logits[:, logits.shape[1] - labels.shape[1]:]

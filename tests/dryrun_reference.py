@@ -1,0 +1,138 @@
+"""What the dry-run tests read from the reference's compiled HLO, and the
+JAX subprocess they read it in.
+
+``costs`` runs inside the JAX subprocess (``repro.launch.dryrun`` forces
+512 host devices at import, so JAX never runs in the test process); the
+subprocess finds this module on its ``PYTHONPATH``.
+"""
+import json
+import os
+import re
+import subprocess
+import sys
+import tempfile
+import threading
+import time
+
+import numpy as np
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+COMP = re.compile(r"^(?:ENTRY )?%([\w.\-]+) .*\{$")
+DEF = re.compile(r"^\s*(?:ROOT )?%([\w.\-]+) = [a-z0-9]+\[([0-9,]*)\]")
+
+
+def costs(hlo):
+    """``(flops, moved)`` of an optimized HLO module: the dots' FLOPs (2 x
+    result x contraction) and the collectives' bytes by kind
+    (``parse_collective_bytes``, a line at a time), each computation
+    counted as often as it runs: a while body its known trip count
+    (``cost_analysis`` and ``parse_collective_bytes`` count it once, which
+    the reference's dry run extrapolates around)."""
+    from repro.launch.analysis import _COLLECTIVES, parse_collective_bytes
+    comps, shapes, entry, cur = {}, {}, None, None
+    for line in hlo.splitlines():
+        m = COMP.match(line)
+        if m:
+            cur = m.group(1)
+            comps[cur] = []
+            entry = cur if line.startswith("ENTRY") else entry
+            continue
+        if cur is not None:
+            comps[cur].append(line)
+        d = DEF.match(line)
+        if d:
+            shapes[d.group(1)] = [int(x) for x in d.group(2).split(",") if x]
+
+    def count(c):
+        flops, moved = 0, dict.fromkeys(_COLLECTIVES, 0.0)
+        for line in comps[c]:
+            if " dot(" in line:
+                lhs = shapes[re.search(r" dot\(%([\w.\-]+)", line).group(1)]
+                dims = re.search(r"lhs_contracting_dims=\{([0-9,]*)\}", line)
+                k = int(np.prod([lhs[int(x)] for x in dims.group(1).split(",")
+                                 if x]))
+                flops += 2 * int(np.prod(shapes[DEF.match(line).group(1)])) * k
+            per_op = parse_collective_bytes(line)["per_op_bytes"]
+            for kind, b in per_op.items():
+                moved[kind] += b
+            trips = re.search(r'"known_trip_count":\{"n":"(\d+)"', line)
+            for how, callee in re.findall(r"(calls|body)=%([\w.\-]+)", line):
+                n = int(trips.group(1)) if how == "body" else 1
+                f, b = count(callee)
+                flops += n * f
+                for kind in moved:
+                    moved[kind] += n * b[kind]
+        return flops, moved
+    return count(entry)
+
+
+def link_bytes(moved):
+    """The link bytes of collectives by kind: an all-reduce twice its
+    bytes, the others once (``parse_collective_bytes``'s multipliers)."""
+    return sum(b * (2 if k == "all-reduce" else 1) for k, b in moved.items())
+
+
+class JaxRun:
+    """``script`` running in a JAX subprocess on the CPU with ``args`` as
+    JSON arguments. :meth:`result` waits for it and returns the JSON it
+    prints after ``JAX_OUT``; :meth:`case` returns, as soon as it is
+    printed, the JSON after a ``JAX_CASE <key>`` line (one line a case,
+    flushed as each is ready), so that the caller's own work overlaps the
+    rest of the script's."""
+
+    def __init__(self, script, *args, timeout=600):
+        path = os.pathsep.join([os.path.join(ROOT, "src"),
+                                os.path.dirname(os.path.abspath(__file__)),
+                                os.environ.get("PYTHONPATH", "")])
+        env = dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH=path)
+        self.deadline = time.monotonic() + timeout
+        self.lines, self.cases = [], {}
+        self.err = tempfile.TemporaryFile(mode="w+")
+        self.proc = subprocess.Popen(
+            [sys.executable, "-c", script] + [json.dumps(a) for a in args],
+            env=env, cwd=ROOT, stdout=subprocess.PIPE, stderr=self.err,
+            text=True)
+        self.done = threading.Event()
+        threading.Thread(target=self._read, daemon=True).start()
+
+    def _read(self):
+        for line in self.proc.stdout:
+            self.lines.append(line)
+            if line.startswith("JAX_CASE "):
+                key, value = line[len("JAX_CASE "):].split(" ", 1)
+                self.cases[key] = json.loads(value)
+        self.proc.wait()
+        self.done.set()
+
+    def _failed(self):
+        self.err.seek(0)
+        return "".join(self.lines) + self.err.read()
+
+    def case(self, key):
+        while key not in self.cases:
+            assert not self.done.is_set(), self._failed()
+            assert time.monotonic() < self.deadline, "the JAX run timed out"
+            self.done.wait(0.2)
+        return self.cases[key]
+
+    def result(self):
+        self.done.wait(max(0.0, self.deadline - time.monotonic()))
+        line = [ln for ln in self.lines if ln.startswith("JAX_OUT ")]
+        assert line, self._failed()
+        return json.loads(line[0][len("JAX_OUT "):])
+
+    def close(self):
+        if self.proc.poll() is None:
+            self.proc.kill()
+        self.proc.wait()
+        self.done.wait(10)
+        self.err.close()
+
+
+def run_jax(script, *args, timeout=600):
+    """:class:`JaxRun`'s result, waited for."""
+    run = JaxRun(script, *args, timeout=timeout)
+    try:
+        return run.result()
+    finally:
+        run.close()

@@ -42,16 +42,22 @@ package's (``repro.launch.dryrun``), and the flash kernels' custom ops.
   group is left after ``run_one``, which refuses to run beside one.
 * The layouts the dry run gives operations DTensor lays out badly or not
   at all compute those operations: on 4 gloo ranks at (2, 2), real
-  tensors, each against the operation on the whole tensors; and the MoE
-  forms (through the ``shard_map`` boundary) and the Mamba-2 layer on
-  DTensors, forward and backward, against the layer on whole tensors.
+  tensors, each against the operation on the whole tensors (a matrix's
+  gradient in the matrix's layout, the logits' constraint onto a dim the
+  model axis does not divide among them); and the MoE forms (through the
+  ``shard_map`` boundary; the dense route also with its capacity buffer
+  split along d as the experts' weights split it) and the Mamba-2 layer
+  by heads (also 3 heads, which split unevenly) on DTensors, forward and
+  backward, against the layer on whole tensors.
+
+The HLO parse and the JAX subprocess are ``dryrun_reference``'s, which
+``test_torch_dryrun_production.py`` shares (one layer period of each arch
+at full width on the production mesh).
 """
 import contextlib
 import json
 import math
 import os
-import subprocess
-import sys
 
 import numpy as np
 import pytest
@@ -64,6 +70,7 @@ from torch.utils.checkpoint import checkpoint
 from torch.utils.flop_counter import FlopCounterMode
 
 os.environ.setdefault("JAX_PLATFORMS", "cpu")
+from dryrun_reference import run_jax  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention, flash_attention_bwd_op, flash_attention_fwd_op,
     live_pairs)
@@ -81,7 +88,6 @@ from repro_torch.train.train_step import (TrainConfig,  # noqa: E402
                                           init_train_state, make_loss_fn,
                                           make_train_step)
 
-ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ARCH = "llama3.2-1b"
 MOE, DENSE_MOE, MAMBA, HYBRID = ("deepseek-moe-16b", "qwen2-moe-a2.7b",
                                  "mamba2-130m", "jamba-v0.1-52b")
@@ -131,13 +137,13 @@ COST_CASES = [(ARCH, "train", (4, 1), "plain", "auto", ""),
               (QWEN, "train", (2, 2), "odd-heads", "auto", "")]
 
 JAX_SCRIPT = r"""
-import json, re, sys
+import json, sys
 import numpy as np
 import repro.launch.dryrun as R
 import jax
 SMALL_S, SMALL_B = json.loads(sys.argv[3])
 from jax.sharding import Mesh
-from repro.launch.analysis import _COLLECTIVES, parse_collective_bytes
+from dryrun_reference import costs, link_bytes
 from repro.launch.mesh import mesh_axes
 from repro.models import get_config
 from repro.models.transformer import _activation_constraint
@@ -147,52 +153,6 @@ def mesh_of(shape):
     names = ("data", "model") if len(shape) == 2 else ("pod", "data", "model")
     n = int(np.prod(shape))
     return Mesh(np.array(jax.devices()[:n]).reshape(shape), names)
-
-COMP = re.compile(r"^(?:ENTRY )?%([\w.\-]+) .*\{$")
-DEF = re.compile(r"^\s*(?:ROOT )?%([\w.\-]+) = [a-z0-9]+\[([0-9,]*)\]")
-
-
-# the dots' FLOPs (2 x result x contraction) and the collectives' link
-# bytes (parse_collective_bytes, a line at a time), each computation
-# counted as often as it runs: a while body its known trip count
-# (cost_analysis and parse_collective_bytes count it once, which the
-# reference's dry run extrapolates around)
-def costs(hlo):
-    comps, shapes, entry, cur = {}, {}, None, None
-    for line in hlo.splitlines():
-        m = COMP.match(line)
-        if m:
-            cur = m.group(1)
-            comps[cur] = []
-            entry = cur if line.startswith("ENTRY") else entry
-            continue
-        if cur is not None:
-            comps[cur].append(line)
-        d = DEF.match(line)
-        if d:
-            shapes[d.group(1)] = [int(x) for x in d.group(2).split(",") if x]
-
-    def count(c):
-        flops, moved = 0, dict.fromkeys(_COLLECTIVES, 0.0)
-        for line in comps[c]:
-            if " dot(" in line:
-                lhs = shapes[re.search(r" dot\(%([\w.\-]+)", line).group(1)]
-                dims = re.search(r"lhs_contracting_dims=\{([0-9,]*)\}", line)
-                k = int(np.prod([lhs[int(x)] for x in dims.group(1).split(",")
-                                 if x]))
-                flops += 2 * int(np.prod(shapes[DEF.match(line).group(1)])) * k
-            for kind, b in parse_collective_bytes(line)["per_op_bytes"].items():
-                moved[kind] += b
-            trips = re.search(r'"known_trip_count":\{"n":"(\d+)"', line)
-            for how, callee in re.findall(r"(calls|body)=%([\w.\-]+)", line):
-                n = int(trips.group(1)) if how == "body" else 1
-                f, b = count(callee)
-                flops += n * f
-                for kind in moved:
-                    moved[kind] += n * b[kind]
-        return flops, moved
-    return count(entry)
-
 
 out = {"args": {}, "constraint": {}, "costs": {}}
 for arch, shape_name, mshape in json.loads(sys.argv[1]):
@@ -237,8 +197,7 @@ for arch, kind, mshape, route, over, sync, impl in json.loads(sys.argv[2]):
     flops, moved = costs(hlo)
     out["costs"][f"{arch}|{kind}|{mshape}|{route}|{sync}|{impl}"] = dict(
         flops=flops, moved=moved, temp=m.temp_size_in_bytes,
-        link=sum(b * (2 if k == "all-reduce" else 1)
-                 for k, b in moved.items()),
+        link=link_bytes(moved),
         total=m.argument_size_in_bytes + m.output_size_in_bytes
         + m.temp_size_in_bytes - m.alias_size_in_bytes)
 print("JAX_OUT " + json.dumps(out))
@@ -247,21 +206,10 @@ print("JAX_OUT " + json.dumps(out))
 
 @pytest.fixture(scope="module")
 def reference():
-    env = dict(os.environ, JAX_PLATFORMS="cpu",
-               PYTHONPATH="src" + os.pathsep + os.environ.get("PYTHONPATH",
-                                                              ""))
     cases = [[a, s, list(m)] for a, s, m in ARG_CASES]
     costs = [[a, k, list(m), r, ROUTES[r], g, i]
              for a, k, m, r, g, i in COST_CASES]
-    proc = subprocess.run([sys.executable, "-c", JAX_SCRIPT,
-                           json.dumps(cases), json.dumps(costs),
-                           json.dumps([SMALL_S, SMALL_B])],
-                          env=env, cwd=ROOT,
-                          capture_output=True, text=True, timeout=600)
-    line = [ln for ln in proc.stdout.splitlines()
-            if ln.startswith("JAX_OUT ")]
-    assert line, proc.stdout + proc.stderr
-    return json.loads(line[0][len("JAX_OUT "):])
+    return run_jax(JAX_SCRIPT, cases, costs, [SMALL_S, SMALL_B])
 
 
 def _names(shape):
@@ -727,6 +675,27 @@ def _layouts_rank(rank: int, init_file: str):
             e = D._expand_over_batch(one, [4, 3])
         assert list(e.placements) == [Shard(0), Replicate()]
         assert torch.equal(e.full_tensor(), torch.full((4, 3), 0.25))
+        # a matrix's gradient, a sum over the tokens data splits: split as
+        # the matrix over model (its vocabulary gathered, d kept split),
+        # the partial sum over data left for the gradient's reduction
+        gt, xt = torch.randn(6, 4, generator=g), torch.randn(4, 8,
+                                                             generator=g)
+        got = D._as_weight_gradient(dt(gt, Shard(1), Shard(0)),
+                                    dt(xt, Shard(0), Replicate()),
+                                    [Replicate(), Shard(1)])
+        assert list(got.placements) == [Partial(), Shard(1)]
+        assert torch.allclose(got.full_tensor(), gt @ xt, atol=1e-5)
+        # a partial sum over model constrained onto a dim the axis does not
+        # divide (an uneven vocabulary): reduced whole in float32, each
+        # rank then its share
+        from repro_torch.parallel import sharding_constraint
+        v = torch.randn(4, 3, 5, generator=g).to(torch.bfloat16)
+        part = DTensor.from_local(v / 2, mesh, [Replicate(), Partial()],
+                                  run_check=False)
+        got = sharding_constraint(part, P(None, None, "model"), mesh)
+        assert list(got.placements) == [Replicate(), Shard(2)]
+        assert got.dtype == torch.float32
+        assert torch.equal(got.full_tensor(), v.to(torch.float32))
     finally:
         dist.destroy_process_group()
 
@@ -779,7 +748,6 @@ def _region_layouts_rank(rank: int, init_file: str):
     the dry run's layouts, forward and backward, against the same layer on
     the whole tensors; and each new layout alone against its operation."""
     from torch.distributed.tensor import Partial, distribute_tensor
-    import torch.nn.functional as F
     from repro_torch.models.mamba2 import Mamba2, mamba2_forward
     from repro_torch.models.moe import MoE, _moe_dense, moe_forward
     from repro_torch.models.layers import mlp_forward
@@ -843,11 +811,6 @@ def _region_layouts_rank(rank: int, init_file: str):
                                        dt(idx, Replicate(), Shard(0)), 0.0)
             assert list(got.placements) == list(pl)
             assert torch.equal(got.full_tensor(), dest.index_fill(0, idx, 0))
-        for dims in ([1], [0, 2]):
-            got = D._flip_layout(dt(torch.arange(32.).view(2, 4, 4),
-                                    Shard(1), Shard(2)), dims)
-            assert torch.equal(got.full_tensor(),
-                               torch.arange(32.).view(2, 4, 4).flip(dims))
         ids = torch.randint(0, 5, (12,), generator=g)
         ones = torch.ones(12)
         d = dt(torch.full((5,), 2.0), Replicate(), Replicate())
@@ -864,15 +827,6 @@ def _region_layouts_rank(rank: int, init_file: str):
         odd = D._split_keeping(dt(whole, Shard(0), Shard(2)), [5, 7], 2)
         assert [list(t.placements) for t in odd] == [[Shard(0),
                                                        Replicate()]] * 2
-        back = D._cat_keeping(list(pieces), 2)
-        assert list(back.placements) == [Shard(0), Shard(2)]
-        assert torch.equal(back.full_tensor(), whole)
-        padded = D._pad_layout(dt(whole, Shard(0), Shard(2)), [0, 0, 2, 0])
-        assert list(padded.placements) == [Shard(0), Shard(2)]
-        assert torch.equal(padded.full_tensor(), F.pad(whole, (0, 0, 2, 0)))
-        padded = D._pad_layout(dt(whole, Shard(0), Shard(2)), [1, 1])
-        assert list(padded.placements) == [Shard(0), Replicate()]
-        assert torch.equal(padded.full_tensor(), F.pad(whole, (1, 1)))
         with parallel_context(ctx):
             # a partial sum over model meeting a whole operand: reduced
             a = torch.randn(4, 6, generator=g)
@@ -911,10 +865,21 @@ def _region_layouts_rank(rank: int, init_file: str):
                 close(bd.grad, gy @ w.transpose(1, 2), "the input's gradient")
 
         # -- the MoE forms on DTensors, through the shard_map boundary (the
-        # dense route also under remat)
-        for arch, impl, remat in ((DENSE_MOE, "dense", False),
-                                  (DENSE_MOE, "dense", True),
-                                  (MOE, "ep", False), (MOE, "ep_a2a", False)):
+        # dense route also under remat, and with its capacity buffer laid
+        # out by the experts' weights, split along d over data, as where
+        # the model axis divides neither E nor C: qwen2-moe's at (16, 16),
+        # forced here, where a 2-way axis divides any capacity)
+        import repro_torch.models.moe as moe_module
+        by_weights = moe_module._buffer_placements
+        for arch, impl, remat, by_d in ((DENSE_MOE, "dense", False, False),
+                                        (DENSE_MOE, "dense", True, False),
+                                        (DENSE_MOE, "dense", False, True),
+                                        (MOE, "ep", False, False),
+                                        (MOE, "ep_a2a", False, False)):
+            moe_module._buffer_placements = (
+                lambda ctx, mesh, shape, w_up: by_weights(ctx, mesh, (3, 3),
+                                                          w_up)) \
+                if by_d else by_weights
             cfg = get_config(arch, "smoke").with_(
                 dtype="float32", moe_impl=impl, moe_capacity_factor=4.0)
             p = MoE(cfg, torch.float32, gen=torch.Generator().manual_seed(1))
@@ -940,26 +905,34 @@ def _region_layouts_rank(rank: int, init_file: str):
             want = _grads(p)
             for n, gr in _grads(pd).items():
                 close(gr, want[n], f"{impl} d{n}", 1e-4)
+        moe_module._buffer_placements = by_weights
 
-        # -- the Mamba-2 layer on DTensors
-        cfg = get_config(MAMBA, "smoke").with_(dtype="float32")
-        p = Mamba2(cfg, torch.float32, gen=torch.Generator().manual_seed(2))
-        p.requires_grad_(True)
-        xs = torch.randn(4, 32, cfg.d_model, generator=g)
-        x = xs.clone().requires_grad_(True)
-        y = mamba2_forward(p, x, cfg)
-        (y ** 2).sum().backward()
-        pd = _distributed(p, mesh, sizes)
-        assert list(pd.w_in.placements) == [Shard(0), Shard(1)]
-        xd = dt(xs, Shard(0), Replicate()).requires_grad_(True)
-        with parallel_context(ctx), _dry_run_layouts():
-            yd = mamba2_forward(pd, xd, cfg)
-            (yd ** 2).sum().backward()
-        close(yd, y.detach(), "mamba2 y")
-        close(xd.grad, x.grad, "mamba2 dx", 1e-4)
-        want = _grads(p)
-        for n, gr in _grads(pd).items():
-            close(gr, want[n], f"mamba2 d{n}", 1e-4)
+        # -- the Mamba-2 layer on DTensors, by heads: 8 heads, and 3 (a
+        # d_model of 96), which split unevenly over the 2-way model axis,
+        # as 24 over 16 ranks, with 451 projection columns and w_in
+        # replicated, as mamba2-130m's 3352 columns at (16, 16)
+        for d_model, w_in in ((256, [Shard(0), Shard(1)]),
+                              (96, [Replicate(), Replicate()])):
+            cfg = get_config(MAMBA, "smoke").with_(dtype="float32",
+                                                   d_model=d_model)
+            p = Mamba2(cfg, torch.float32,
+                       gen=torch.Generator().manual_seed(2))
+            p.requires_grad_(True)
+            xs = torch.randn(4, 32, cfg.d_model, generator=g)
+            x = xs.clone().requires_grad_(True)
+            y = mamba2_forward(p, x, cfg)
+            (y ** 2).sum().backward()
+            pd = _distributed(p, mesh, sizes)
+            assert list(pd.w_in.placements) == w_in
+            xd = dt(xs, Shard(0), Replicate()).requires_grad_(True)
+            with parallel_context(ctx), _dry_run_layouts():
+                yd = mamba2_forward(pd, xd, cfg)
+                (yd ** 2).sum().backward()
+            close(yd, y.detach(), f"mamba2 {d_model} y")
+            close(xd.grad, x.grad, f"mamba2 {d_model} dx", 1e-4)
+            want = _grads(p)
+            for n, gr in _grads(pd).items():
+                close(gr, want[n], f"mamba2 {d_model} d{n}", 1e-4)
     finally:
         dist.destroy_process_group()
 
