@@ -175,9 +175,11 @@ printed:
               (c) (run after phase 5's profiles, before 4i: its processes
               share the card) the production rows of ``DRYRUN_ROWS``
               (``python -m repro_torch.launch.dryrun --arch <a> --shape
-              train_4k --mesh single``: llama3.2-1b, jamba-v0.1-52b,
-              qwen2-moe-a2.7b and mamba2-130m), each in a subprocess of its
-              own, all started together, each ``OK`` within
+              <s> --mesh <m>``: train_4k on (16, 16) of llama3.2-1b,
+              jamba-v0.1-52b, qwen2-moe-a2.7b and mamba2-130m;
+              llama3.2-1b's prefill_32k, decode_32k and long_500k on
+              (16, 16) and its train_4k on (2, 16, 16)), each in a
+              subprocess of its own, all started together, each ``OK`` within
               ``DRYRUN_ROW_S``, printed, with its TFLOP a device, peak a
               device and useful share on a line of its own;
 6. summary  — one ``{"kernels": [...]}`` JSON line (quantize and dequantize
@@ -370,14 +372,22 @@ PAR_ARCH, PAR_S, PAR_B = "qwen2-moe-a2.7b", 4096, 1
 # subprocess must end within DRYRUN_ROW_S
 DRYRUN_PEAK = (0.90, 1.02)
 DRYRUN_ROW_S = 600
-# 4j(c)'s production rows, train_4k on (16, 16), each in its own process:
+# 4j(c)'s production rows, each in its own process: train_4k on (16, 16) of
 # llama3.2-1b (the dense decoder), jamba-v0.1-52b (one row through Mamba-2,
 # the `ep` MoE's shard_map boundary and attention), qwen2-moe-a2.7b (the
 # dense MoE route: 60 experts do not split 16 ways, nor its capacity) and
 # mamba2-130m (3352 projection columns, 24 heads and a vocabulary of 50280
-# split unevenly)
-DRYRUN_ROWS = (MODEL_ARCH, "jamba-v0.1-52b", "qwen2-moe-a2.7b",
-               "mamba2-130m")
+# split unevenly); and llama3.2-1b's serving and two-pod rows, whose
+# layouts the dry run gives itself: the query heads split over the model
+# axis with each rank's key heads (a prefill's and a two-pod step's batch
+# does not split 16 ways), and a decode's cache split along its slots,
+# written and attended by each rank's share. (arch, shape, mesh)
+DRYRUN_ROWS = tuple((a, "train_4k", "single") for a in (
+    MODEL_ARCH, "jamba-v0.1-52b", "qwen2-moe-a2.7b", "mamba2-130m")) + (
+    (MODEL_ARCH, "prefill_32k", "single"),
+    (MODEL_ARCH, "decode_32k", "single"),
+    (MODEL_ARCH, "long_500k", "single"),
+    (MODEL_ARCH, "train_4k", "multi"))
 PAR_FORMS = (("ep", (1, 4), 1), ("ep", (2, 2), 2), ("ep_a2a", (1, 4), 1))
 PAR_LAYER_REL, PAR_LAYER_REPS = 1e-2, 3
 # (b) training through the launcher's code path at PAR_MESH, B 1, S 4096,
@@ -2073,16 +2083,19 @@ def dryrun_production_row() -> None:
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as out:
         procs = []
-        for arch in DRYRUN_ROWS:
-            d = os.path.join(out, arch)
+        for arch, shape, mesh in DRYRUN_ROWS:
+            d = os.path.join(out, f"{arch}__{shape}__{mesh}")
             os.makedirs(d)
             cmd = [sys.executable, "-m", "repro_torch.launch.dryrun",
-                   "--arch", arch, "--shape", "train_4k", "--mesh",
-                   "single", "--out", d]
-            procs.append((arch, d, time.perf_counter(), subprocess.Popen(
-                cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE,
-                stderr=subprocess.PIPE, text=True)))
-        for arch, d, start, proc in procs:
+                   "--arch", arch, "--shape", shape, "--mesh", mesh,
+                   "--out", d]
+            procs.append(((arch, shape, mesh), d, time.perf_counter(),
+                          subprocess.Popen(cmd, cwd=ROOT, env=env,
+                                           stdout=subprocess.PIPE,
+                                           stderr=subprocess.PIPE,
+                                           text=True)))
+        for (arch, shape, mesh), d, start, proc in procs:
+            arch_row = f"{arch} {shape} {mesh}"
             try:
                 stdout, stderr = proc.communicate(
                     timeout=max(1.0, DRYRUN_ROW_S - (time.perf_counter()
@@ -2091,23 +2104,23 @@ def dryrun_production_row() -> None:
                 for *_, other in procs:
                     other.kill()
                     other.communicate()
-                check(False, f"the dry run's {arch} row ran past "
+                check(False, f"the dry run's {arch_row} row ran past "
                       f"{DRYRUN_ROW_S} s")
             wall = time.perf_counter() - start
             lines = [ln for ln in stdout.splitlines()
                      if ln.startswith(("OK", "FAIL"))]
             check(proc.returncode == 0 and lines
                   and lines[0].startswith("OK"),
-                  f"the dry run's {arch} row failed (exit "
+                  f"the dry run's {arch_row} row failed (exit "
                   f"{proc.returncode}): {stdout[-2000:]}{stderr[-2000:]}")
             files = os.listdir(d)
-            check(len(files) == 1, f"the {arch} row's files: {files}")
+            check(len(files) == 1, f"the {arch_row} row's files: {files}")
             with open(os.path.join(d, files[0])) as f:
                 row = json.load(f)
             print(f"4j(c): {lines[0]} ({wall:.1f} s with the process)",
                   flush=True)
             print("4j(c) row: " + json.dumps(row), flush=True)
-            print(f"4j(c) {arch} train_4k 16x16: "
+            print(f"4j(c) {arch} {shape} {row['mesh']}: "
                   f"{row['per_device']['flops'] / 1e12:.1f} TFLOP/dev, peak "
                   f"{row['memory']['total_bytes'] / 2**30:.2f} GiB/dev, "
                   f"useful {row['roofline']['useful_flops_ratio']:.3f}",

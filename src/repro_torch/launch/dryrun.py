@@ -63,9 +63,27 @@ How each part of the reference is carried over:
     output, may gather the tokens or leave an output of every column; a
     weight dim split with the data axes over the model axis too (``wq``
     and ``wo`` where the heads do not divide it) is gathered over the
-    model axis as well, as GSPMD does; in the backward, a row-parallel
+    model axis as well, as GSPMD does, and where such a dim is the
+    contraction met by features the model axis splits (an
+    encoder-decoder's cross-attention query), the partial sum is reduced
+    whole at once; inside the model's ``parallel.layouts.keep_d_split``
+    hook (an encoder-decoder's layers, where GSPMD keeps d split over the
+    model axis because the cross-attention's query contracts it split),
+    ``wo``'s output columns keep the model axis's share of d, and a step
+    whose tokens hold fewer bytes than the weight's share (a decode) moves
+    the tokens over the data axes and keeps the weight's split; neither
+    rule holds for a decoder-only model (with the size test alone, five
+    decodes' link bytes fall to 0.43-0.49 of the reference's); in the
+    backward, a row-parallel
     product's partial sum (the gradient of a column-parallel input) is
-    reduced whole, Megatron's all-reduce; the experts' stacked weights
+    reduced whole, Megatron's all-reduce; a stacked weight's gradient
+    against a partial sum over the data axes reduces the partial sum and
+    keeps the buffer's split (DTensor gathers the buffer over a flattened
+    pair of data axes); in the backward on the (2, 16, 16) mesh an
+    operand DTensor splits in its strided way (a batch-and-heads dim) is
+    made whole over that mesh dim first (:func:`_unstrided_product`:
+    DTensor's strategy search over strided placements of three mesh dims
+    takes minutes a product); the experts' stacked weights
     against the dense MoE path's capacity buffer, which the data axes
     leave whole, are gathered in the forward (but for the output columns
     of a product the model axis contracts: those stay split, and the
@@ -109,6 +127,28 @@ How each part of the reference is carried over:
     decode step's split of the column-split projection into (z, x, B, C,
     dt) keeps each piece the ranks divide split along the columns, as
     GSPMD keeps a slice of a split dim split (:func:`_split_keeping`);
+  - attention where the model axis divides the query heads and not the
+    key heads and leaves the batch whole (a prefill's, a decode's or a
+    two-pod step's): the model's layout hook
+    ``parallel.layouts.kv_by_query_heads`` gives K and V repeated to the
+    query's heads, split over the model axis as q is, each rank
+    projecting only its groups' key heads, as GSPMD propagates the query
+    heads' split into the projections; DTensor's strategies split the
+    batch or nothing (each model rank all the heads);
+  - a decode step against a cache the model axis splits along its slots
+    (``cache_specs``' rule where it does not divide the KV heads): the
+    rank holding the step's slot writes it in place
+    (``parallel.layouts.write_slot``; DTensor's ``select`` gathers the
+    cache), and the softmax over the slots reduces each rank's max and
+    sum (:func:`_split_softmax`; DTensor gathers the logits);
+  - the default positions, a broadcast ``arange`` the model builds whole
+    over the batch, are laid out as the activations' batch
+    (``parallel.layouts.split_as_batch``), as GSPMD propagates the batch
+    split into them: DTensor computes the rotary angles of the whole
+    batch on every rank;
+  - the data axes ("pod", "data") of the (2, 16, 16) mesh are flattened
+    into one mesh dim of 32 (``DeviceMesh._flatten``), which DTensor's
+    redistributions use to reduce or gather over both at once;
   - the logits' constraint onto a vocabulary the model axis does not
     divide (mamba2-130m's 50280, whisper-large-v3's 51866) reduces their
     partial sum whole, in float32, before each rank keeps its share, as
@@ -161,8 +201,10 @@ How each part of the reference is carried over:
   ``unknown_collectives`` names any other collective op the trace made,
   uncounted, as the reference tallies an HLO dtype it does not know.
 * ``memory_analysis()``: ``argument_bytes`` exactly, the local storages of
-  the parameters, optimizer state, batch and cache (the decode cache's
-  position is a host integer here, where the reference's is a 0-d int32);
+  the parameters, optimizer state, batch and cache that an operation of
+  the step reads (``jax.jit`` drops unused arguments: a decode step reads
+  no encoder weight), the decode cache's position a host integer here,
+  where the reference's is a 0-d int32;
   ``total_bytes`` the peak of live local storage over the step, tracked
   through every operation's outputs until Python frees them;
   ``temp_bytes`` the peak less the arguments; ``output_bytes`` the storage
@@ -226,6 +268,7 @@ from ..optim import AdamWConfig, AdamWState
 from ..parallel import (ParallelContext, batch_spec, cache_specs,
                         get_parallel_context, mesh_shape, param_placements,
                         param_specs, parallel_context, sharding_constraint)
+from ..parallel.layouts import contiguous_stride, d_split_kept
 from ..parallel.sharding import P
 from ..train import TrainConfig, make_train_step
 from ..train.train_step import EXPLICIT_MODES, Mesh
@@ -266,8 +309,9 @@ PEAK_LARGEST = 8         # the largest storages live at the peak, reported
 # tensor, its sharding propagator's shape inference, strategy table and
 # cache and local offsets; c10d's group resolution; a storage's identity;
 # the caller's frames; autograd's current graph task; the current dispatch
-# mode. They were tried on the releases below; on any other the dry run
-# refuses to run rather than count wrong.
+# mode; a device mesh's flattening of two of its dims; DTensor's all-to-all
+# of a shard onto another dim. They were tried on the releases below; on
+# any other the dry run refuses to run rather than count wrong.
 TORCH_TESTED = ("2.11", "2.13")
 
 
@@ -275,6 +319,7 @@ def check_torch() -> None:
     """Raise unless this torch is one :data:`TORCH_TESTED` names and has
     every internal the accounting uses."""
     from torch.distributed.tensor import _utils as dtensor_utils
+    from torch.distributed.tensor import placement_types as dtensor_placements
     from torch.distributed.tensor._sharding_prop import ShardingPropagator
     release = ".".join(torch.__version__.split(".")[:2])
     if release not in TORCH_TESTED:
@@ -290,7 +335,10 @@ def check_torch() -> None:
              (torch.UntypedStorage, "_cdata"), (sys, "_getframe"),
              (torch._C, "_current_graph_task_id"),
              (torch.utils._python_dispatch, "_get_current_dispatch_mode"),
-             (dtensor_utils, "compute_local_shape_and_global_offset")]
+             (dtensor_utils, "compute_local_shape_and_global_offset"),
+             (DeviceMesh, "_flatten"),
+             (dtensor_placements, "shard_dim_alltoall"),
+             (torch.ops._dtensor, "shard_dim_alltoall")]
     missing = [f"{getattr(o, '__name__', type(o).__name__)}.{n}"
                for o, n in needs if not hasattr(o, n)]
     if missing:
@@ -411,6 +459,27 @@ def _views_reshard():
         prop.propagate_op_sharding.cache_clear()
 
 
+@contextlib.contextmanager
+def _alltoall_as_on_cuda():
+    """DTensor's redistribution of a shard onto another dim takes, on a
+    CPU mesh, an all-gather and a chunk (gloo has no all-to-all); on a
+    CUDA mesh, ``_dtensor.shard_dim_alltoall``. While the step traces,
+    a CPU mesh takes the CUDA path too (its fake accepts fake tensors),
+    so that the rows of ``--device cpu`` count the card's all-to-all."""
+    from torch.distributed.tensor import placement_types
+    real = placement_types.shard_dim_alltoall
+
+    def alltoall(input, gather_dim, shard_dim, mesh, mesh_dim):
+        return torch.ops._dtensor.shard_dim_alltoall(
+            input, gather_dim, shard_dim, mesh.get_group(mesh_dim).group_name)
+
+    placement_types.shard_dim_alltoall = alltoall
+    try:
+        yield
+    finally:
+        placement_types.shard_dim_alltoall = real
+
+
 # ------------------------------------------------------------ process group
 @contextlib.contextmanager
 def fake_process_group(world: int):
@@ -456,7 +525,7 @@ def _fake(shape, dtype, device: str, mesh: DeviceMesh, spec: P
     t = torch.empty(local, dtype=dtype, device=device)
     return DTensor.from_local(t, mesh, placements, run_check=False,
                               shape=torch.Size(shape),
-                              stride=_contiguous_stride(shape))
+                              stride=contiguous_stride(shape))
 
 
 def _fake_params(cfg: ModelConfig, mesh: DeviceMesh, device: str,
@@ -509,6 +578,11 @@ def build_dryrun(arch: str, shape_name: Union[str, Mapping[str, Any]],
         cfg = cfg.with_(moe_impl=moe_impl)
     dp_axes, model_axis = mesh_axes(mesh)
     dp = dp_axes if len(dp_axes) > 1 else dp_axes[0]
+    if len(dp_axes) > 1:
+        # DTensor then reduces or gathers over ("pod", "data") at once,
+        # as one group of 32, where it would go one mesh dim after the
+        # other (twice an all-reduce's bytes, 1.5 times an all-gather's)
+        mesh[dp_axes]._flatten()
     sizes = mesh_shape(mesh)
     if kind == "decode" and shape_name == "long_500k":
         if not cfg.supports_long_decode():
@@ -701,6 +775,7 @@ class Accountant(TorchDispatchMode):
         self._peak_dirty = False
         self.at_peak: List[Tuple] = []     # see live_at_peak
         self._global_q: Optional[Tuple[int, ...]] = None
+        self.read: set = set()      # the storages an operation has read
 
     # -- storage
     def track(self, t: torch.Tensor, origin: str = "argument") -> int:
@@ -780,6 +855,8 @@ class Accountant(TorchDispatchMode):
                 (4 if _FLASH[name] == "fwd" else 8) * b * h * sq * sk * d
         ins, outs = _tensors(list(args) + list(kwargs.values())), \
             _tensors(out)
+        if not func.is_view:
+            self.read.update(_storage_key(t) for t in ins)
         for t in outs:
             self.track(t, str(packet))
         ns = getattr(func, "namespace", "")
@@ -817,14 +894,6 @@ class Accountant(TorchDispatchMode):
 
 
 # ------------------------------------------------- layouts the dry run gives
-def _contiguous_stride(shape) -> Tuple[int, ...]:
-    stride, n = [], 1
-    for d in reversed(tuple(shape)):
-        stride.append(n)
-        n *= max(d, 1)
-    return tuple(reversed(stride))
-
-
 def _product_placement(pa, pb, nd: int):
     """The placement of ``a @ b`` (``nd``-dim operands) over one mesh dim
     where ``a``'s is ``pa`` and ``b``'s ``pb`` and neither needs moving;
@@ -861,7 +930,13 @@ def _gather_weight(a, b):
     pass, the gradient of a column-parallel input (its features and the
     weight's rows split over the model axis, unless the sequence is) is
     reduced whole at once, Megatron's all-reduce, where DTensor scatters
-    the partial sum over the batch.
+    the partial sum over the batch; so is, in the forward too, a product
+    whose contraction the model axis splits with the data axes (an
+    encoder-decoder's cross-attention query). Under
+    ``parallel.layouts.keep_d_split`` the output columns such a weight
+    splits keep the model axis's share, and a step whose tokens hold
+    fewer bytes than the weight's share moves the tokens over the data
+    axes instead of the weight (the output's tokens split back after).
 
     A batched product of a stack of weights, one a batch entry (the
     experts' (E, d, f)), against an operand a data axis leaves whole (the
@@ -876,14 +951,18 @@ def _gather_weight(a, b):
     product of two operands a data axis leaves whole whose output has the
     shape of a stacked weight the step trains is that weight's gradient:
     each rank computes its share, in the weight's layout (DTensor computes
-    it whole on every rank). In the backward, a sum over the tokens whose
-    output has a trainable matrix's shape is that matrix's gradient, laid
-    out by :func:`_as_weight_gradient`.
+    it whole on every rank); against a partial sum over the data axes, the
+    partial sum is reduced and the operand's split kept. In the backward,
+    a sum over the tokens whose output has a trainable matrix's shape is
+    that matrix's gradient, laid out by :func:`_as_weight_gradient`.
     ``NotImplemented`` where none of these holds."""
     ctx = get_parallel_context()
     if ctx is None or not isinstance(a, DTensor) \
             or not isinstance(b, DTensor):
         return NotImplemented
+    if a.device_mesh.ndim > 2 and _in_backward() and any(
+            _strided(p) for p in a.placements + b.placements):
+        return _unstrided_product(a, b)
     rows, feats, mesh = a.ndim - 2, a.ndim - 1, a.device_mesh
     names = mesh.mesh_dim_names or ()
     stacked = a.ndim == 3 and a.shape[0] > 1
@@ -906,6 +985,7 @@ def _gather_weight(a, b):
         and a.placements[model].is_shard(feats) \
         and b.placements[model].is_shard(b.ndim - 2)
     gather_a, gather_b, split_a, split_b, reduce = [], [], [], [], []
+    move_a = []
     for m, (pa, pb) in enumerate(zip(a.placements, b.placements)):
         data = names[m] in ctx.data_axes
         if mesh.size(m) == 1:
@@ -917,10 +997,18 @@ def _gather_weight(a, b):
             elif weight[m].is_shard(feats):
                 split_b.append(m)
             continue
+        if data and weight is not None and pa.is_shard(rows) \
+                and pb.is_partial():    # a stacked weight's gradient
+            gather_b.append(m)      # the partial sum reduced, a kept split
+            continue
         if not pb.is_shard() or pb.dim == b.ndim - 3:
             continue
         if data and pa.is_shard(rows):
-            gather_b.append(m)
+            if d_split_kept() and not (stacked or backward) \
+                    and _nbytes(a.to_local()) < _nbytes(b.to_local()):
+                move_a.append(m)    # the tokens move, not the weight
+            else:
+                gather_b.append(m)
         elif data and stacked and pa.is_replicate():
             if pb.dim == b.ndim - 2 or not (backward or row_parallel):
                 gather_b.append(m)
@@ -931,19 +1019,30 @@ def _gather_weight(a, b):
             gather_a.append(m)
         elif names[m] == ctx.model_axis and pa.is_replicate() and any(
                 n in gather_b and q.is_shard(pb.dim)
-                for n, q in enumerate(b.placements)):
+                for n, q in enumerate(b.placements)) and not (
+                    d_split_kept() and pb.dim == b.ndim - 1):
             gather_b.append(m)      # a dim FSDP splits with the data axes
-        elif names[m] == ctx.model_axis and backward and pa.is_shard(feats) \
-                and pb.dim == b.ndim - 2 and not ctx.sequence_parallel:
+        elif names[m] == ctx.model_axis and pa.is_shard(feats) \
+                and pb.dim == b.ndim - 2 and not ctx.sequence_parallel and (
+                    backward or any(n in gather_b and q.is_shard(pb.dim)
+                                    for n, q in enumerate(b.placements))):
             reduce.append(m)
     pa = [Replicate() if m in gather_a else Shard(rows) if m in split_a
           else p for m, p in enumerate(a.placements)]
     pb = [Replicate() if m in gather_b else Shard(b.ndim - 1) if m in split_b
           else p for m, p in enumerate(b.placements)]
+    for m in move_a:    # the weight's split kept: a matches it
+        pa[m] = Shard(feats) if b.placements[m].is_shard(b.ndim - 2) \
+            else Replicate()
+    for m, (x, y) in enumerate(zip(pa, pb)):
+        if move_a and x.is_shard(feats) and y.is_replicate():
+            pb[m] = Shard(b.ndim - 2)       # sliced where it is whole
     out = [_product_placement(x, y, a.ndim) for x, y in zip(pa, pb)]
     if None in out:     # the reduction is left to DTensor's rule
         reduce = []
-    if not (gather_a or gather_b or split_a or split_b or reduce):
+        if move_a:
+            return NotImplemented
+    if not (gather_a or gather_b or split_a or split_b or reduce or move_a):
         return NotImplemented
     # below autograd already; detached, so that redistribute's autograd
     # Function, run in the backward pass on a weight that needs a gradient,
@@ -952,6 +1051,12 @@ def _gather_weight(a, b):
     b = b.detach().redistribute(mesh, pb)
     product = torch.ops.aten.bmm.default if a.ndim == 3 \
         else torch.ops.aten.mm.default
+    if move_a:          # the output's tokens split back over the data axes
+        shape = tuple(a.shape[:-1]) + (b.shape[-1],)
+        y = _dtensor(product(a.to_local(), b.to_local()), a, out, shape)
+        return y.redistribute(mesh, [
+            Shard(rows) if m in move_a else Replicate() if m in reduce else p
+            for m, p in enumerate(out)])
     if not reduce:
         return product(a, b)
     # the product on each rank's shares, then its partial sum reduced
@@ -959,6 +1064,31 @@ def _gather_weight(a, b):
     return _dtensor(product(a.to_local(), b.to_local()), a, out, shape
                     ).redistribute(mesh, [Replicate() if m in reduce else p
                                           for m, p in enumerate(out)])
+
+
+def _strided(p) -> bool:
+    """Whether ``p`` is DTensor's ``_StridedShard`` (a dim merged from two
+    split dims: the batch split over the data axes, the heads over the
+    model axis)."""
+    return type(p).__name__ == "_StridedShard"
+
+
+def _unstrided_product(a, b):
+    """``a @ b`` in the backward pass where a mesh dim of a mesh of three
+    splits an operand in DTensor's strided way (the gradients of an
+    attention's batch-and-heads dim, merged from the batch split over
+    ("pod", "data") and the heads over "model"): that operand is made
+    whole over that mesh dim first. DTensor's search for a strategy over
+    such placements of the (2, 16, 16) mesh takes minutes a product (the
+    forward's are quick, and laid out by DTensor: a decode's cache stays
+    split)."""
+    mesh = a.device_mesh
+    a, b = (t.detach().redistribute(mesh, [Replicate() if _strided(p)
+                                           else p for p in t.placements])
+            for t in (a, b))
+    product = torch.ops.aten.bmm.default if a.ndim == 3 \
+        else torch.ops.aten.mm.default
+    return product(a, b)
 
 
 def _as_weight_gradient(a, b, want):
@@ -1036,7 +1166,7 @@ def _embedding_lookup(table, indices):
                                      ).to(local.dtype)
     shape = torch.Size(tuple(idx.shape) + tuple(table.shape[1:]))
     return DTensor.from_local(local, mesh, out, run_check=False,
-                              shape=shape, stride=_contiguous_stride(shape))
+                              shape=shape, stride=contiguous_stride(shape))
 
 
 def _embedding_grad(dest, indices, values, accumulate=False):
@@ -1113,7 +1243,7 @@ def _zeros_like_source(src, size, dtype=None, layout=None, device=None,
     local = src.to_local().new_zeros(shape, dtype=dtype or src.dtype)
     size = torch.Size(size)
     return DTensor.from_local(local, mesh, placements, run_check=False,
-                              shape=size, stride=_contiguous_stride(size))
+                              shape=size, stride=contiguous_stride(size))
 
 
 def _scatter_into_split(dest, dim, index, src):
@@ -1174,7 +1304,7 @@ def _argmax_layout(x, dim=None, keepdim=False):
             return DTensor.from_local(
                 t, mesh, [Shard(d) if i == m else p
                           for i, p in enumerate(kept)], run_check=False,
-                shape=torch.Size(each), stride=_contiguous_stride(each)
+                shape=torch.Size(each), stride=contiguous_stride(each)
             ).redistribute(mesh, kept).to_local()
 
         top, index = over_ranks(top), over_ranks(index)
@@ -1190,7 +1320,7 @@ def _argmax_layout(x, dim=None, keepdim=False):
                       for p in kept]
     shape = torch.Size(shape)
     return DTensor.from_local(index, mesh, placements, run_check=False,
-                              shape=shape, stride=_contiguous_stride(shape))
+                              shape=shape, stride=contiguous_stride(shape))
 
 
 def _expand_over_batch(x, size, implicit=False):
@@ -1234,6 +1364,22 @@ def _split_logsumexp(x, dim, keepdim=False):
     return out if keepdim else out.squeeze(d)
 
 
+def _split_softmax(x, dim, half_to_float=False):
+    """``x.softmax(dim)`` along a dim that mesh dims split (a decode
+    step's logits over a cache split along its slots) on a DTensor: each
+    rank's max and sum of exponentials reduced over those mesh dims, the
+    probabilities left split, as GSPMD reduces them; DTensor gathers the
+    whole dim."""
+    if not isinstance(x, DTensor) or half_to_float:
+        return NotImplemented
+    d = dim % x.ndim
+    if not _split_dims(x, d) or any(p.is_partial() for p in x.placements):
+        return NotImplemented
+    # the max and the sum are partial over the split: reduced, not moved
+    e = torch.exp(x - _whole(torch.amax(x, d, keepdim=True), []))
+    return e / _whole(torch.sum(e, d, keepdim=True), [])
+
+
 def _whole(t, dims=None):
     """``t`` with every partial sum reduced and, over each mesh dim that
     splits one of ``dims`` (every dim when ``None``), gathered."""
@@ -1249,7 +1395,7 @@ def _dtensor(local, like, placements, shape):
     shape = torch.Size(shape)
     return DTensor.from_local(local, like.device_mesh, placements,
                               run_check=False, shape=shape,
-                              stride=_contiguous_stride(shape))
+                              stride=contiguous_stride(shape))
 
 
 def _searchsorted_layout(seq, x, *, out_int32=False, right=False,
@@ -1482,6 +1628,7 @@ _LAYOUTS = {torch.ops.aten.mm.default: _gather_weight,
             torch.ops.aten.scatter_add.default: _scatter_into_split,
             torch.ops.aten.expand.default: _expand_over_batch,
             torch.ops.aten.logsumexp.default: _split_logsumexp,
+            torch.ops.aten._softmax.default: _split_softmax,
             torch.ops.aten.argmax.default: _argmax_layout,
             torch.ops.aten.searchsorted.Tensor: _searchsorted_layout,
             torch.ops.aten.index_copy_.default: _index_copy_layout,
@@ -1517,10 +1664,13 @@ def account(fn, args: Tuple) -> Dict[str, Any]:
     check_torch()
     tensors = _leaves(args)
     acct = Accountant(_fake_mode_of(tensors), tensors)
-    with implicit_replication(), _views_reshard(), \
+    with implicit_replication(), _views_reshard(), _alltoall_as_on_cuda(), \
             _shape_inference_uncounted(acct), acct:
-        arg_bytes = sum(acct.track(_local(t)) for t in tensors)
-        held = {_storage_key(_local(t)) for t in tensors}
+        held = {}       # each storage once, however many leaves share it
+        for t in tensors:
+            key = _storage_key(_local(t))
+            if key not in held:
+                held[key] = acct.track(_local(t))
         t0 = time.perf_counter()
         out = fn(*args)
         trace_s = time.perf_counter() - t0
@@ -1530,6 +1680,11 @@ def account(fn, args: Tuple) -> Dict[str, Any]:
             if key not in held:
                 new[key] = _local(t).untyped_storage().nbytes()
         del out
+    # as jax.jit drops the arguments a step never reads (its default
+    # keep_unused=False: a decode step's encoder and cross-attention K/V
+    # weights), they count neither as arguments nor at the peak
+    unused = sum(n for k, n in held.items() if k not in acct.read)
+    arg_bytes = sum(held.values()) - unused
     live = acct.live_at_peak()
     return {
         "flops": acct.flops, "bytes_accessed": acct.bytes,
@@ -1546,8 +1701,8 @@ def account(fn, args: Tuple) -> Dict[str, Any]:
         "live_at_peak": live,
         "memory": {"argument_bytes": arg_bytes,
                    "output_bytes": sum(new.values()),
-                   "temp_bytes": acct.peak - arg_bytes,
-                   "total_bytes": acct.peak},
+                   "temp_bytes": acct.peak - unused - arg_bytes,
+                   "total_bytes": acct.peak - unused},
         "trace_s": trace_s,
     }
 

@@ -35,6 +35,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..kernels import flash_attention
+from ..parallel.layouts import kv_by_query_heads
 from .config import ModelConfig
 
 
@@ -219,8 +220,16 @@ def decode_attention(q1, k_cache, v_cache, valid_len) -> torch.Tensor:
 
 def project_qkv(p: Attention, x: torch.Tensor):
     """``x @ wq``, ``x @ wk``, ``x @ wv`` as (B, S, heads, hd), plus the
-    biases where the config has them."""
+    biases where the config has them. On DTensors whose model axis divides
+    the query heads and not the key heads, K and V come repeated to the
+    query's heads and split as q is
+    (:func:`~repro_torch.parallel.layouts.kv_by_query_heads`, a layout
+    hook)."""
     q = torch.einsum("bsd,dhx->bshx", x, p.wq)
+    kv = None if hasattr(p, "bk") \
+        else kv_by_query_heads(x, p.wk, p.wv, p.wq.shape[1])
+    if kv is not None:
+        return (q,) + kv
     k = torch.einsum("bsd,dhx->bshx", x, p.wk)
     v = torch.einsum("bsd,dhx->bshx", x, p.wv)
     if hasattr(p, "bq"):

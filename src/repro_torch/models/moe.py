@@ -66,6 +66,7 @@ from torch import nn
 from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from ..parallel import P, get_parallel_context, param_placements
+from ..parallel.layouts import redistribute_over_data
 from ..parallel.regions import (all_to_all, exchange, gather_rows,
                                 mean_over, reduce_from, shard_map)
 from .config import ModelConfig
@@ -249,8 +250,8 @@ def _by_features(x2d: torch.Tensor, w_up, e_loc: int, cap: int
     placements = _buffer_placements(ctx, mesh, (e_loc, cap), w_up)
     if placements is None or not any(p.is_shard(2) for p in placements):
         return x2d
-    return x2d.redistribute(mesh, [Shard(1) if p.is_shard(2)
-                                   else Replicate() for p in placements])
+    return redistribute_over_data(x2d, [Shard(1) if p.is_shard(2)
+                                        else Replicate() for p in placements])
 
 
 def _moe_dense(p: MoE, x2d: torch.Tensor, cfg: ModelConfig

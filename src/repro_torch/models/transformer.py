@@ -31,6 +31,7 @@ The functions keep the reference's names and signatures, with ``params`` a
 """
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Any, Dict, List, Optional, Tuple
 
@@ -41,6 +42,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..kernels.ops import resolve_device
 from ..parallel import P, get_parallel_context, param_placements
+from ..parallel.layouts import keep_d_split, split_as_batch, write_slot
 from .config import ModelConfig
 from .layers import (MLP, Attention, Embeddings, RMSNorm, attention_forward,
                      decode_attention, embed, mlp_forward, project_qkv,
@@ -177,9 +179,14 @@ def _decoder_sublayer(p: DecoderLayer, x, positions, cfg: ModelConfig,
                       ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     h = rmsnorm(p.norm1, x, cfg.norm_eps)
     if hasattr(p, "attn"):
-        x = x + attention_forward(p.attn, h, positions, cfg, causal=True)
+        # the output feeds the cross-attention's query, which contracts it
+        # split: its d keeps the model axis's share (a layout hook)
+        with keep_d_split() if enc_out is not None \
+                and hasattr(p, "cross") else contextlib.nullcontext():
+            x = x + attention_forward(p.attn, h, positions, cfg, causal=True)
     else:
         x = x + mamba2_forward(p.ssm, h, cfg)
+    del h       # not held through the next norm, as XLA reuses its buffer
     if enc_out is not None and hasattr(p, "cross"):
         hc = rmsnorm(p.norm_cross, x, cfg.norm_eps)
         ck = torch.einsum("bsd,dhx->bshx", enc_out, p.cross.wk)
@@ -271,7 +278,9 @@ def forward(params: Transformer, tokens: torch.Tensor, cfg: ModelConfig, *,
         x = torch.cat([extra_embeds.to(x.dtype), x], dim=1)
         S = x.shape[1]
     if positions is None:
-        positions = _default_positions(cfg, B, S, device=x.device)
+        # laid out as the batch is (a layout hook)
+        positions = split_as_batch(
+            _default_positions(cfg, B, S, device=x.device), x)
     enc_out = None
     if cfg.is_encoder_decoder:
         if frames is None:
@@ -357,8 +366,8 @@ def _attn_decode_sublayer(p: DecoderLayer, x1, pos: int,
     if write >= C:
         raise ValueError(f"decode position {pos} is past the cache's {C} "
                          f"slots (max_len)")
-    cache_kv["k"][:, write] = k1[:, 0]
-    cache_kv["v"][:, write] = v1[:, 0]
+    write_slot(cache_kv["k"], write, k1)
+    write_slot(cache_kv["v"], write, v1)
     att = decode_attention(q, cache_kv["k"], cache_kv["v"], min(pos + 1, C))
     x1 = x1 + torch.einsum("bshx,hxd->bsd", att, p.attn.wo)
     if cross_kv is not None and hasattr(p, "cross"):
@@ -387,7 +396,11 @@ def decode_step(params: Transformer, cache: Dict[str, Any],
     cross = cache.get("cross") or [None] * len(params.layers)
     for p, c, ckv in zip(params.layers, cache["layers"], cross):
         if hasattr(p, "attn"):
-            x = _attn_decode_sublayer(p, x, pos, c, cfg, ckv)
+            # an encoder-decoder's step keeps d split over the model axis
+            # through both attentions (a layout hook)
+            with keep_d_split() if ckv is not None \
+                    else contextlib.nullcontext():
+                x = _attn_decode_sublayer(p, x, pos, c, cfg, ckv)
         else:
             h = rmsnorm(p.norm1, x, cfg.norm_eps)
             x = x + mamba2_decode_step(p.ssm, h, c, cfg)[0]

@@ -21,13 +21,15 @@ COMP = re.compile(r"^(?:ENTRY )?%([\w.\-]+) .*\{$")
 DEF = re.compile(r"^\s*(?:ROOT )?%([\w.\-]+) = [a-z0-9]+\[([0-9,]*)\]")
 
 
-def costs(hlo):
+def costs(hlo, loops=False):
     """``(flops, moved)`` of an optimized HLO module: the dots' FLOPs (2 x
     result x contraction) and the collectives' bytes by kind
     (``parse_collective_bytes``, a line at a time), each computation
     counted as often as it runs: a while body its known trip count
     (``cost_analysis`` and ``parse_collective_bytes`` count it once, which
-    the reference's dry run extrapolates around)."""
+    the reference's dry run extrapolates around). With ``loops``, only what
+    runs inside a while body (in a one-period probe, the chunked
+    attention's scans)."""
     from repro.launch.analysis import _COLLECTIVES, parse_collective_bytes
     comps, shapes, entry, cur = {}, {}, None, None
     for line in hlo.splitlines():
@@ -43,22 +45,24 @@ def costs(hlo):
         if d:
             shapes[d.group(1)] = [int(x) for x in d.group(2).split(",") if x]
 
-    def count(c):
+    def count(c, looped=False):
         flops, moved = 0, dict.fromkeys(_COLLECTIVES, 0.0)
+        counted = looped or not loops
         for line in comps[c]:
-            if " dot(" in line:
+            if counted and " dot(" in line:
                 lhs = shapes[re.search(r" dot\(%([\w.\-]+)", line).group(1)]
                 dims = re.search(r"lhs_contracting_dims=\{([0-9,]*)\}", line)
                 k = int(np.prod([lhs[int(x)] for x in dims.group(1).split(",")
                                  if x]))
                 flops += 2 * int(np.prod(shapes[DEF.match(line).group(1)])) * k
-            per_op = parse_collective_bytes(line)["per_op_bytes"]
-            for kind, b in per_op.items():
-                moved[kind] += b
+            if counted:
+                per_op = parse_collective_bytes(line)["per_op_bytes"]
+                for kind, b in per_op.items():
+                    moved[kind] += b
             trips = re.search(r'"known_trip_count":\{"n":"(\d+)"', line)
             for how, callee in re.findall(r"(calls|body)=%([\w.\-]+)", line):
                 n = int(trips.group(1)) if how == "body" else 1
-                f, b = count(callee)
+                f, b = count(callee, looped or how == "body")
                 flops += n * f
                 for kind in moved:
                     moved[kind] += n * b[kind]

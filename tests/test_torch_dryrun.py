@@ -341,6 +341,16 @@ def test_one_rank_flops_match_flop_counter():
                                 "bwd": {"replicated": cfg.num_layers}}
 
 
+def test_argument_bytes_count_a_shared_storage_once():
+    """Two argument leaves on one storage (a tensor and a view of it) count
+    its bytes once; an argument the step never reads counts none."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    with FakeTensorMode():
+        a, unread = torch.empty(8, 4), torch.empty(16)
+    got = D.account(lambda a, b, u: a * 2 + b.sum(), (a, a[2:], unread))
+    assert got["memory"]["argument_bytes"] == 8 * 4 * 4
+
+
 def test_data_ranks_split_flops():
     cfg = _small_cfg()
     spec = dict(kind="train", seq_len=128, global_batch=8)
