@@ -155,6 +155,9 @@ printed:
               (flash forward twice and backward three times a layer, under
               remat; quantize and dequantize once a gradient tensor a
               ``canary_fp`` step), step walls, tokens/s, peak memory;
+              4d and 4i each print their peaks by mode beside the
+              parent's (``PARENT_PEAKS_GIB``), 4d's ``canary_fp`` also
+              without its checked first step;
 4j. dry run — (after 4h: it starts a fake process group, and a process
               has one default group) the dry run's pieces held to the card:
               (a) the flash custom ops against direct calls of the kernels
@@ -175,10 +178,13 @@ printed:
               (c) (run after phase 5's profiles, before 4i: its processes
               share the card) the production rows of ``DRYRUN_ROWS``
               (``python -m repro_torch.launch.dryrun --arch <a> --shape
-              <s> --mesh <m>``: train_4k on (16, 16) of llama3.2-1b,
-              jamba-v0.1-52b, qwen2-moe-a2.7b and mamba2-130m;
-              llama3.2-1b's prefill_32k, decode_32k and long_500k on
-              (16, 16) and its train_4k on (2, 16, 16)), each in a
+              <s> --mesh <m> --grad-sync <g>``: train_4k on (16, 16) of
+              llama3.2-1b, jamba-v0.1-52b, qwen2-moe-a2.7b and
+              mamba2-130m; llama3.2-1b's prefill_32k, decode_32k and
+              long_500k on (16, 16), its train_4k on (2, 16, 16) and under
+              canary_fp; decode_32k of deepseek-moe-16b and
+              qwen2-moe-a2.7b, whose peaks must equal
+              ``DRYRUN_TOTAL_BYTES``, the CPU's, to the byte), each in a
               subprocess of its own, all started together, each ``OK`` within
               ``DRYRUN_ROW_S``, printed, with its TFLOP a device, peak a
               device and useful share on a line of its own;
@@ -381,14 +387,30 @@ DRYRUN_ROW_S = 600
 # layouts the dry run gives itself: the query heads split over the model
 # axis with each rank's key heads (a prefill's and a two-pod step's batch
 # does not split 16 ways), and a decode's cache split along its slots,
-# written and attended by each rank's share. (arch, shape, mesh)
-DRYRUN_ROWS = tuple((a, "train_4k", "single") for a in (
+# written and attended by each rank's share; llama3.2-1b's train_4k under
+# --grad-sync canary_fp (the paper's sync on the model axis's shards); the
+# decode_32k rows of the two MoE archs, whose peaks torch 2.11 and 2.13 once
+# counted apart. (arch, shape, mesh, grad_sync)
+DRYRUN_ROWS = tuple((a, "train_4k", "single", "auto") for a in (
     MODEL_ARCH, "jamba-v0.1-52b", "qwen2-moe-a2.7b", "mamba2-130m")) + (
-    (MODEL_ARCH, "prefill_32k", "single"),
-    (MODEL_ARCH, "decode_32k", "single"),
-    (MODEL_ARCH, "long_500k", "single"),
-    (MODEL_ARCH, "train_4k", "multi"))
+    (MODEL_ARCH, "prefill_32k", "single", "auto"),
+    (MODEL_ARCH, "decode_32k", "single", "auto"),
+    (MODEL_ARCH, "long_500k", "single", "auto"),
+    (MODEL_ARCH, "train_4k", "multi", "auto"),
+    (MODEL_ARCH, "train_4k", "single", "canary_fp"),
+    ("deepseek-moe-16b", "decode_32k", "single", "auto"),
+    ("qwen2-moe-a2.7b", "decode_32k", "single", "auto"))
+# the peaks (total_bytes) those two MoE rows must count on the card: the
+# integers tests/test_torch_dryrun_moe_decode.py holds on the CPU
+DRYRUN_TOTAL_BYTES = {
+    (arch, "decode_32k", "single"): n for arch, n in json.loads(
+        (ROOT / "tests" / "dryrun_moe_decode_bytes.json").read_text()).items()}
 PAR_FORMS = (("ep", (1, 4), 1), ("ep", (2, 2), 2), ("ep_a2a", (1, 4), 1))
+# the parent's peaks by mode (GiB; its chip run on an NVIDIA H100 80GB HBM3
+# at 700.00 W), printed beside this run's: 4d's llama3.2-1b steps and 4i's
+# largest rank at (1, 2)
+PARENT_PEAKS_GIB = {("4d", MODEL_ARCH): {"auto": 34.26, "canary_fp": 34.75},
+                    ("4i", PAR_ARCH): {"auto": 31.37, "canary_fp": 31.37}}
 PAR_LAYER_REL, PAR_LAYER_REPS = 1e-2, 3
 # (b) training through the launcher's code path at PAR_MESH, B 1, S 4096,
 # depth cut from 24 to 2 layers: 1.76 B parameters, ~21 GB a rank in bf16
@@ -1993,15 +2015,6 @@ def _block_size(n: int) -> int:
     return max(512, -(-n // 512) * 512)
 
 
-def _origin(frames) -> str:
-    """The first frame of the port's code in an allocation's stack."""
-    for f in frames:
-        if "repro_torch" in f["filename"]:
-            return (f"{f['filename'].split('repro_torch/')[-1]}:{f['line']} "
-                    f"{f['name']}")
-    return f"{frames[0]['filename']}:{frames[0]['line']}" if frames else "?"
-
-
 def peak_gap(before, after, real_peak: int, predicted: list) -> None:
     """4j(b): what the real step holds at its peak that the dry run's live
     storages at its own peak do not match. The real step's blocks at its
@@ -2009,29 +2022,8 @@ def peak_gap(before, after, real_peak: int, predicted: list) -> None:
     alive before it, then each allocation and free); each predicted
     storage is matched to a real block of its allocator size, and the
     unmatched on both sides are reported by where they were made."""
-    live = {}
-    for seg in before["segments"]:
-        addr = seg["address"]
-        for b in seg["blocks"]:
-            if b["state"] == "active_allocated":
-                where = _origin(b.get("frames", [])) if b.get("frames") \
-                    else f"held before phase 4j ({b['size']} B)"
-                live[addr] = (b["size"], "before the step: " + where)
-            addr += b["size"]
-    start = len(before["device_traces"][0])
-    events = [e for e in after["device_traces"][0][start:]
-              if e["action"] in ("alloc", "free_requested")]
-    cur = peak = sum(n for n, _ in live.values())
-    at = -1
-    for i, e in enumerate(events):       # the peak's index
-        cur += e["size"] if e["action"] == "alloc" else -e["size"]
-        if cur > peak:
-            peak, at = cur, i
-    for e in events[:at + 1]:            # the blocks live at the peak
-        if e["action"] == "alloc":
-            live[e["addr"]] = (e["size"], _origin(e.get("frames", [])))
-        else:
-            live.pop(e["addr"], None)
+    from repro_torch.launch.memtrace import blocks_at_peak
+    peak, live = blocks_at_peak(before, after, held="held before phase 4j")
     real = Counter()
     for n, where in live.values():
         real[n, where] += 1
@@ -2083,19 +2075,19 @@ def dryrun_production_row() -> None:
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as out:
         procs = []
-        for arch, shape, mesh in DRYRUN_ROWS:
-            d = os.path.join(out, f"{arch}__{shape}__{mesh}")
+        for arch, shape, mesh, sync in DRYRUN_ROWS:
+            d = os.path.join(out, f"{arch}__{shape}__{mesh}__{sync}")
             os.makedirs(d)
             cmd = [sys.executable, "-m", "repro_torch.launch.dryrun",
                    "--arch", arch, "--shape", shape, "--mesh", mesh,
-                   "--out", d]
-            procs.append(((arch, shape, mesh), d, time.perf_counter(),
+                   "--grad-sync", sync, "--out", d]
+            procs.append(((arch, shape, mesh, sync), d, time.perf_counter(),
                           subprocess.Popen(cmd, cwd=ROOT, env=env,
                                            stdout=subprocess.PIPE,
                                            stderr=subprocess.PIPE,
                                            text=True)))
-        for (arch, shape, mesh), d, start, proc in procs:
-            arch_row = f"{arch} {shape} {mesh}"
+        for (arch, shape, mesh, sync), d, start, proc in procs:
+            arch_row = f"{arch} {shape} {mesh} {sync}"
             try:
                 stdout, stderr = proc.communicate(
                     timeout=max(1.0, DRYRUN_ROW_S - (time.perf_counter()
@@ -2120,11 +2112,19 @@ def dryrun_production_row() -> None:
             print(f"4j(c): {lines[0]} ({wall:.1f} s with the process)",
                   flush=True)
             print("4j(c) row: " + json.dumps(row), flush=True)
-            print(f"4j(c) {arch} {shape} {row['mesh']}: "
+            print(f"4j(c) {arch} {shape} {row['mesh']} {sync}: "
                   f"{row['per_device']['flops'] / 1e12:.1f} TFLOP/dev, peak "
                   f"{row['memory']['total_bytes'] / 2**30:.2f} GiB/dev, "
                   f"useful {row['roofline']['useful_flops_ratio']:.3f}",
                   flush=True)
+            want = DRYRUN_TOTAL_BYTES.get((arch, shape, mesh))
+            if want is not None:
+                check(row["memory"]["total_bytes"] == want,
+                      f"the dry run's {arch_row} peak "
+                      f"{row['memory']['total_bytes']} bytes on the card, "
+                      f"{want} on the CPU")
+                print(f"4j(c) {arch_row}: peak {want} bytes, the CPU "
+                      f"test's to the byte", flush=True)
     print(f"phase 4j(c): {len(DRYRUN_ROWS)} rows, "
           f"{time.perf_counter() - t0:.1f} s (the rows run together)",
           flush=True)
@@ -2643,6 +2643,16 @@ def train_both_modes(cfg, mesh, seed: int, rows: dict) -> dict:
           + "; canary_fp: " + ", ".join(f"{x:.6f}" for x in c)
           + " (step 0: the same weights and batch, before any sync)",
           flush=True)
+    gib = 2 ** 30
+    parent = PARENT_PEAKS_GIB.get(("4d", cfg.name), {})
+    print(f"4d peaks by mode ({cfg.name}): auto "
+          f"{runs['auto']['peak'] / gib:.2f} GiB (parent "
+          f"{parent.get('auto', 'not measured')}), canary_fp "
+          f"{runs['canary_fp']['peak'] / gib:.2f} GiB over its "
+          f"{TRAIN_STEPS} steps (parent "
+          f"{parent.get('canary_fp', 'not measured')}; the steps after "
+          f"the checked first one {runs['canary_fp']['plain_peak'] / gib:.2f}"
+          f" GiB)", flush=True)
     return runs
 
 
@@ -2745,7 +2755,11 @@ def train_mode(cfg, mode: str, mesh, seed: int, rows: dict,
                 check(bool((err <= bound).all()), f"synced {name}: |synced "
                       f"- g| above 0.5 / scale + one rounding of g")
                 worst = max(worst, float((err * s).max()))
-        seen.update(raw=raw, first=raw[case["checked"][0]], worst=worst)
+        # the first checked gradient waits on the host for the kernels'
+        # timing at its shape: on the card it would sit in every later
+        # step's peak (0.49 GiB, llama's embedding)
+        seen.update(raw=raw, first=raw[case["checked"][0]].cpu(),
+                    worst=worst)
 
     if mode == "canary_fp":     # the run's first step is checked
         plain = trainer.step_fn
@@ -2762,6 +2776,11 @@ def train_mode(cfg, mode: str, mesh, seed: int, rows: dict,
             for fn in WRAPPERS:
                 fn.launches = counted[fn.__name__]
             MAX_REDUCES["calls"] = reduces
+            # the checked step keeps every raw gradient for the check: its
+            # peak apart from the plain steps'
+            torch.cuda.synchronize()
+            seen["peak_checked"] = torch.cuda.max_memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
             return out
         trainer.step_fn = first_step
     reset_launch_counts()
@@ -2790,7 +2809,8 @@ def train_mode(cfg, mode: str, mesh, seed: int, rows: dict,
             rows[k].setdefault("paths", {})[f"{case['label']}_{mode}"] = n
     walls = [h["step_time_s"] for h in hist]
     warm = sorted(walls[1:])[len(walls[1:]) // 2]
-    peak = torch.cuda.max_memory_allocated()
+    plain_peak = torch.cuda.max_memory_allocated()
+    peak = max(plain_peak, seen.get("peak_checked", 0))
     print(f"{mode}: {n_params / 1e9:.3f} B parameters in {len(leaves)} "
           f"tensors ({len(groups)} reference leaves), init {t_init:.2f} s; "
           f"step walls " + ", ".join(f"{w * 1e3:.1f}" for w in walls)
@@ -2809,9 +2829,9 @@ def train_mode(cfg, mode: str, mesh, seed: int, rows: dict,
               f"* s {seen['worst']:.4g})", flush=True)
         profile_train_step(trainer, leaves)
         if cfg.name == MODEL_ARCH:
-            time_train_shape(seen["first"], rows)
+            time_train_shape(seen["first"].to(DEV), rows)
     return dict(losses=losses, warm_s=warm, quantized=seen.get("quantized"),
-                peak=peak, held=held)
+                peak=peak, plain_peak=plain_peak, held=held)
 
 
 def train_short_route(cfg, mesh, seed: int) -> dict:
@@ -2855,7 +2875,7 @@ def profile_sync(grads: dict, tc, mesh, groups) -> None:
 
     def sync():
         return canary_allreduce_tree(
-            grads, group=mesh.inner, axis_size=mesh.inner_size,
+            dict(grads), group=mesh.inner, axis_size=mesh.inner_size,
             roots=tc.canary_roots, num_blocks=tc.canary_blocks,
             fixed_point=True, groups=groups)
     walls = sorted(sync_wall(sync)[0] for _ in range(3))
@@ -3303,8 +3323,10 @@ def parallel_train(rows: dict, smi: str) -> None:
                  nprocs=world, join=True)
         ranks = [torch.load(f"{tmp}/train{r}.pt") for r in range(world)]
     tokens = PAR_B * PAR_S
+    peaks = {}
     for mode in TRAIN_MODES:
         ref, rs = one[mode], [r[mode] for r in ranks]
+        peaks[mode] = max(r["peak"] for r in rs) / 2 ** 30
         n = rs[0]["tensors"]
         fp = PAR_STEPS * n if mode == "canary_fp" else 0
         want = {"quantize": fp, "dequantize": fp, "packet_accumulate": 0,
@@ -3359,6 +3381,11 @@ def parallel_train(rows: dict, smi: str) -> None:
             if c:
                 rows[k].setdefault("paths", {})[f"train_parallel_{mode}"] = \
                     sum(r["counts"][k] for r in rs)
+    parent = PARENT_PEAKS_GIB[("4i", PAR_ARCH)]
+    print("4i peaks by mode (the largest rank at "
+          f"{PAR_MESH}): " + ", ".join(
+              f"{m} {peaks[m]:.2f} GiB (parent {parent[m]})"
+              for m in TRAIN_MODES) + f" [{smi}]", flush=True)
 
 
 def main() -> int:

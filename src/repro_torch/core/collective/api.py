@@ -56,9 +56,10 @@ def tree_map(fn: Callable[[torch.Tensor], Any], tree: Any) -> Any:
 
 def _leaf_allreduce(x: torch.Tensor, group: ProcessGroup, axis_size: int,
                     roots: Sequence[int], mode: str,
-                    outer_group: Optional[ProcessGroup]) -> torch.Tensor:
+                    outer_group: Optional[ProcessGroup],
+                    inplace: bool = False) -> torch.Tensor:
     if mode == "canary":
-        y = multi_root_tree_allreduce(x, group, axis_size, roots)
+        y = multi_root_tree_allreduce(x, group, axis_size, roots, inplace)
         return psum(y, outer_group) if outer_group is not None else y
     if mode == "ring":
         y = ring_allreduce(x, group)
@@ -137,6 +138,10 @@ def canary_allreduce_tree(grads: Any, *, group: ProcessGroup, axis_size: int,
     ``groups`` (fixed point only): lists of keys of a flat mapping
     ``grads`` whose tensors share one scale (see
     :func:`fixed_point_scales`); each tensor still rides its own trees.
+    A dict ``grads`` gives its entries up: each is taken out of it as its
+    result is made, so a tensor no one else holds is freed then, not after
+    the last one (the dict is left empty; a caller that keeps its tensors
+    passes a copy, ``dict(grads)``).
     """
     if axis_size != dist.get_world_size(group):
         raise ValueError(f"axis_size {axis_size} != the group's size "
@@ -148,17 +153,36 @@ def canary_allreduce_tree(grads: Any, *, group: ProcessGroup, axis_size: int,
     if outer_group is not None:
         world *= dist.get_world_size(outer_group)
 
-    def reduce(x):
-        return _leaf_allreduce(x, group, axis_size, roots, mode, outer_group)
+    def each(fn):
+        """``fn`` on each tensor, handed over in a list ``fn`` empties: a
+        dict's entry is taken out first, so the list may hold its only
+        reference and ``fn`` can free the tensor before it returns."""
+        if not isinstance(grads, dict):
+            return tree_map(lambda t: fn([t]), grads)
+        return {key: fn([grads.pop(key)])
+                if isinstance(grads[key], torch.Tensor)
+                else tree_map(lambda t: fn([t]), grads.pop(key))
+                for key in list(grads)}
+
+    def reduce(box):
+        return _leaf_allreduce(box.pop(), group, axis_size, roots, mode,
+                               outer_group)
 
     if not (fixed_point and mode == "canary"):
-        return tree_map(reduce, grads)
+        return each(reduce)
     # quantize -> integer reduce -> dequantize (``fixed_point_allreduce_wrap``)
     scales = iter(fixed_point_scales(grads, process_groups, bits=fp_bits,
                                      world=world, groups=groups))
 
-    def one(x):
-        s = next(scales)
-        return dequantize(reduce(quantize(x, s)), s).to(x.dtype)
+    def one(box):
+        x = box.pop()
+        s, dtype = next(scales), x.dtype
+        q = quantize(x, s)
+        del x       # a tensor given up is freed before its sum is made
+        q = _leaf_allreduce(q, group, axis_size, roots, mode, outer_group,
+                            inplace=True)   # the trees sum into q itself
+        y = dequantize(q, s)
+        del q
+        return y.to(dtype)
 
-    return tree_map(one, grads)
+    return each(one)

@@ -33,13 +33,14 @@ def _rounds(n: int) -> int:
 
 
 def _shift(acc: torch.Tensor, group: ProcessGroup, n: int,
-           offset: int) -> torch.Tensor:
+           offset: int, recv: Optional[torch.Tensor] = None
+           ) -> torch.Tensor:
     """Send ``acc`` to group rank ``(i + offset) % n`` and return what rank
-    ``(i - offset) % n`` sent: ``lax.ppermute`` with the pairs
-    ``(i, (i + offset) % n)``."""
+    ``(i - offset) % n`` sent (into ``recv`` when given): ``lax.ppermute``
+    with the pairs ``(i, (i + offset) % n)``."""
     i = dist.get_rank(group)
     acc = acc.contiguous()
-    recv = torch.empty_like(acc)
+    recv = torch.empty_like(acc) if recv is None else recv
     ops = [dist.P2POp(dist.isend, acc,
                       dist.get_global_rank(group, (i + offset) % n), group),
            dist.P2POp(dist.irecv, recv,
@@ -78,14 +79,21 @@ def _block_mask(flags, like: torch.Tensor) -> torch.Tensor:
 
 
 def multi_root_tree_allreduce(x: torch.Tensor, group: ProcessGroup,
-                              axis_size: int,
-                              roots: Sequence[int]) -> torch.Tensor:
+                              axis_size: int, roots: Sequence[int],
+                              inplace: bool = False) -> torch.Tensor:
     """Blockwise multi-tree allreduce — the Canary schedule.
 
     ``x`` (any shape) is flattened and split into ``len(roots)`` blocks;
     block ``k`` is reduced along the tree rooted at ``roots[k]``. All blocks
     share each round's single exchange (it does not depend on the root; only
     the aggregation masks differ).
+
+    The rounds accumulate in place, into one block buffer, through one
+    receive buffer reused by every round: a round's ``where(mask, acc +
+    shifted, acc)`` is the sum written into the receive buffer, then
+    selected into the accumulator (the reference's expression, which XLA
+    fuses into one buffer). The accumulator is ``x``'s own storage when
+    ``inplace`` (the caller gives ``x`` up), else a copy.
     """
     if axis_size == 1:
         return x
@@ -94,23 +102,25 @@ def multi_root_tree_allreduce(x: torch.Tensor, group: ProcessGroup,
     pad = (-flat.shape[0]) % k
     if pad:
         flat = torch.nn.functional.pad(flat, (0, pad))
-    blocks = flat.reshape(k, -1)
+    elif not inplace or not flat.is_contiguous():
+        flat = flat.clone()
+    acc = flat.view(k, -1)
     idx = dist.get_rank(group)
     rel = [(idx - r) % axis_size for r in roots]
-    acc = blocks
+    recv = torch.empty_like(acc)
     R = _rounds(axis_size)
     for j in range(R):
         stride = 1 << j
-        shifted = _shift(acc, group, axis_size, -stride)
+        _shift(acc, group, axis_size, -stride, recv)
         receives = _block_mask([r % (stride * 2) == 0 and r + stride
                                 < axis_size for r in rel], acc)
-        acc = torch.where(receives, acc + shifted, acc)
+        torch.where(receives, recv.add_(acc), acc, out=acc)
     for j in reversed(range(R)):
         stride = 1 << j
-        shifted = _shift(acc, group, axis_size, stride)
+        _shift(acc, group, axis_size, stride, recv)
         takes = _block_mask([r % (stride * 2) == stride and r - stride >= 0
                              for r in rel], acc)
-        acc = torch.where(takes, shifted, acc)
+        torch.where(takes, recv, acc, out=acc)
     out = acc.reshape(-1)
     if pad:
         out = out[:flat.shape[0] - pad]

@@ -36,7 +36,9 @@ How each part of the reference is carried over:
   model group run on local tensors (the collectives counted as the Canary
   trees' are).
 * GSPMD propagation over the traced step: DTensor's sharding propagation
-  over the port's own ``make_train_step``, ``forward`` and ``decode_step``.
+  over the port's own ``make_train_step``, ``forward`` and serve step
+  (``serving.make_serve_step``: ``decode_step`` and the next token's
+  ``argmax``, as the reference's decode rows run ``make_serve_step``).
   Under ``auto`` the step is built with no mesh, as the reference's
   ``auto`` has no explicit sync: DTensor's autograd inserts the gradient
   reductions GSPMD would. Under the explicit modes (``--grad-sync
@@ -74,6 +76,10 @@ How each part of the reference is carried over:
     the tokens over the data axes and keeps the weight's split; neither
     rule holds for a decoder-only model (with the size test alone, five
     decodes' link bytes fall to 0.43-0.49 of the reference's); in the
+    forward, a contraction that a data axis splits on both operands (a
+    one-sequence decode, whose activations hold d as the embedding's
+    split leaves it, over the idle data axes) is reduced at once, as
+    GSPMD reduces the projections' partial sums; in the
     backward, a row-parallel
     product's partial sum (the gradient of a column-parallel input) is
     reduced whole, Megatron's all-reduce; a stacked weight's gradient
@@ -127,6 +133,13 @@ How each part of the reference is carried over:
     decode step's split of the column-split projection into (z, x, B, C,
     dt) keeps each piece the ranks divide split along the columns, as
     GSPMD keeps a slice of a split dim split (:func:`_split_keeping`);
+    a one-sequence decode whose model axis splits neither the heads nor
+    ``w_in`` (mamba2-130m's ``long_500k``) takes the projection's columns
+    over the idle data axes and the state's update and product with C by
+    heads, the new state gathered into the cache (the layout hooks
+    ``parallel.layouts.columns_over_idle_data``, ``over_model``,
+    ``on_split_heads`` and ``write_heads``), where DTensor keeps every
+    column on every rank and splits the state along N;
   - attention where the model axis divides the query heads and not the
     key heads and leaves the batch whole (a prefill's, a decode's or a
     two-pod step's): the model's layout hook
@@ -140,7 +153,19 @@ How each part of the reference is carried over:
     rank holding the step's slot writes it in place
     (``parallel.layouts.write_slot``; DTensor's ``select`` gathers the
     cache), and the softmax over the slots reduces each rank's max and
-    sum (:func:`_split_softmax`; DTensor gathers the logits);
+    sum (:func:`_split_softmax`; DTensor gathers the logits); where the
+    data axes leave the batch whole (``long_500k``), each data rank
+    multiplies its share of the query heads' probabilities by the values
+    (``parallel.layouts.heads_over_idle_data``), as GSPMD spreads that
+    product over them, where DTensor runs every head on every data rank;
+    the mask's ``where`` over logits that are a partial sum reduces them
+    first (:func:`_where_reduced`), where DTensor's rule differs between
+    torch releases;
+  - a decode's attention where the mesh splits q, K and V only along the
+    batch and the heads (the MoE archs' 16 key heads on 16 ranks): each
+    rank attends on its own rows and heads
+    (``parallel.layouts.on_local_heads``), where torch 2.11's ``view``
+    gathers the cache over the model axis to merge the two split dims;
   - the default positions, a broadcast ``arange`` the model builds whole
     over the batch, are laid out as the activations' batch
     (``parallel.layouts.split_as_batch``), as GSPMD propagates the batch
@@ -158,12 +183,14 @@ How each part of the reference is carried over:
     makes it (:func:`_grad_as_parameter`), not at the optimizer;
   - the loss: the gradient of its mean is split over the data axes along
     the batch (:func:`_expand_over_batch`), gather's backward stays split
-    over the vocabulary as the logits are (:func:`_zeros_like_source`,
+    over the vocabulary as the logits are, also in a step that runs per
+    data rank (``--grad-sync canary_fp``) (:func:`_zeros_like_source`,
     :func:`_scatter_into_split`), and the logits' ``logsumexp`` reduces
     each rank's share of the vocabulary (:func:`_split_logsumexp`), and
     the accuracy's ``argmax`` gathers each rank's maximum and its index
-    (:func:`_argmax_layout`), each where DTensor gathers or moves all of
-    the logits;
+    (:func:`_argmax_layout`; a decode's next token too, after its
+    logits' partial sum is reduced), each where DTensor gathers or moves
+    all of the logits;
   - where torch 2.11's rules fail: ``argmax`` along an unsplit dim
     (:func:`_argmax_layout`), and the embedding's lookup with its indices
     split over two mesh dims, and its backward (:func:`_embedding_lookup`,
@@ -259,8 +286,7 @@ from torch._subclasses.fake_tensor import FakeTensor
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils.flop_counter import flop_registry
 
-from ..models import (decode_step, forward, get_config, init_cache,
-                      list_archs)
+from ..models import forward, get_config, init_cache, list_archs
 from ..models import Transformer
 from ..models.config import ModelConfig
 from ..models.layers import torch_dtype
@@ -270,6 +296,7 @@ from ..parallel import (ParallelContext, batch_spec, cache_specs,
                         param_specs, parallel_context, sharding_constraint)
 from ..parallel.layouts import contiguous_stride, d_split_kept
 from ..parallel.sharding import P
+from ..serving import make_serve_step
 from ..train import TrainConfig, make_train_step
 from ..train.train_step import EXPLICIT_MODES, Mesh
 from .analysis import INPUT_SHAPES, model_flops_per_step
@@ -631,9 +658,11 @@ def build_dryrun(arch: str, shape_name: Union[str, Mapping[str, Any]],
         cache = fake_tree(shapes, c_specs)
         tokens = _fake((gb, 1), torch.int32, device, mesh, bspec)
 
+        step = make_serve_step(cfg)
+
         def serve(params, cache, tokens):
             with torch.no_grad():
-                return decode_step(params, cache, tokens, cfg)
+                return step(params, cache, tokens)
 
         return serve, (params, cache, tokens), cfg
 
@@ -1003,6 +1032,10 @@ def _gather_weight(a, b):
             continue
         if not pb.is_shard() or pb.dim == b.ndim - 3:
             continue
+        if data and pa.is_shard(feats) and pb.dim == b.ndim - 2 \
+                and not backward and not stacked:
+            reduce.append(m)        # d split over idle data ranks: summed
+            continue
         if data and pa.is_shard(rows):
             if d_split_kept() and not (stacked or backward) \
                     and _nbytes(a.to_local()) < _nbytes(b.to_local()):
@@ -1214,12 +1247,14 @@ def _zeros_like_source(src, size, dtype=None, layout=None, device=None,
                        pin_memory=None):
     """``src.new_zeros(size)`` on a DTensor (the start of ``gather``'s
     backward, ``grad.new_zeros(input.shape)``): split as ``src`` is where a
-    dim of ``size`` has ``src``'s extent; and under a context that
-    constrains activations, the last dim ``src`` holds one entry of (the
+    dim of ``size`` has ``src``'s extent; and under a context whose model
+    axis the mesh has, the last dim ``src`` holds one entry of (the
     gathered dim: the logits' vocabulary) split over the model axis, as
     the logits the gather read are (:func:`_scatter_into_split` then adds
-    each rank's entries). DTensor replicates the zeros whole: the global
-    (B, S, V) float32 logits on every rank."""
+    each rank's entries), also in a step that runs per data rank without
+    constraining its activations (``--grad-sync canary_fp``). DTensor
+    replicates the zeros whole: the (B, S, V) float32 logits on every
+    rank, 32 GiB of llama3.2-1b's at 16 sequences of 4096 tokens."""
     if not isinstance(src, DTensor) or len(size) != src.ndim:
         return NotImplemented
     mesh, shape = src.device_mesh, list(size)
@@ -1231,8 +1266,7 @@ def _zeros_like_source(src, size, dtype=None, layout=None, device=None,
         if keep:
             shape[p.dim] //= mesh.size(m)
     ctx = get_parallel_context()
-    if ctx is not None and ctx.constrain_activations \
-            and ctx.model_axis in (mesh.mesh_dim_names or ()):
+    if ctx is not None and ctx.model_axis in (mesh.mesh_dim_names or ()):
         m = mesh.mesh_dim_names.index(ctx.model_axis)
         gathered = [d for d in range(src.ndim)
                     if src.shape[d] == 1 < size[d]
@@ -1280,10 +1314,12 @@ def _argmax_layout(x, dim=None, keepdim=False):
     over mesh dims of one rank and fails); where one does (the logits'
     vocabulary), each rank's maximum and its index, gathered over that
     mesh dim, pick the first of the largest (DTensor moves the whole
-    tensor to split it elsewhere)."""
-    if not isinstance(x, DTensor) or dim is None \
-            or any(p.is_partial() for p in x.placements):
+    tensor to split it elsewhere). A partial sum (a batch-1 decode's
+    logits, contracted along d split over the idle data axes) is reduced
+    first, as GSPMD reduces it."""
+    if not isinstance(x, DTensor) or dim is None:
         return NotImplemented
+    x = _whole(x, [])
     d, mesh = dim % x.ndim, x.device_mesh
     split = [m for m, p in enumerate(x.placements)
              if mesh.size(m) > 1 and p.is_shard(d)]
@@ -1362,6 +1398,22 @@ def _split_logsumexp(x, dim, keepdim=False):
                                   for p in top.placements])
     out = torch.log(torch.sum(torch.exp(x - top), d, keepdim=True)) + top
     return out if keepdim else out.squeeze(d)
+
+
+def _where_reduced(cond, x, y):
+    """``torch.where(cond, x, y)`` on DTensors where ``x`` or ``y`` is a
+    partial sum (a one-sequence decode's logits, from a query contracted
+    along d split over the idle data axes): the partial sum is reduced
+    first, whole, as GSPMD reduces it before a step that is not linear.
+    DTensor's own rule differs by release: torch 2.11 reduces it whole,
+    torch 2.13 scatters it onto another dim of the logits on the
+    (2, 16, 16) mesh."""
+    if not any(isinstance(t, DTensor) and any(p.is_partial()
+                                              for p in t.placements)
+               for t in (x, y)):
+        return NotImplemented
+    return torch.where(cond, *(_whole(t, []) if isinstance(t, DTensor)
+                               else t for t in (x, y)))
 
 
 def _split_softmax(x, dim, half_to_float=False):
@@ -1635,7 +1687,8 @@ _LAYOUTS = {torch.ops.aten.mm.default: _gather_weight,
             torch.ops.aten.scatter_add_.default: _scatter_add_layout,
             torch.ops.aten.split_with_sizes.default: _split_keeping,
             torch.ops.aten.index_add.default: _index_add_layout,
-            torch.ops.aten.index_fill.int_Scalar: _index_fill_layout}
+            torch.ops.aten.index_fill.int_Scalar: _index_fill_layout,
+            torch.ops.aten.where.self: _where_reduced}
 _LAYOUTS.update({op: _reduce_model_partials(op) for op in (
     torch.ops.aten.add.Tensor, torch.ops.aten.sub.Tensor,
     torch.ops.aten.mul.Tensor, torch.ops.aten.div.Tensor,

@@ -35,7 +35,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..kernels import flash_attention
-from ..parallel.layouts import kv_by_query_heads
+from ..parallel.layouts import (heads_over_idle_data, kv_by_query_heads,
+                                on_local_heads)
 from .config import ModelConfig
 
 
@@ -206,6 +207,11 @@ def decode_attention(q1, k_cache, v_cache, valid_len) -> torch.Tensor:
     (The reference's unused ``ring``, ``window`` and ``write_pos`` keywords
     are left out.)
     """
+    if not isinstance(valid_len, torch.Tensor):     # a layout hook
+        local = on_local_heads(lambda q, k, v: decode_attention(
+            q, k, v, valid_len), q1, k_cache, v_cache)
+        if local is not None:
+            return local
     B, C = k_cache.shape[0], k_cache.shape[1]
     logits = _gqa_logits(q1, k_cache).to(torch.float32)   # (B,KV,G,1,C)
     slot = torch.arange(C, device=q1.device)[None, :]
@@ -215,7 +221,8 @@ def decode_attention(q1, k_cache, v_cache, valid_len) -> torch.Tensor:
         mask = (slot < valid_len).expand(B, C)
     logits = torch.where(mask[:, None, None, None, :], logits, -1e30)
     probs = torch.softmax(logits, dim=-1).to(q1.dtype)
-    return _gqa_out(probs, v_cache)
+    out = heads_over_idle_data(probs, v_cache, q1)
+    return out if out is not None else _gqa_out(probs, v_cache)
 
 
 def project_qkv(p: Attention, x: torch.Tensor):

@@ -23,6 +23,8 @@ from torch import nn
 from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from ..parallel import P, get_parallel_context
+from ..parallel.layouts import (columns_over_idle_data, on_split_heads,
+                                over_model, write_heads)
 from ..parallel.regions import shard_map, sum_over
 from .config import ModelConfig
 from .layers import _param, _weights
@@ -270,6 +272,11 @@ def mamba2_init_cache(cfg: ModelConfig, batch: int,
     }
 
 
+def _c_product(st: torch.Tensor, Cm: torch.Tensor) -> torch.Tensor:
+    """y = C . state: (B, h, p, n) by (B, n) -> (B, h, p)."""
+    return torch.einsum("bhpn,bn->bhp", st, Cm)
+
+
 def mamba2_decode_step(p: Mamba2, x1: torch.Tensor,
                        cache: Dict[str, torch.Tensor], cfg: ModelConfig
                        ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
@@ -277,25 +284,29 @@ def mamba2_decode_step(p: Mamba2, x1: torch.Tensor,
     window are written into ``cache``'s tensors, which are returned."""
     B = x1.shape[0]
     di, n, h = cfg.ssm_d_inner, cfg.ssm_state, cfg.ssm_heads
-    proj = x1[:, 0, :] @ p.w_in                                 # (B, ...)
+    proj = columns_over_idle_data(x1[:, 0, :], p.w_in)         # (B, ...)
     z, xBC, dt = torch.split(proj, [di, di + 2 * n, h], dim=-1)
     # conv window: the previous K - 1 inputs and this one
     hist = cache["conv"]                                        # (B, K-1, ch)
     window = torch.cat([hist, xBC[:, None, :].to(hist.dtype)], dim=1)
     conv = torch.einsum("bkc,kc->bc", window, p.conv_w.to(hist.dtype)) \
         + p.conv_b
-    xs, Bm, Cm = torch.split(F.silu(conv), [di, n, n], dim=-1)
+    xs, Bm, Cm = torch.split(over_model(F.silu(conv), Replicate()),
+                             [di, n, n], dim=-1)
     xs = xs.reshape(B, h, cfg.ssm_head_dim).to(torch.float32)
     dt = F.softplus(dt.to(torch.float32) + p.dt_bias)           # (B, h)
     A = -torch.exp(p.A_log)
     dec = torch.exp(dt * A[None, :])                            # (B, h)
     xdt = xs * dt[..., None]                                    # (B, h, p)
-    st = cache["state"] * dec[..., None, None] + \
-        torch.einsum("bhp,bn->bhpn", xdt, Bm.to(torch.float32))
-    y = torch.einsum("bhpn,bn->bhp", st, Cm.to(torch.float32))
-    y = y + xs * p.D[None, :, None]
+    st = over_model(cache["state"], Shard(1)) \
+        * over_model(dec, Shard(1))[..., None, None] \
+        + torch.einsum("bhp,bn->bhpn", over_model(xdt, Shard(1)),
+                       Bm.to(torch.float32))
+    Cm = Cm.to(torch.float32)
+    y = on_split_heads(_c_product, st, Cm)
+    y = (_c_product(st, Cm) if y is None else y) + xs * p.D[None, :, None]
     g = _gated_norm(y.reshape(B, di), z, p, cfg.norm_eps)
     out = g.to(x1.dtype) @ p.w_out
-    cache["state"].copy_(st)
+    write_heads(cache["state"], st)
     cache["conv"].copy_(window[:, 1:, :])
     return out[:, None, :], cache

@@ -11,6 +11,16 @@ unchanged.
   another over the data axes at once, where they are two mesh dims;
 * :func:`split_as_batch`: a tensor the model builds whole over the batch
   (the default positions) laid out as the activations' batch is;
+* :func:`heads_over_idle_data`: a decode's product of the probabilities
+  and the values spread by query heads over data axes that leave the
+  batch whole;
+* :func:`on_local_heads`: a decode's attention on each rank's own batch
+  rows and heads, where the mesh splits nothing else;
+* :func:`columns_over_idle_data`, :func:`over_model`,
+  :func:`on_split_heads` and :func:`write_heads`: a Mamba-2 decode of one
+  sequence, its input projection's columns over the idle data axes, its
+  state by heads over the model axis, its product with C on each rank's
+  heads and the new state gathered into its cache;
 * :func:`keep_d_split`: an encoder-decoder's layers, where GSPMD keeps
   the model dim d split over the model axis (read by the dry run's product
   layout through :func:`d_split_kept`).
@@ -36,9 +46,11 @@ On a plain tensor, or where the layout does not apply, it returns
 from __future__ import annotations
 
 import contextlib
+import warnings
 from typing import Optional, Tuple
 
 import torch
+import torch.distributed as dist
 from torch.autograd import Function
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
@@ -180,6 +192,203 @@ def write_slot(cache, write: int, new) -> None:
         if new.shape[2] != cache.shape[2]:   # repeated by kv_by_query_heads
             heads = heads[:, ::new.shape[2] // cache.shape[2]]
         local[:, write - lo] = heads
+
+
+def _data_dims(t) -> Optional[Tuple[list, int, int]]:
+    """``(dims, n, r)``: the mesh dims of more than one rank that the
+    parallel context names data axes, their ranks ``n`` and this rank's
+    place ``r`` among them (flattened in mesh order, as consecutive
+    ``Shard`` placements of one dim split it); ``None`` without a context
+    or data dims, or where a data dim splits ``t``."""
+    ctx = get_parallel_context()
+    if ctx is None or not isinstance(t, DTensor):
+        return None
+    mesh = t.device_mesh
+    names = mesh.mesh_dim_names or ()
+    dims = [m for m, a in enumerate(names)
+            if a in ctx.data_axes and mesh.size(m) > 1]
+    if not dims or any(not t.placements[m].is_replicate() for m in dims):
+        return None
+    n, r = 1, 0
+    for m in dims:
+        n *= mesh.size(m)
+        r = r * mesh.size(m) + mesh.get_coordinate()[m]
+    return dims, n, r
+
+
+def heads_over_idle_data(probs, v, like):
+    """``_gqa_out(probs, v)`` (probs ``(B, KV, G, Sq, C)``, v ``(B, C, KV,
+    D)``) where the data axes leave the batch whole (a decode of one
+    sequence, ``long_500k``'s): each data rank multiplies the
+    probabilities of its share of the ``KV * G`` query heads (flattened,
+    consecutive) against their key heads' values, as GSPMD spreads the
+    product over the idle data ranks, where DTensor runs every head on
+    each of them. The output ``(B, Sq, H, D)`` comes laid out as the query
+    ``like`` is over the mesh dims that do not split the batch (its heads
+    over the model axis, where the output projection contracts them): the
+    partial sums over the cache's slots reduced, each data rank's heads
+    moved to the ranks that hold them. ``None`` on a
+    plain tensor, where a data axis splits the batch, or where a rank's
+    heads neither fall in one group nor make whole groups."""
+    at = _data_dims(probs)
+    if at is None or _data_dims(v) is None \
+            or probs.device_mesh != v.device_mesh:
+        return None
+    dims, n, r = at
+    mesh = probs.device_mesh
+    B, KV, G, Sq, _ = probs.shape
+    D = v.shape[-1]
+    share = KV * G // n
+    if (KV * G) % n or (G % share and share % G):
+        return None
+    placements = []
+    for m, (pp, pv) in enumerate(zip(probs.placements, v.placements)):
+        if m in dims:
+            placements.append(Shard(2))
+        elif mesh.size(m) == 1 or pp.is_replicate() and pv.is_replicate():
+            placements.append(Replicate())
+        elif pp.is_shard(4) and pv.is_shard(1):
+            placements.append(Partial())    # the slots' split: summed
+        else:
+            return None
+    pl, vl = probs.to_local(), v.to_local()
+    first = r * share
+    if share <= G:          # one key head: its values against the heads
+        kv, g = divmod(first, G)
+        out = torch.einsum("bhqs,bsd->bqhd", pl[:, kv, g:g + share],
+                           vl[:, :, kv])
+    else:                   # whole groups
+        kv, k = first // G, share // G
+        out = torch.einsum("bkgqs,bskd->bqkgd", pl[:, kv:kv + k],
+                           vl[:, :, kv:kv + k]).reshape(B, Sq, share, D)
+    shape = (B, Sq, KV * G, D)
+    out = DTensor.from_local(out, mesh, placements, run_check=False,
+                             shape=torch.Size(shape),
+                             stride=contiguous_stride(shape))
+    want = [Replicate() if m in dims or p.is_partial() else p
+            for m, p in enumerate(like.placements)] \
+        if isinstance(like, DTensor) and like.device_mesh == mesh \
+        else [Replicate()] * mesh.ndim
+    return out.redistribute(mesh, want)
+
+
+def on_local_heads(fn, q, k, v):
+    """``fn(q, k, v)`` (a decode's attention: q ``(B, Sq, H, D)``, k and v
+    ``(B, S, KV, D)``) on each rank's local tensors, where every mesh dim
+    splits the three alike along the batch, or splits q's heads and k's
+    and v's key heads evenly, or leaves them whole: each rank's block of
+    the output is then its own (B, H) block's attention, as GSPMD leaves
+    it in place. DTensor merges the split batch and key-head dims into
+    one batch of the product, which torch 2.13 splits in its strided way
+    and torch 2.11 gathers over the model axis (the whole cache, 1 GiB a
+    layer of a 32768-slot MoE decode). The output is laid out as q;
+    ``None`` on a plain tensor or any other layout."""
+    if not all(isinstance(t, DTensor) for t in (q, k, v)) \
+            or not q.device_mesh == k.device_mesh == v.device_mesh:
+        return None
+    mesh = q.device_mesh
+    for m, (pq, pk, pv) in enumerate(zip(q.placements, k.placements,
+                                         v.placements)):
+        if mesh.size(m) == 1 or pq == pk == pv == Replicate() \
+                or pq == pk == pv == Shard(0):
+            continue
+        n = mesh.size(m)
+        if not (pq == pk == pv == Shard(2) and q.shape[2] % n == 0
+                and k.shape[2] % n == 0):
+            return None
+    if any(type(p) not in (Shard, Replicate)
+           for t in (q, k, v) for p in t.placements):
+        return None
+    out = fn(q.to_local(), k.to_local(), v.to_local())
+    return DTensor.from_local(out, mesh, q.placements, run_check=False,
+                              shape=q.shape, stride=q.stride())
+
+
+def columns_over_idle_data(x, w):
+    """``x @ w`` where the data axes leave x's batch and ``w`` whole (a
+    decode of one sequence): each data rank multiplies its share of
+    ``w``'s columns, as GSPMD spreads the product over the idle data
+    ranks, and the columns are gathered after (a partial sum over the
+    other dims reduced with them). DTensor would multiply every column on
+    each data rank. The plain product elsewhere."""
+    at = _data_dims(x)
+    if at is None or _data_dims(w) is None \
+            or x.device_mesh != w.device_mesh:
+        return x @ w
+    mesh, dims = x.device_mesh, at[0]
+    out = x @ w.redistribute(mesh, [Shard(1) if m in dims else p
+                                    for m, p in enumerate(w.placements)])
+    return out.redistribute(mesh, [Replicate() if m in dims or p.is_partial()
+                                   else p for m, p in enumerate(
+                                       out.placements)])
+
+
+def over_model(t, placement):
+    """``t`` laid out as ``placement`` over the model axis where the data
+    axes leave its batch whole (a Mamba-2 decode of one sequence): its
+    state split by heads, torch.chunk's share of them where the model axis
+    does not divide them (2 of 24 heads on the first 12 of 16 ranks, as
+    GSPMD pads them), and the conv's output whole for the products with
+    B and C; DTensor would split the state along N as the conv's channels
+    split B and C. ``t`` as it is elsewhere."""
+    ctx = get_parallel_context()
+    if _data_dims(t) is None \
+            or ctx.model_axis not in t.device_mesh.mesh_dim_names:
+        return t
+    mesh = t.device_mesh
+    m = mesh.mesh_dim_names.index(ctx.model_axis)
+    return t.redistribute(mesh, [placement if i == m else p
+                                 for i, p in enumerate(t.placements)])
+
+
+def on_split_heads(fn, t, *whole):
+    """``fn(t, *whole)``, a product that keeps ``t``'s dims 0 and 1 (the
+    batch, the heads), on each rank's own block of ``t`` where the mesh
+    splits ``t`` by heads at most and leaves every ``whole`` operand
+    replicated; the output comes split as ``t``. DTensor would gather
+    heads that the model axis splits unevenly (a Mamba-2 decode's 24 on 16
+    ranks) to flatten them for the product. ``None`` on a plain tensor or
+    any other layout."""
+    if not isinstance(t, DTensor) \
+            or any(not (p.is_replicate() or p == Shard(1))
+                   for p in t.placements) \
+            or any(not isinstance(w, DTensor) or w.device_mesh
+                   != t.device_mesh or any(not p.is_replicate()
+                                           for p in w.placements)
+                   for w in whole):
+        return None
+    out = fn(t.to_local(), *(w.to_local() for w in whole))
+    shape = t.shape[:2] + out.shape[2:]
+    return DTensor.from_local(out, t.device_mesh, t.placements,
+                              run_check=False, shape=shape,
+                              stride=contiguous_stride(shape))
+
+
+def write_heads(cache, new) -> None:
+    """``cache.copy_(new)``: a Mamba-2 decode's new state into its cache.
+    Where the mesh leaves the cache whole and splits ``new`` by heads
+    (dim 1) over one mesh dim (:func:`over_model`'s torch.chunk share),
+    the ranks' heads, padded to the largest share, are all-gathered into
+    one buffer and copied into each rank's cache, as GSPMD gathers its
+    padded shares; DTensor's redistribution would pad, gather and unpad
+    through buffers of its own."""
+    split = [m for m, p in enumerate(getattr(new, "placements", ()))
+             if not p.is_replicate()]
+    if not isinstance(cache, DTensor) or len(split) != 1 \
+            or new.placements[split[0]] != Shard(1) \
+            or any(not p.is_replicate() for p in cache.placements):
+        cache.copy_(new)
+        return
+    mesh, m = new.device_mesh, split[0]
+    n, local = mesh.size(m), new.to_local()
+    per = -(-new.shape[1] // n)
+    mine = local.new_zeros((per,) + local.shape[:1] + local.shape[2:])
+    mine[:local.shape[1]] = local.movedim(1, 0)
+    heads = mine.new_empty((n * per,) + mine.shape[1:])
+    with warnings.catch_warnings():     # deprecated in newer releases
+        warnings.simplefilter("ignore", FutureWarning)
+        dist.all_gather_into_tensor(heads, mine, group=mesh.get_group(m))
+    cache.to_local().copy_(heads[:new.shape[1]].movedim(0, 1))
 
 
 def redistribute_over_data(t, placements):

@@ -235,15 +235,20 @@ def _microbatched(loss_fn, params, batch, k: int):
 def _on_local(grads: Grads, sync: Callable[[Grads], Grads]) -> Grads:
     """``sync`` over the gradients' local tensors: a DTensor gradient (the
     dry run's model-sharded parameters) goes through as this rank's shard,
-    over its data groups, and comes back with its placements."""
+    over its data groups, and comes back with its placements. ``grads``
+    gives its tensors up to ``sync``, as ``canary_allreduce_tree`` takes
+    them (it is left empty)."""
     if not any(isinstance(g, DTensor) for g in grads.values()):
         return sync(grads)
-    out = sync({n: g.to_local() if isinstance(g, DTensor) else g
-                for n, g in grads.items()})
-    return {n: DTensor.from_local(out[n], g.device_mesh, g.placements,
-                                  run_check=False, shape=g.shape,
-                                  stride=g.stride())
-            if isinstance(g, DTensor) else out[n] for n, g in grads.items()}
+    layouts = {n: (g.device_mesh, g.placements, g.shape, g.stride())
+               for n, g in grads.items() if isinstance(g, DTensor)}
+    local = {n: g.to_local() if isinstance(g, DTensor) else g
+             for n, g in grads.items()}
+    grads.clear()
+    out = sync(local)
+    return {n: DTensor.from_local(y, *layouts[n][:2], run_check=False,
+                                  shape=layouts[n][2], stride=layouts[n][3])
+            if n in layouts else y for n, y in out.items()}
 
 
 def make_train_step(tc: TrainConfig, mesh: Optional[Mesh] = None,
@@ -253,7 +258,8 @@ def make_train_step(tc: TrainConfig, mesh: Optional[Mesh] = None,
     metrics)``, ``batch`` being this rank's slice. ``on_sync(raw, synced)``,
     if given, sees an explicit mode's gradients before and after the
     collective, before they are averaged and applied (a check of the sync
-    against its own input).
+    against its own input); the sums are then divided in place, so it
+    copies what it keeps.
 
     The step reads the parallel context when it runs. In ``auto`` the MoE
     layers take the reference's forms under it, and the reported
@@ -276,7 +282,8 @@ def make_train_step(tc: TrainConfig, mesh: Optional[Mesh] = None,
                 grads = canary_allreduce_tree(
                     grads, group=mesh.inner, axis_size=mesh.inner_size,
                     mode="psum", outer_group=mesh.outer)
-                grads = {n: g / mesh.size for n, g in grads.items()}
+                for g in grads.values():    # the sums: divided in place
+                    g.div_(mesh.size)
                 metrics = mesh.mean(metrics, first=(
                     "aux_loss",) if get_parallel_context() else ())
             params, opt_state, om = adamw_update(grads, opt_state, params,
@@ -304,15 +311,21 @@ def make_train_step(tc: TrainConfig, mesh: Optional[Mesh] = None,
                           allow_shardmap_layers=False)
         with parallel_context(ctx):
             (_, metrics), grads = value_and_grad(loss_fn, params, batch)
-        synced = _on_local(grads, lambda local: canary_allreduce_tree(
-            local, group=mesh.inner, axis_size=mesh.inner_size, roots=roots,
-            num_blocks=tc.canary_blocks, mode=mode, outer_group=mesh.outer,
-            fixed_point=fixed_point, groups=groups))
+        def sync(local):
+            return canary_allreduce_tree(
+                local, group=mesh.inner, axis_size=mesh.inner_size,
+                roots=roots, num_blocks=tc.canary_blocks, mode=mode,
+                outer_group=mesh.outer, fixed_point=fixed_point,
+                groups=groups)
+        # the sync frees each raw gradient as soon as its synced tensor
+        # exists, unless on_sync keeps them for its check
+        synced = _on_local(grads if on_sync is None else dict(grads), sync)
         if on_sync is not None:
             on_sync(grads, synced)
         del grads
         if mesh.size > 1:    # average over the data parallelism degree
-            synced = {n: g / mesh.size for n, g in synced.items()}
+            for g in synced.values():
+                g.div_(mesh.size)
         metrics = mesh.mean(metrics)
         params, opt_state, om = adamw_update(synced, opt_state, params,
                                              tc.optimizer)

@@ -70,6 +70,91 @@ def costs(hlo, loops=False):
     return count(entry)
 
 
+def _section(hlo, name):
+    """``{id: text}`` of one of the module's trailing tables (``FileNames``,
+    ``FileLocations``, ``StackFrames``)."""
+    out, on = {}, False
+    for line in hlo.splitlines():
+        if line == name:
+            on = True
+            continue
+        if on:
+            m = re.match(r"^(\d+) (.*)$", line)
+            if m:
+                out[int(m.group(1))] = m.group(2)
+            elif out:
+                break
+    return out
+
+
+def collectives(hlo):
+    """Every collective of an optimized HLO module as the step runs it:
+    ``[kind, bytes, dtype, elements, times, loop, site]``, ``bytes`` its
+    result's bytes times ``times``, the trip counts of the while loops
+    around it, ``loop`` the file the module's stack frames place the
+    innermost of those loops' op in (``""`` outside every loop: a Pallas
+    kernel that the CPU runs as a loop over its grid is its kernel's
+    file) and ``site`` the file they place the collective itself in."""
+    from repro.launch.analysis import parse_collective_bytes
+    files, locs, frames = (_section(hlo, n) for n in (
+        "FileNames", "FileLocations", "StackFrames"))
+
+    def file_of(line):
+        frame = re.search(r"stack_frame_id=(\d+)", line)
+        if frame is None:
+            return ""
+        loc = re.search(r"file_location_id=(\d+)",
+                        frames[int(frame.group(1))]).group(1)
+        name = re.search(r"file_name_id=(\d+)", locs[int(loc)]).group(1)
+        return files[int(name)].strip('"')
+
+    comps, entry, cur = {}, None, None
+    for line in hlo.splitlines():
+        m = COMP.match(line)
+        if m:
+            cur = m.group(1)
+            comps[cur] = []
+            entry = cur if line.startswith("ENTRY") else entry
+        elif cur is not None:
+            comps[cur].append(line)
+
+    def walk(c, times, loop):
+        out = []
+        for line in comps[c]:
+            for kind, b in parse_collective_bytes(line)["per_op_bytes"]\
+                    .items():
+                if b:       # a tuple's first element
+                    dtype, dims = re.search(r"= \(?([a-z0-9]+)\[([0-9,]*)\]",
+                                            line).groups()
+                    out.append([kind, b * times, dtype, int(np.prod(
+                        [int(x) for x in dims.split(",") if x])), times,
+                        loop, file_of(line)])
+            trips = re.search(r'"known_trip_count":\{"n":"(\d+)"', line)
+            for how, callee in re.findall(r"(calls|body)=%([\w.\-]+)",
+                                          line):
+                out += walk(callee, times * int(trips.group(1)), file_of(
+                    line)) if how == "body" else walk(callee, times, loop)
+        return out
+    return walk(entry, 1, "")
+
+
+def new_caches(hlo):
+    """The shapes of the float32 values of a decode step's entry
+    computation that are its caches' ``dynamic_update_slice``: the step's
+    new K and V, written anew in float32 before the bfloat16 outputs (so
+    temporaries of the step)."""
+    out, entry = [], False
+    for line in hlo.splitlines():
+        if COMP.match(line):
+            entry = line.startswith("ENTRY")
+            continue
+        d = DEF.match(line)
+        if entry and d and re.search(r"= f32\[", line) \
+                and 'dynamic_update_slice"' in line:
+            out.append([int(x) for x in d.group(2).split(",") if x])
+    return out
+
+
 def link_bytes(moved):
     """The link bytes of collectives by kind: an all-reduce twice its
     bytes, the others once (``parse_collective_bytes``'s multipliers)."""

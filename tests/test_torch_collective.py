@@ -139,6 +139,16 @@ out["n6_fp"] = run(m6, D1, lambda v: canary_allreduce_tree(
     v, axis_name="data", axis_size=6, fixed_point=True), x6)
 out["n6_fp_int"] = run(m6, D1, lambda v: fp_int(v, 6, tuple(
     k % 6 for k in range(16))), x6)
+m4 = Mesh(devs[:4], ("data",))
+x4, x4_37 = inp["x4"], inp["x4_37"]
+out["n4_multi_pad"] = run(m4, D1, lambda v: multi_root_tree_allreduce(
+    v, "data", 4, tuple(C["PAD_ROOTS"])), x4_37)
+out["n4_fp_int_pad"] = run(m4, D1, lambda v: fp_int(v, 4, tuple(
+    k % 4 for k in range(16))), x4_37)
+res = run(m4, D1, lambda a, b: canary_allreduce_tree(
+    {"a": a, "b": b.astype(bf16)}, axis_name="data", axis_size=4,
+    fixed_point=True), x4, x4_37)
+out["n4_fp_a"], out["n4_fp_b"] = res["a"], res["b"]
 for i, (n, k, hot) in enumerate(C["ORACLE_CASES"]):
     for policy in ("round_robin", "balanced"):
         ext = np.where(np.arange(n) < 2, 1000.0, 0.0) if hot else None
@@ -172,6 +182,10 @@ CASES = {
     **{f"n6_tree_root{r}": (6, "float") for r in range(6)},
     "n6_multi": (6, "float"), "n6_multi_pad": (6, "float"),
     "n6_ring": (6, "float"), "n6_fp": (6, "exact"), "n6_fp_int": (6, "exact"),
+    # 4 ranks, 37 values a rank (16 blocks of 3, padded): the trees'
+    # in-place rounds, and canary_fp taking its gradients out of a dict
+    "n4_multi_pad": (4, "float"), "n4_fp_int_pad": (4, "exact"),
+    "n4_fp_a": (4, "exact"), "n4_fp_b": (4, "exact"),
 }
 
 
@@ -179,7 +193,8 @@ def _inputs() -> dict:
     rng = np.random.default_rng(0)
     return {k: rng.standard_normal(s).astype(np.float32)
             for k, s in (("x", (N, 64)), ("x37", (N, 37)), ("xx", (N, 32)),
-                         ("x6", (6, 64)), ("x6_37", (6, 37)))}
+                         ("x6", (6, 64)), ("x6_37", (6, 37)),
+                         ("x4", (4, 64)), ("x4_37", (4, 37)))}
 
 
 def _fp_int(v, group, n, roots):
@@ -197,6 +212,7 @@ def _port_rank(rank: int, init_file: str, in_path: str, out_dir: str):
     try:
         mesh24 = make_mesh(outer_size=2)           # every rank, same order
         g6 = dist.new_group(list(range(6)))
+        g4 = dist.new_group(list(range(4)))
         W = dist.group.WORLD
         inp = np.load(in_path)
 
@@ -245,6 +261,17 @@ def _port_rank(rank: int, init_file: str, in_path: str, out_dir: str):
             out["n6_fp"] = canary_allreduce_tree(x6, group=g6, axis_size=6,
                                                  fixed_point=True)
             out["n6_fp_int"] = _fp_int(x6, g6, 6, [k % 6 for k in range(16)])
+        if rank < 4:
+            x4, x4_37 = row("x4"), row("x4_37")
+            out["n4_multi_pad"] = multi_root_tree_allreduce(x4_37, g4, 4,
+                                                            PAD_ROOTS)
+            out["n4_fp_int_pad"] = _fp_int(x4_37, g4, 4,
+                                           [k % 4 for k in range(16)])
+            given = {"a": x4.clone(), "b": x4_37.to(torch.bfloat16)}
+            res = canary_allreduce_tree(given, group=g4, axis_size=4,
+                                        fixed_point=True)
+            assert not given and x4_37.equal(row("x4_37"))
+            out["n4_fp_a"], out["n4_fp_b"] = res["a"], res["b"]
         np.savez(os.path.join(out_dir, f"rank{rank}.npz"),
                  **{k: v.float().numpy() if v.dtype == torch.bfloat16
                     else v.numpy() for k, v in out.items()})
@@ -341,6 +368,30 @@ def test_tree_link_load_matches_jax(results, n):
         jax_out[f"link_load_{n}"])
 
 
+def test_canary_fp_sync_peak_on_4_ranks():
+    """The dry run's count of what one rank holds during ``canary_fp``'s
+    sync of one float32 gradient of n values on a (4, 1) fake mesh (a
+    fake process group of 4; the trees take 2 rounds each way): at most
+    the int32 quantized tensor and one int32 receive buffer, 8 n bytes,
+    besides the gradient and a few small tensors (the scale, the
+    blocks' masks) at once: the rounds accumulate in place, where each
+    round's ``torch.where(mask, acc + shifted, acc)`` held two more."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from repro_torch.launch import dryrun as D
+    n = 1 << 20
+    with D.fake_process_group(4):
+        # the blocks' masks are small real tensors, as in the dry run
+        with FakeTensorMode(allow_non_fake_inputs=True):
+            x = torch.empty(n)
+
+        def sync(x):
+            return canary_allreduce_tree({"g": x}, group=dist.group.WORLD,
+                                         axis_size=4, fixed_point=True)
+        got = D.account(sync, (x,))
+    assert got["collective_counts"]["collective-permute"] == 4
+    assert 8 * n <= got["memory"]["temp_bytes"] <= 8 * n + 4096, got["memory"]
+
+
 @pytest.mark.cuda
 def test_one_rank_nccl_canary_fp_on_cuda(tmp_path):
     """canary_fp in a one-rank NCCL group on a bf16 gradient dict: the
@@ -360,7 +411,7 @@ def test_one_rank_nccl_canary_fp_on_cuda(tmp_path):
                      ).to(torch.bfloat16) for k, s in shapes.items()}
         grads["f32"] = torch.randn((1000,), generator=gen, device="cuda")
         reset_launch_counts()
-        synced = canary_allreduce_tree(grads, group=dist.group.WORLD,
+        synced = canary_allreduce_tree(dict(grads), group=dist.group.WORLD,
                                        axis_size=1, fixed_point=True)
         counts = launch_counts()
         assert counts["quantize"] == counts["dequantize"] == len(grads)

@@ -22,11 +22,23 @@ tensors, each against the operation on the whole tensors.
   over ("pod", "data") moved to columns in one all-to-all over the
   flattened pair, forward and backward;
 * :func:`repro_torch.parallel.layouts.split_as_batch`: the default
-  positions split as the batch, RoPE on them equal to the whole one.
+  positions split as the batch, RoPE on them equal to the whole one;
+* decodes (``DECODES``), the serve step on DTensors laid out by the rules
+  against the same step on the whole tensors, each through the hook it
+  names: one sequence (``long_500k``'s batch, which leaves the data axes
+  idle) with the query heads' product with the values spread over the
+  data ranks (:func:`repro_torch.parallel.layouts.heads_over_idle_data`,
+  one key head, and 2 or 8 of them), the projections contracting d split
+  over the data axes and reduced at once, the argmax of logits that are a
+  partial sum, and the Mamba-2 step by heads where the model axis splits
+  its heads unevenly; two sequences split by batch and key heads, each
+  rank attending on its own rows and heads
+  (:func:`repro_torch.parallel.layouts.on_local_heads`).
 """
 import contextlib
 import os
 
+import pytest
 import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import init_device_mesh
@@ -37,6 +49,7 @@ from torch.distributed.tensor.experimental import implicit_replication
 os.environ.setdefault("JAX_PLATFORMS", "cpu")
 from repro_torch.launch import dryrun as D  # noqa: E402
 from repro_torch.parallel import ParallelContext, parallel_context  # noqa
+from repro_torch.parallel.sharding import P  # noqa: E402
 from repro_torch.parallel.layouts import (  # noqa: E402
     keep_d_split, kv_by_query_heads, redistribute_over_data, split_as_batch,
     write_slot)
@@ -205,4 +218,117 @@ def _serving_layouts_rank(rank: int, init_file: str):
 def test_serving_and_pod_layouts_compute_the_operations(tmp_path):
     import torch.multiprocessing as mp
     mp.spawn(_serving_layouts_rank, args=(str(tmp_path / "rendezvous"),),
+             nprocs=4, join=True)
+
+
+# (mesh, arch, config overrides, batch, the hook the layout must take)
+DECODES = {
+    "batch1": [
+        # one key head, the cache split along the slots over the model axis
+        ((2, 2), "llama3.2-1b", dict(num_kv_heads=1), 1,
+         "heads_over_idle_data"),
+        # 2 key heads of 4 queries, 4 data ranks: 2 heads a rank, the
+        # upper two ranks' of key head 1 (llama's and nemotron's case)
+        ((4, 1), "llama3.2-1b", dict(num_heads=8, num_kv_heads=2), 1,
+         "heads_over_idle_data"),
+        # 8 key heads of 2 queries: 2 whole groups a rank
+        ((4, 1), "llama3.2-1b", dict(num_heads=16, num_kv_heads=8), 1,
+         "heads_over_idle_data"),
+        # the model axis splits neither the 3 heads nor w_in's 451 columns
+        # (as 24 heads and 3352 columns on 16 ranks)
+        ((2, 2), "mamba2-130m", dict(d_model=96), 1, None)],
+    # the batch (and the tokens) over the data axis, the 2 key heads over
+    # the model axis
+    "batch2": [((2, 2), "llama3.2-1b", {}, 2, "on_local_heads")]}
+
+
+def _decode_rank(rank: int, init_file: str, which: str):
+    """On 4 gloo ranks, float32: three serve steps of each case of
+    ``DECODES[which]``, on DTensors laid out by the sharding rules through
+    the dry run's layouts, against the same steps on the whole tensors
+    (the tokens exactly; the logits and every cache tensor 1e-5), each
+    through the layout hook it names."""
+    import copy
+    from repro_torch.models import get_config, init_cache, init_params
+    from repro_torch.models import layers
+    from repro_torch.parallel import cache_specs, param_placements
+    from repro_torch.parallel import param_specs
+    from repro_torch.serving import make_serve_step
+    from test_torch_dryrun import _dry_run_layouts
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"file://{init_file}",
+                            world_size=4, rank=rank)
+    taken = dict.fromkeys(("heads_over_idle_data", "on_local_heads"), 0)
+
+    def counted(name):
+        hook = getattr(layers, name)
+
+        def run(*args):
+            out = hook(*args)
+            taken[name] += out is not None
+            return out
+        return run
+    for name in taken:
+        setattr(layers, name, counted(name))
+    try:
+        for shape, arch, over, batch, hook in DECODES[which]:
+            mesh = init_device_mesh("cpu", shape,
+                                    mesh_dim_names=("data", "model"))
+            sizes = dict(zip(("data", "model"), shape))
+            ctx = ParallelContext(mesh=mesh, data_axes=("data",),
+                                  model_axis="model")
+
+            def laid_out(t, spec):
+                return distribute_tensor(t, mesh,
+                                         param_placements(spec, mesh))
+
+            cfg = get_config(arch, "smoke").with_(dtype="float32", **over)
+            params = init_params(cfg, torch.Generator().manual_seed(1),
+                                 device="cpu")
+            specs = param_specs(params, sizes, fsdp="data", model="model")
+            pd = copy.deepcopy(params)
+            for name, p in list(pd.named_parameters()):
+                owner, _, leaf = name.rpartition(".")
+                setattr(pd.get_submodule(owner) if owner else pd, leaf,
+                        torch.nn.Parameter(laid_out(p.detach(), specs[name]),
+                                           requires_grad=False))
+            cache = init_cache(cfg, batch, 16, device="cpu")
+            c_specs = cache_specs(cache, sizes, dp_axes="data",
+                                  model="model")
+            cd = {"pos": 0, "layers": [
+                {k: laid_out(t.clone(), c_specs["layers"][i][k])
+                 for k, t in layer.items()}
+                for i, layer in enumerate(cache["layers"])]}
+            step = make_serve_step(cfg)
+            tokens = torch.tensor([[7], [11]][:batch], dtype=torch.int32)
+            before = dict(taken)
+            for i in range(3):
+                with torch.no_grad():
+                    nxt, logits, cache = step(params, cache, tokens)
+                    with parallel_context(ctx), _dry_run_layouts():
+                        nd, ld, cd = step(pd, cd, laid_out(
+                            tokens, P("data" if batch > 1 else None)))
+                _close(ld.full_tensor(), logits, f"{arch} logits {i}")
+                assert torch.equal(nd.full_tensor(), nxt), (arch, i)
+                for j, layer in enumerate(cache["layers"]):
+                    for k, t in layer.items():
+                        _close(cd["layers"][j][k].full_tensor(), t,
+                               f"{arch} cache {j} {k} {i}")
+                tokens = nxt
+            if hook is not None:    # once a layer a step
+                assert taken[hook] - before[hook] == 3 * cfg.num_layers, \
+                    (arch, over, taken, before)
+            else:
+                assert list(pd.layers[0].ssm.w_in.placements) \
+                    == [Replicate()] * 2
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("which", sorted(DECODES))
+def test_decode_layouts_compute_the_step(tmp_path, which):
+    """``batch1``: one sequence, which leaves the data axes idle
+    (``long_500k``'s batch); ``batch2``: two, split over the data axis."""
+    import torch.multiprocessing as mp
+    mp.spawn(_decode_rank, args=(str(tmp_path / "rendezvous"), which),
              nprocs=4, join=True)

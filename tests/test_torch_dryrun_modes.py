@@ -17,17 +17,15 @@ CASES = [case("llama3.2-1b", "train_4k", grad_sync="canary_fp"),
          case("deepseek-moe-16b", "train_4k", moe_impl="ep_a2a")]
 
 
-# canary_fp: the reference's compiled step, in its data-manual shard_map,
-# all-gathers the (2052096, 128) float32 embedding table inside the
-# quantizer's while loop, once an iteration (8016 of them, twice): 16.9 TB
-# a device, which ``costs`` reads as the HLO runs it; the port's
-# temporaries, 2.5-3.8 times the reference's, are not attributed yet.
-# Port / reference after this PR (FLOPs, temporaries, link bytes):
-OPEN = {
+# canary_fp: the reference's quantizer and dequantizer, run as loops over
+# their grids, all-gather each tensor the model axis splits once an
+# iteration (``hold``): the iterations and bytes of those all-gathers
+FINDINGS = {
     case("llama3.2-1b", "train_4k", grad_sync="canary_fp"):
-        "temporaries 3.786, link bytes 0.001 (FLOPs 1.0245)",
+        {"quantizer_gathers": (17312, 16917406416896)},
     case("qwen2-moe-a2.7b", "train_4k", grad_sync="canary_fp"):
-        "temporaries 2.548, link bytes 0.002 (FLOPs 1.000)"}
+        {"quantizer_gathers": (10456, 11856064282624)}}
 
 
-reference, test_mode_period_against_reference = period_tests(CASES, OPEN)
+reference, test_mode_period_against_reference = period_tests(CASES,
+                                                             FINDINGS)

@@ -31,7 +31,9 @@ products show only here. The reference compiles while the port traces:
 each case waits only for its own compile, which the subprocess reports as
 soon as it is done.
 """
+import math
 import os
+from collections import Counter
 
 import pytest
 
@@ -44,8 +46,10 @@ from repro_torch.launch.analysis import INPUT_SHAPES  # noqa: E402
 from repro_torch.launch.mesh import (PRODUCTION_SHAPES,  # noqa: E402
                                      make_production_mesh, mesh_axes)
 from repro_torch.models import get_config, list_archs  # noqa: E402
+from repro_torch.models import Transformer  # noqa: E402
 from repro_torch.models.transformer import layer_period  # noqa: E402
-from repro_torch.parallel import ParallelContext, parallel_context  # noqa
+from repro_torch.parallel import (ParallelContext, param_specs,  # noqa
+                                  parallel_context)
 
 HYBRID = "jamba-v0.1-52b"        # the slowest on both sides: compiled last
 
@@ -75,7 +79,8 @@ JAX_SCRIPT = r"""
 import json, sys
 import repro.launch.dryrun as R
 import jax
-from dryrun_reference import costs, link_bytes
+from dryrun_reference import collectives, costs, link_bytes, new_caches
+from repro.launch.analysis import INPUT_SHAPES
 from repro.launch.mesh import make_production_mesh, mesh_axes
 from repro.models import get_config
 from repro.models.transformer import layer_period
@@ -112,6 +117,14 @@ for key, (arch, shape, m, grad_sync, sp, moe_impl) in json.loads(sys.argv[1]):
         for name, text in (("loop", hlo), ("plain_loop", probe(False)[0])):
             f, b = costs(text, loops=True)
             row[name + "_flops"], row[name + "_link"] = f, link_bytes(b)
+    if grad_sync == "canary_fp":    # the quantizer's loops, the trees
+        cs = collectives(hlo)
+        row["quantizer"] = [c for c in cs
+                            if c[5].endswith("repro/kernels/fixedpoint.py")]
+        row["trees"] = [c for c in cs
+                        if c[6].endswith("repro/core/collective/trees.py")]
+    if INPUT_SHAPES[shape]["kind"] == "decode":
+        row["new_caches"] = new_caches(hlo)
     print(f"JAX_CASE {key} " + json.dumps(row), flush=True)
 """
 
@@ -147,15 +160,81 @@ def _account(arch, shape, mesh="single", grad_sync="auto",
             fn, args, _ = D.build_dryrun(arch, shape, m, grad_sync=grad_sync,
                                          cfg_override=_probe_cfg(arch),
                                          moe_impl=moe_impl, device="cpu")
-            return D.account(fn, args)
+            got = D.account(fn, args)
+    if INPUT_SHAPES[shape]["kind"] == "decode":     # each K and V, local
+        got["cache_kv"] = [(list(t.to_local().shape), t.element_size())
+                           for layer in args[1]["layers"]
+                           for k, t in layer.items() if k in ("k", "v")]
+    return got
 
 
-def hold(reference, c):
+def _tree_tensors(arch, mesh="single"):
+    """``(whole, share)`` of each of the probe's parameter tensors: its
+    size and the size of model rank 0's share of it (the whole where the
+    model axis does not split it; parameters replicated over the data
+    axes, as the explicit gradient syncs hold them)."""
+    shape, _ = PRODUCTION_SHAPES[mesh == "multi"]
+    sizes = dict(zip(("pod", "data", "model")[-len(shape):], shape))
+    meta = Transformer(_probe_cfg(arch), device="meta")
+    specs = param_specs(meta, sizes, fsdp="data", model="model",
+                        use_fsdp=False)
+    out = []
+    for n, p in meta.named_parameters():
+        share = p.numel()
+        if "model" in specs[n]:
+            d = p.shape[list(specs[n]).index("model")]
+            share = share // d * -(-d // sizes["model"])
+        out.append((p.numel(), share))
+    return out
+
+
+def _trees_as_shares(trees, tensors, data, blocks=16):
+    """The reference's Canary trees (``trees``: its collectives that
+    ``repro/core/collective/trees.py`` issues) with each tensor's share
+    in place of the whole one it carries: asserts that they are int32
+    collective-permutes, ``2 ceil(log2 data)`` rounds a tensor, and that
+    each tensor's rounds carry, padded to ``blocks``, either its whole
+    (the quantizer gathered it) or its model share (``tensors``, from
+    :func:`_tree_tensors`); returns ``(bytes, shares, gathered)``: the
+    trees' bytes, those bytes with each tensor's share carried, and how
+    many tensors went whole where the port sends a share."""
+    rounds = 2 * math.ceil(math.log2(data))
+    assert all(t[:1] + t[2:3] + t[4:6] == ["collective-permute", "s32", 1,
+                                           ""] for t in trees), trees
+    carried = Counter(t[3] for t in trees)
+    assert all(v % rounds == 0 for v in carried.values()), (carried, rounds)
+    slots = [e for e, v in sorted(carried.items()) for _ in range(v // rounds)]
+    assert len(slots) == len(tensors), (carried, tensors)
+
+    def pad(x):
+        return -(-x // blocks) * blocks
+    # each tensor to a slot of its whole or its share (augmenting paths)
+    owner = [None] * len(slots)
+
+    def place(i, seen):
+        for j, e in enumerate(slots):
+            if e in (pad(tensors[i][0]), pad(tensors[i][1])) \
+                    and j not in seen:
+                seen.add(j)
+                if owner[j] is None or place(owner[j], seen):
+                    owner[j] = i
+                    return True
+        return False
+    assert all(place(i, set()) for i in range(len(tensors))), \
+        (carried, tensors)
+    gathered = sum(e != pad(tensors[i][1]) for e, i in zip(slots, owner))
+    shares = sum(rounds * 4 * pad(share) for _, share in tensors)
+    return sum(t[1] for t in trees), shares, gathered
+
+
+def hold(reference, c, finding=None):
     """One period of case ``c`` against the reference's compiled probe:
     FLOPs (the flash calls counted as the reference's attention issues
     them), temporaries and collective link bytes within the small steps'
     bounds, no collective left uncounted, and each rank's argument bytes
     the reference's (a decode's less its cache's 4-byte position).
+    ``finding`` names what the reference's HLO shows of the case, which
+    this asserts and holds the case by (below).
 
     Under ``--seq-parallel`` GSPMD lays the chunked attention's two scans
     (the only while bodies of a one-period probe) out along the sequence
@@ -166,17 +245,66 @@ def hold(reference, c):
     attention out as it does without sequence parallelism (whole
     sequences, split over the model axis with the batch), so there the
     reference's scans, FLOPs and link bytes, are those it compiles without
-    ``--seq-parallel``; the rest of the step is held to the one with it."""
+    ``--seq-parallel``; the rest of the step is held to the one with it.
+
+    ``finding["quantizer_gathers"]``, ``(count, bytes)`` (``--grad-sync
+    canary_fp``): on the CPU the reference runs its Pallas quantizer and
+    dequantizer as while loops over their grids, and in each iteration it
+    all-gathers, in float32, the whole of the tensor it quantizes (the
+    embedding table, (2052096, 128), once each of 8016 iterations, twice)
+    where the model axis splits it. This asserts that every collective
+    inside those loops is such an all-gather, of ``count`` iterations and
+    ``bytes`` in all, and takes them out of the reference's link bytes.
+    Its trees then carry most such tensors whole, where the port's carry
+    each model rank's share: this asserts that too
+    (:func:`_trees_as_shares`), holds the port's trees' bytes exactly to
+    the reference's with each tensor's share in place of its whole, and
+    counts those bytes on both sides.
+
+    ``finding["new_cache"]`` (a decode): the reference's step writes its
+    cache anew, in float32 (each K and V of the port's local shape is a
+    float32 ``dynamic_update_slice`` of its entry computation, a
+    temporary: the outputs are bfloat16), where the port writes the
+    step's slot into its cache in place; this asserts those values and
+    holds the port's temporaries with its local K and V counted as
+    written anew."""
+    finding = finding or {}
     shape, seq_parallel = c[1], c[4]
     got = _account(*c)
     want = dict(reference.case(case_id(c)))
+    got_temp, got_link = got["memory"]["temp_bytes"], \
+        got["collective_link_bytes"]
     if seq_parallel:
         assert want["loop_flops"] == 3 * want["plain_loop_flops"], want
         for k in ("flops", "link"):
             want[k] += want[f"plain_loop_{k}"] - want[f"loop_{k}"]
+    if "quantizer_gathers" in finding:
+        tensors = _tree_tensors(c[0], c[2])
+        split = {whole for whole, share in tensors if share < whole}
+        gathers = want["quantizer"]
+        assert gathers and all(
+            g[0] == "all-gather" and g[2] == "f32" and g[3] in split
+            for g in gathers), (gathers, split)
+        moved = sum(g[1] for g in gathers)
+        assert (sum(g[4] for g in gathers), moved) \
+            == tuple(finding["quantizer_gathers"]), gathers
+        whole, shares, gathered = _trees_as_shares(
+            want["trees"], tensors, PRODUCTION_SHAPES[c[2] == "multi"][0][-2])
+        trees = got["collective_bytes"]["collective-permute"]
+        print(f"{case_id(c)}: the reference's quantizer gathers {moved} "
+              f"bytes; its trees {whole} bytes, {gathered} of "
+              f"{len(tensors)} tensors whole, {shares} with the shares; "
+              f"the port's trees {trees}", flush=True)
+        assert trees == shares, (trees, shares)
+        want["link"] -= moved + whole - shares
+    if "new_cache" in finding:
+        kv = [tuple(s) for s, _ in got["cache_kv"]]
+        assert not Counter(kv) - Counter(map(tuple, want["new_caches"])), \
+            (kv, want["new_caches"])
+        got_temp += sum(math.prod(s) * n for s, n in got["cache_kv"])
     ratios = {"kernel_flops": got["flops"] / want["flops"],
-              "temp": got["memory"]["temp_bytes"] / want["temp"],
-              "link": got["collective_link_bytes"] / want["link"]}
+              "temp": got_temp / want["temp"],
+              "link": got_link / want["link"]}
     att = got["attention_flops"]
     ratios["flops"] = (got["flops"] - att["kernel"] + att["all_pairs"]) \
         / want["flops"]
@@ -192,12 +320,12 @@ def hold(reference, c):
     assert LINK_BOUND[0] <= ratios["link"] <= LINK_BOUND[1], ratios
 
 
-def period_tests(cases, open_cases=None):
+def period_tests(cases, findings=None):
     """A module's fixture ``reference`` (the reference's probes of
     ``cases``, compiled in one subprocess) and its test of each case
-    (:func:`hold`); a case of ``open_cases`` is a strict ``xfail`` whose
-    reason is its entry. A module assigns both to its own names."""
-    open_cases = open_cases or {}
+    (:func:`hold`, with the case's entry of ``findings``). A module
+    assigns both to its own names."""
+    findings = findings or {}
 
     @pytest.fixture(scope="module")
     def reference():
@@ -205,14 +333,10 @@ def period_tests(cases, open_cases=None):
         yield run
         run.close()
 
-    @pytest.mark.parametrize("c", [
-        pytest.param(c, marks=pytest.mark.xfail(reason=open_cases[c],
-                                                strict=True))
-        if c in open_cases else c for c in cases],
-        ids=[case_id(c) for c in cases])
+    @pytest.mark.parametrize("c", cases, ids=[case_id(c) for c in cases])
     def test_period(reference, c):
         """One layer period against the reference's compiled probe."""
-        hold(reference, c)
+        hold(reference, c, findings.get(c))
 
     return reference, test_period
 

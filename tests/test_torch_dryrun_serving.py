@@ -20,28 +20,13 @@ CASES = [case(a, "prefill_32k") for a in ARCHS if a not in HELD] \
        if not should_skip(a, "long_500k")]
 
 
-# long_500k's one sequence leaves the data axes idle and its 8192-slot ring
-# buffer split 512 slots a model rank: GSPMD spreads the step's few
-# products over the idle data ranks as well (the logits' contraction, the
-# probabilities' product), where the port's layouts leave them to the
-# model axis; its temporaries hold the cache it writes anew, the port's
-# write is in place. Port / reference after this PR (FLOPs, temporaries,
-# link bytes):
-OPEN = {
-    case("glm4-9b", "long_500k"):
-        "link bytes 0.351 (FLOPs 1.000, temporaries 0.165)",
-    case("llama3.2-1b", "long_500k"):
-        "FLOPs 1.393 (temporaries 0.123, link bytes 1.721)",
-    case("mamba2-130m", "long_500k"):
-        "FLOPs 1.060, temporaries 2.124 (link bytes 1.163)",
-    case("nemotron-4-340b", "long_500k"):
-        "FLOPs 1.195, temporaries 0.024 (link bytes 1.689)",
-    case("qwen2-7b", "long_500k"):
-        "temporaries 0.081 (FLOPs 1.032, link bytes 1.321)",
-    case("qwen2-moe-a2.7b", "long_500k"):
-        "temporaries 0.050, link bytes 2.571 (FLOPs 1.013)",
-    case("qwen2-vl-2b", "long_500k"):
-        "temporaries 0.097 (FLOPs 1.017, link bytes 0.730)"}
+# long_500k: the reference writes its cache anew, in float32, where the
+# port writes the step's slot in place (``hold``); the cases whose
+# temporaries are held by that
+FINDINGS = {case(a, "long_500k"): {"new_cache": True}
+            for a in ("nemotron-4-340b", "qwen2-7b", "qwen2-moe-a2.7b",
+                      "qwen2-vl-2b")}
 
 
-reference, test_serving_period_against_reference = period_tests(CASES, OPEN)
+reference, test_serving_period_against_reference = period_tests(CASES,
+                                                                FINDINGS)

@@ -130,7 +130,8 @@ def _rank(rank: int, world: int, init_file: str, out_dir: str, np_params,
                 p = params_from_reference(np_params, tc.model, "cpu")
                 synced = {}
                 _, _, m = make_train_step(
-                    tc, mesh, on_sync=lambda raw, s: synced.update(s))(
+                    tc, mesh, on_sync=lambda raw, s: synced.update(
+                        {n: g.clone() for n, g in s.items()}))(
                     p, adamw_init(p, tc.optimizer), batch)
             out.update({f"s.{n}": (g / mesh.size).numpy()
                         for n, g in synced.items()})

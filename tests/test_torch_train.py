@@ -72,6 +72,12 @@ def _t(a) -> torch.Tensor:
     return torch.from_numpy(np.array(a, copy=True))
 
 
+def _copies(synced: dict) -> dict:
+    """What an ``on_sync`` keeps of the sums: the step divides them in
+    place once it returns."""
+    return {k: v.clone() for k, v in synced.items()}
+
+
 def _f32cfg():
     return get_config(ARCH, "smoke").with_(dtype="float32")
 
@@ -357,7 +363,7 @@ def _train_rank(rank: int, init_file: str, np_params, out_dir: str):
             DataConfig(tc.model.vocab_size, B, S), 0, rows).items()}
         seen = {}
         step = make_train_step(tc, mesh, on_sync=lambda raw, synced:
-                               seen.update(synced))
+                               seen.update(_copies(synced)))
         _, _, m = step(params, adamw_init(params, tc.optimizer), batch)
         out = {f"grad.{k}": v.numpy() for k, v in seen.items()}
         out.update(loss=float(m["loss"]), grad_norm=float(m["grad_norm"]))
@@ -369,7 +375,7 @@ def _train_rank(rank: int, init_file: str, np_params, out_dir: str):
             synced = {}
             step = make_train_step(
                 tcm, mesh22 if mode == "hierarchical" else mesh,
-                on_sync=lambda raw, s: synced.update(s))
+                on_sync=lambda raw, s: synced.update(_copies(s)))
             _, _, m = step(p, adamw_init(p, tc.optimizer), batch)
             out[f"{mode}.loss"] = float(m["loss"])
             out[f"{mode}.grad_norm"] = float(m["grad_norm"])
@@ -566,8 +572,8 @@ def _fp_sync_rank(rank: int, init_file: str, out_dir: str):
             dist.all_reduce = counting
             calls.clear()
             try:
-                synced = canary_allreduce_tree(
-                    grads, group=W, axis_size=DP, num_blocks=FP_BLOCKS,
+                synced = canary_allreduce_tree(  # a dict it empties
+                    dict(grads), group=W, axis_size=DP, num_blocks=FP_BLOCKS,
                     fixed_point=True, groups=groups)
             finally:
                 dist.all_reduce = real

@@ -371,8 +371,8 @@ def _rank(rank: int, init_file: str, out_dir: str, np_params) -> None:
             calls.clear()
             dist.all_reduce = counting
             try:
-                synced = canary_allreduce_tree(
-                    grads, group=W, axis_size=DP, num_blocks=BLOCKS,
+                synced = canary_allreduce_tree(  # a dict it empties
+                    dict(grads), group=W, axis_size=DP, num_blocks=BLOCKS,
                     fixed_point=True, groups=groups)
             finally:
                 dist.all_reduce = real
@@ -397,7 +397,8 @@ def _rank(rank: int, init_file: str, out_dir: str, np_params) -> None:
             seen = {}
             step = make_train_step(
                 tc, mesh22 if mode == "hierarchical" else mesh,
-                on_sync=lambda raw, s: seen.update(raw=raw, synced=s))
+                on_sync=lambda raw, s: seen.update(raw=raw, synced={
+                    k: v.clone() for k, v in s.items()}))
             p, _, m = step(p, adamw_init(p, tc.optimizer), batch)
             out[f"{mode}.loss"] = float(m["loss"])
             out[f"{mode}.grad_norm"] = float(m["grad_norm"])
