@@ -10,8 +10,10 @@ Usage::
 For each row (``arch:shape:mesh``, mesh ``single`` or ``multi``) and each
 device of ``--devices`` it runs ``repro_torch.launch.dryrun.run_one`` and
 records every operation the dry run counts: its name, its outputs' and
-first inputs' local shapes and the live bytes after it. It prints a line a
-row and device (peak bytes, FLOPs a device, useful share) and writes
+first inputs' local shapes, the live bytes after it and the bytes it adds
+to ``bytes_accessed``. It prints a line a row and device (peak bytes,
+FLOPs a device, useful share, the bytes accessed and the operation that
+accounts for most of them) and writes
 ``<out>/trace_<torch release>.json``; two such files, from two releases,
 part where their rules do.
 """
@@ -19,6 +21,7 @@ import argparse
 import json
 import os
 import time
+from collections import Counter
 
 import torch
 
@@ -36,10 +39,11 @@ def main(argv=None) -> None:
     count = D.Accountant._count
 
     def traced(self, func, fargs, kwargs, out):
+        before = self.bytes
         count(self, func, fargs, kwargs, out)
         trace.append((str(func), [list(t.shape) for t in D._tensors(out)],
                       [list(t.shape) for t in D._tensors(list(fargs))][:4],
-                      self.live))
+                      self.live, self.bytes - before))
 
     D.Accountant._count = traced
     result = {"torch": torch.__version__}
@@ -56,11 +60,18 @@ def main(argv=None) -> None:
                            flops=r["per_device"]["flops"],
                            link=r["per_device"]["collective_link_bytes"],
                            useful=r["roofline"]["useful_flops_ratio"],
+                           accessed=r["per_device"]["bytes_accessed"],
                            at_peak=r["at_peak"], trace=list(trace))
                 result[f"{spec}:{device}"] = row
+                by_op = Counter()
+                for op, *_, accessed in trace:
+                    by_op[op] += accessed
+                (top, top_bytes), = by_op.most_common(1)
                 print(f"{spec} {device}: peak {row['total']} bytes, "
-                      f"{row['flops']} FLOP/dev, useful {row['useful']:.4f} "
-                      f"({time.perf_counter() - t0:.1f} s)", flush=True)
+                      f"{row['flops']} FLOP/dev, useful {row['useful']:.4f}, "
+                      f"{row['accessed']} bytes accessed, {top_bytes} of "
+                      f"them by {top} ({time.perf_counter() - t0:.1f} s)",
+                      flush=True)
     finally:
         D.Accountant._count = count
     path = os.path.join(args.out, f"trace_{torch.__version__[:4]}.json")

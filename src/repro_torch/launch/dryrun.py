@@ -137,9 +137,10 @@ How each part of the reference is carried over:
     ``w_in`` (mamba2-130m's ``long_500k``) takes the projection's columns
     over the idle data axes and the state's update and product with C by
     heads, the new state gathered into the cache (the layout hooks
-    ``parallel.layouts.columns_over_idle_data``, ``over_model``,
-    ``on_split_heads`` and ``write_heads``), where DTensor keeps every
-    column on every rank and splits the state along N;
+    ``parallel.layouts.columns_over_idle_data``, ``over_model`` and
+    ``on_split_heads``; the gather is DTensor's redistribution), where
+    DTensor keeps every column on every rank and splits the state along
+    N;
   - attention where the model axis divides the query heads and not the
     key heads and leaves the batch whole (a prefill's, a decode's or a
     two-pod step's): the model's layout hook
@@ -324,6 +325,12 @@ _C10D = {"allreduce_": "all-reduce", "allgather_": "all-gather",
 # receive is counted as its matching send)
 _UNMOVED = {"wait_tensor", "_wrap_tensor_autograd", "recv_", "barrier",
             "monitored_barrier_"}
+# of those, the op that hands a collective's result back wrapped, holding
+# its input's storage (an ``AsyncCollectiveTensor``): its output is counted
+# as its input's storage (see :meth:`Accountant.alias`), since the fake
+# allocates where the real op does not: ``empty_like(input)`` in the fakes
+# of torch 2.11 and 2.13
+_WRAPS = {"_wrap_tensor_autograd"}
 _ALLOCATIONS = {"empty", "empty_strided", "empty_like", "new_empty",
                 "new_empty_strided"}
 _FLASH = {"flash_attention_fwd": "fwd", "flash_attention_bwd": "bwd"}
@@ -800,7 +807,13 @@ class Accountant(TorchDispatchMode):
         self.inferring = 0          # inside DTensor's shape inference
         self.live = 0               # bytes of local storage alive
         self.peak = 0
+        # each storage counted: {record: (bytes, origin, shape, dtype)}; the
+        # live storages that hold a record (its own and its wraps'), by
+        # storage key, and how many hold each
         self._storages: Dict[int, Tuple] = {}
+        self._holder: Dict[int, int] = {}
+        self._holders: Counter = Counter()
+        self._records = 0
         self._peak_dirty = False
         self.at_peak: List[Tuple] = []     # see live_at_peak
         self._global_q: Optional[Tuple[int, ...]] = None
@@ -812,22 +825,40 @@ class Accountant(TorchDispatchMode):
         ``origin`` names what made it, for :meth:`live_at_peak`."""
         st = t.untyped_storage()
         key = _storage_key(t)
-        if key in self._storages:
+        if key in self._holder:
             return 0
         n = st.nbytes()
-        self._storages[key] = (n, origin, tuple(t.shape), str(t.dtype))
+        record = self._records = self._records + 1
+        self._storages[record] = (n, origin, tuple(t.shape), str(t.dtype))
         self.live += n
         if self.live > self.peak:
             self.peak = self.live
             self._peak_dirty = True
-        weakref.finalize(st, self._free, key)
+        self._hold(st, key, record)
         return n
 
-    def _free(self, key: int) -> None:
+    def alias(self, t: torch.Tensor, of: torch.Tensor) -> None:
+        """Count ``t``'s storage as ``of``'s (a tracked one): no new bytes,
+        ``of``'s live until the last of the two is freed."""
+        self._hold(t.untyped_storage(), _storage_key(t),
+                   self._holder[_storage_key(of)])
+
+    def _hold(self, st, key: int, record: int) -> None:
+        self._holder[key] = record
+        self._holders[record] += 1
+        weakref.finalize(st, self._free, key, record)
+
+    def _free(self, key: int, record: int) -> None:
+        if self._holder.get(key) == record:
+            del self._holder[key]
+        self._holders[record] -= 1
+        if self._holders[record]:
+            return
+        del self._holders[record]
         if self._peak_dirty:    # what is live at the peak, before one goes
             self.at_peak = list(self._storages.values())
             self._peak_dirty = False
-        self.live -= self._storages.pop(key)[0]
+        self.live -= self._storages.pop(record)[0]
 
     def live_at_peak(self) -> List[Tuple]:
         """``(bytes, origin, shape, dtype)`` of every storage live at the
@@ -884,11 +915,14 @@ class Accountant(TorchDispatchMode):
                 (4 if _FLASH[name] == "fwd" else 8) * b * h * sq * sk * d
         ins, outs = _tensors(list(args) + list(kwargs.values())), \
             _tensors(out)
+        ns = getattr(func, "namespace", "")
+        if ns == "_c10d_functional" and name in _WRAPS:
+            self.alias(outs[0], ins[0])     # moves nothing, reads nothing
+            return
         if not func.is_view:
             self.read.update(_storage_key(t) for t in ins)
         for t in outs:
             self.track(t, str(packet))
-        ns = getattr(func, "namespace", "")
         if ns == "_c10d_functional" and name in _FUNCOL:
             self._collective(_FUNCOL[name], name, args, outs)
         elif ns == "c10d" and name in _C10D:

@@ -24,7 +24,7 @@ from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from ..parallel import P, get_parallel_context
 from ..parallel.layouts import (columns_over_idle_data, on_split_heads,
-                                over_model, write_heads)
+                                over_model)
 from ..parallel.regions import shard_map, sum_over
 from .config import ModelConfig
 from .layers import _param, _weights
@@ -307,6 +307,6 @@ def mamba2_decode_step(p: Mamba2, x1: torch.Tensor,
     y = (_c_product(st, Cm) if y is None else y) + xs * p.D[None, :, None]
     g = _gated_norm(y.reshape(B, di), z, p, cfg.norm_eps)
     out = g.to(x1.dtype) @ p.w_out
-    write_heads(cache["state"], st)
+    cache["state"].copy_(st)
     cache["conv"].copy_(window[:, 1:, :])
     return out[:, None, :], cache

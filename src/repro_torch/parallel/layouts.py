@@ -16,11 +16,10 @@ unchanged.
   batch whole;
 * :func:`on_local_heads`: a decode's attention on each rank's own batch
   rows and heads, where the mesh splits nothing else;
-* :func:`columns_over_idle_data`, :func:`over_model`,
-  :func:`on_split_heads` and :func:`write_heads`: a Mamba-2 decode of one
-  sequence, its input projection's columns over the idle data axes, its
-  state by heads over the model axis, its product with C on each rank's
-  heads and the new state gathered into its cache;
+* :func:`columns_over_idle_data`, :func:`over_model` and
+  :func:`on_split_heads`: a Mamba-2 decode of one sequence, its input
+  projection's columns over the idle data axes, its state by heads over
+  the model axis and its product with C on each rank's heads;
 * :func:`keep_d_split`: an encoder-decoder's layers, where GSPMD keeps
   the model dim d split over the model axis (read by the dry run's product
   layout through :func:`d_split_kept`).
@@ -46,11 +45,9 @@ On a plain tensor, or where the layout does not apply, it returns
 from __future__ import annotations
 
 import contextlib
-import warnings
 from typing import Optional, Tuple
 
 import torch
-import torch.distributed as dist
 from torch.autograd import Function
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
@@ -362,33 +359,6 @@ def on_split_heads(fn, t, *whole):
     return DTensor.from_local(out, t.device_mesh, t.placements,
                               run_check=False, shape=shape,
                               stride=contiguous_stride(shape))
-
-
-def write_heads(cache, new) -> None:
-    """``cache.copy_(new)``: a Mamba-2 decode's new state into its cache.
-    Where the mesh leaves the cache whole and splits ``new`` by heads
-    (dim 1) over one mesh dim (:func:`over_model`'s torch.chunk share),
-    the ranks' heads, padded to the largest share, are all-gathered into
-    one buffer and copied into each rank's cache, as GSPMD gathers its
-    padded shares; DTensor's redistribution would pad, gather and unpad
-    through buffers of its own."""
-    split = [m for m, p in enumerate(getattr(new, "placements", ()))
-             if not p.is_replicate()]
-    if not isinstance(cache, DTensor) or len(split) != 1 \
-            or new.placements[split[0]] != Shard(1) \
-            or any(not p.is_replicate() for p in cache.placements):
-        cache.copy_(new)
-        return
-    mesh, m = new.device_mesh, split[0]
-    n, local = mesh.size(m), new.to_local()
-    per = -(-new.shape[1] // n)
-    mine = local.new_zeros((per,) + local.shape[:1] + local.shape[2:])
-    mine[:local.shape[1]] = local.movedim(1, 0)
-    heads = mine.new_empty((n * per,) + mine.shape[1:])
-    with warnings.catch_warnings():     # deprecated in newer releases
-        warnings.simplefilter("ignore", FutureWarning)
-        dist.all_gather_into_tensor(heads, mine, group=mesh.get_group(m))
-    cache.to_local().copy_(heads[:new.shape[1]].movedim(0, 1))
 
 
 def redistribute_over_data(t, placements):

@@ -6,6 +6,7 @@ JAX subprocess they read it in.
 subprocess finds this module on its ``PYTHONPATH``.
 """
 import json
+import math
 import os
 import re
 import subprocess
@@ -13,6 +14,7 @@ import sys
 import tempfile
 import threading
 import time
+from collections import Counter
 
 import numpy as np
 
@@ -87,6 +89,20 @@ def _section(hlo, name):
     return out
 
 
+def _computations(hlo):
+    """``({name: lines}, entry)``: each computation of an HLO module."""
+    comps, entry, cur = {}, None, None
+    for line in hlo.splitlines():
+        m = COMP.match(line)
+        if m:
+            cur = m.group(1)
+            comps[cur] = []
+            entry = cur if line.startswith("ENTRY") else entry
+        elif cur is not None:
+            comps[cur].append(line)
+    return comps, entry
+
+
 def collectives(hlo):
     """Every collective of an optimized HLO module as the step runs it:
     ``[kind, bytes, dtype, elements, times, loop, site]``, ``bytes`` its
@@ -108,15 +124,7 @@ def collectives(hlo):
         name = re.search(r"file_name_id=(\d+)", locs[int(loc)]).group(1)
         return files[int(name)].strip('"')
 
-    comps, entry, cur = {}, None, None
-    for line in hlo.splitlines():
-        m = COMP.match(line)
-        if m:
-            cur = m.group(1)
-            comps[cur] = []
-            entry = cur if line.startswith("ENTRY") else entry
-        elif cur is not None:
-            comps[cur].append(line)
+    comps, entry = _computations(hlo)
 
     def walk(c, times, loop):
         out = []
@@ -139,20 +147,49 @@ def collectives(hlo):
 
 
 def new_caches(hlo):
-    """The shapes of the float32 values of a decode step's entry
-    computation that are its caches' ``dynamic_update_slice``: the step's
-    new K and V, written anew in float32 before the bfloat16 outputs (so
-    temporaries of the step)."""
-    out, entry = [], False
-    for line in hlo.splitlines():
-        if COMP.match(line):
-            entry = line.startswith("ENTRY")
-            continue
-        d = DEF.match(line)
-        if entry and d and re.search(r"= f32\[", line) \
-                and 'dynamic_update_slice"' in line:
-            out.append([int(x) for x in d.group(2).split(",") if x])
-    return out
+    """The shapes of the float32 values of a decode step that are its
+    caches' ``dynamic_update_slice``, one a time the step computes them:
+    in its entry computation, and in a while body its trip count times
+    (the reference's decode scans its layer periods, a loop where a step
+    has more than one). They are the step's new K and V, written anew in
+    float32 before the bfloat16 outputs (so temporaries of the step)."""
+    comps, entry = _computations(hlo)
+
+    def walk(c, times):
+        out = []
+        for line in comps[c]:
+            d = DEF.match(line)
+            if d and re.search(r"= f32\[", line) \
+                    and 'dynamic_update_slice"' in line:
+                out += [[int(x) for x in d.group(2).split(",") if x]] * times
+            trips = re.search(r'"known_trip_count":\{"n":"(\d+)"', line)
+            for body in re.findall(r"body=%([\w.\-]+)", line):
+                out += walk(body, times * int(trips.group(1)))
+        return out
+    return walk(entry, 1)
+
+
+def cache_kv(cache):
+    """``(local shape, element size)`` of each K and V of a decode step's
+    cache of DTensors (rank 0's shares)."""
+    return [(list(t.to_local().shape), t.element_size())
+            for layer in cache["layers"] for k, t in layer.items()
+            if k in ("k", "v")]
+
+
+def new_cache_bytes(kv, new_caches):
+    """The ``new_cache`` finding on a decode step: the reference writes
+    its cache anew, in float32 (each of the port's local K and V, ``kv``
+    from :func:`cache_kv`, is one of the reference's float32
+    ``dynamic_update_slice`` values, ``new_caches`` from
+    :func:`new_caches`: temporaries, as its outputs are bfloat16), where
+    the port writes the step's slot into its cache in place. Asserts
+    that, and returns the bytes of the port's local K and V, which count
+    as written anew."""
+    shapes = [tuple(s) for s, _ in kv]
+    assert not Counter(shapes) - Counter(map(tuple, new_caches)), \
+        (shapes, new_caches)
+    return sum(math.prod(s) * n for s, n in kv)
 
 
 def link_bytes(moved):

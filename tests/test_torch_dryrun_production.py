@@ -38,7 +38,8 @@ from collections import Counter
 import pytest
 
 os.environ.setdefault("JAX_PLATFORMS", "cpu")
-from dryrun_reference import JaxRun  # noqa: E402
+from dryrun_reference import (JaxRun, cache_kv,  # noqa: E402
+                              new_cache_bytes)
 from test_torch_dryrun import (FLOPS_BOUND, LINK_BOUND,  # noqa: E402
                                TEMP_BOUND)
 from repro_torch.launch import dryrun as D  # noqa: E402
@@ -161,10 +162,8 @@ def _account(arch, shape, mesh="single", grad_sync="auto",
                                          cfg_override=_probe_cfg(arch),
                                          moe_impl=moe_impl, device="cpu")
             got = D.account(fn, args)
-    if INPUT_SHAPES[shape]["kind"] == "decode":     # each K and V, local
-        got["cache_kv"] = [(list(t.to_local().shape), t.element_size())
-                           for layer in args[1]["layers"]
-                           for k, t in layer.items() if k in ("k", "v")]
+    if INPUT_SHAPES[shape]["kind"] == "decode":
+        got["cache_kv"] = cache_kv(args[1])
     return got
 
 
@@ -262,12 +261,11 @@ def hold(reference, c, finding=None):
     counts those bytes on both sides.
 
     ``finding["new_cache"]`` (a decode): the reference's step writes its
-    cache anew, in float32 (each K and V of the port's local shape is a
-    float32 ``dynamic_update_slice`` of its entry computation, a
-    temporary: the outputs are bfloat16), where the port writes the
-    step's slot into its cache in place; this asserts those values and
-    holds the port's temporaries with its local K and V counted as
-    written anew."""
+    cache anew, in float32, where the port writes the step's slot into
+    its cache in place; this asserts those values on the HLO and holds
+    the port's temporaries with its local K and V counted as written anew
+    (``dryrun_reference.new_cache_bytes``, which the small steps of
+    ``test_torch_dryrun.py`` share)."""
     finding = finding or {}
     shape, seq_parallel = c[1], c[4]
     got = _account(*c)
@@ -298,10 +296,7 @@ def hold(reference, c, finding=None):
         assert trees == shares, (trees, shares)
         want["link"] -= moved + whole - shares
     if "new_cache" in finding:
-        kv = [tuple(s) for s, _ in got["cache_kv"]]
-        assert not Counter(kv) - Counter(map(tuple, want["new_caches"])), \
-            (kv, want["new_caches"])
-        got_temp += sum(math.prod(s) * n for s, n in got["cache_kv"])
+        got_temp += new_cache_bytes(got["cache_kv"], want["new_caches"])
     ratios = {"kernel_flops": got["flops"] / want["flops"],
               "temp": got_temp / want["temp"],
               "link": got_link / want["link"]}
@@ -310,8 +305,9 @@ def hold(reference, c, finding=None):
         / want["flops"]
     pos = 4 if INPUT_SHAPES[shape]["kind"] == "decode" else 0
     print(f"{case_id(c)}: port / reference {ratios}, reference "
-          f"{want['flops'] / 1e12:.3f} TFLOP/dev, argument bytes port - "
-          f"reference {got['memory']['argument_bytes'] - want['args']}",
+          f"{want['flops'] / 1e12:.3f} TFLOP/dev, temporaries port "
+          f"{got_temp} / reference {want['temp']} bytes, argument bytes "
+          f"port - reference {got['memory']['argument_bytes'] - want['args']}",
           flush=True)
     assert not got["unknown_collectives"], got["unknown_collectives"]
     assert got["memory"]["argument_bytes"] == want["args"] - pos
