@@ -13,7 +13,9 @@ records every operation the dry run counts: its name, its outputs' and
 first inputs' local shapes, the live bytes after it and the bytes it adds
 to ``bytes_accessed``. It prints a line a row and device (peak bytes,
 FLOPs a device, useful share, the bytes accessed and the operation that
-accounts for most of them) and writes
+accounts for most of them), then the ``TOP`` operations by the bytes
+they add and every operation of ``Accountant``'s ``_UNREAD`` (those that
+move no tensor data) with its calls and the bytes it adds, 0, and writes
 ``<out>/trace_<torch release>.json``; two such files, from two releases,
 part where their rules do.
 """
@@ -26,6 +28,8 @@ from collections import Counter
 import torch
 
 from repro_torch.launch import dryrun as D
+
+TOP = 10            # operations listed a row by the bytes they add
 
 
 def main(argv=None) -> None:
@@ -63,15 +67,22 @@ def main(argv=None) -> None:
                            accessed=r["per_device"]["bytes_accessed"],
                            at_peak=r["at_peak"], trace=list(trace))
                 result[f"{spec}:{device}"] = row
-                by_op = Counter()
+                by_op, calls = Counter(), Counter()
                 for op, *_, accessed in trace:
                     by_op[op] += accessed
+                    calls[op] += 1
                 (top, top_bytes), = by_op.most_common(1)
                 print(f"{spec} {device}: peak {row['total']} bytes, "
                       f"{row['flops']} FLOP/dev, useful {row['useful']:.4f}, "
                       f"{row['accessed']} bytes accessed, {top_bytes} of "
                       f"them by {top} ({time.perf_counter() - t0:.1f} s)",
                       flush=True)
+                unread = [op for op in calls
+                          if tuple(op.split(".")[:2]) in D._UNREAD]
+                for op in [o for o, _ in by_op.most_common(TOP)
+                           if o not in unread] + sorted(unread):
+                    print(f"  {op}: {calls[op]} calls, {by_op[op]} bytes",
+                          flush=True)
     finally:
         D.Accountant._count = count
     path = os.path.join(args.out, f"trace_{torch.__version__[:4]}.json")

@@ -214,9 +214,14 @@ How each part of the reference is carried over:
   4 D operations a live (query, key) pair forward, 10 D backward).
   ``FlopCounterMode`` itself, around DTensors, counts global shapes.
 * ``cost_analysis()["bytes accessed"]``: ``per_device.bytes_accessed``, the
-  input and output bytes of every local operation that is not a view or a
-  bare allocation. That is what eager PyTorch moves with no fusion, so it is
-  an upper bound of XLA's fused count.
+  input and output bytes of every local operation that moves tensor data:
+  not a view, a bare allocation, or an op of ``_UNREAD`` (DTensor's device
+  query of a local tensor, a reshape that aliases its input). That is what
+  eager PyTorch moves with no fusion, not a bound of XLA's fused count:
+  the reference's CPU compile carries bf16 activations in float32, so its
+  count can be the larger. ``tests/test_torch_dryrun.py`` holds it, less
+  the flash calls' bytes (``attention_bytes``), to the reference's
+  compiled bytes less the chunked attention's scans.
 * ``parse_collective_bytes(hlo)``: ``per_device.collective_bytes`` and
   ``collective_counts`` by the reference's kinds, from the collectives the
   trace makes on groups of more than one rank (DTensor's functional
@@ -333,6 +338,11 @@ _UNMOVED = {"wait_tensor", "_wrap_tensor_autograd", "recv_", "barrier",
 _WRAPS = {"_wrap_tensor_autograd"}
 _ALLOCATIONS = {"empty", "empty_strided", "empty_like", "new_empty",
                 "new_empty_strided"}
+# ops that read and write no tensor data though torch does not mark them
+# views, by namespace: the device query DTensor makes of each local tensor
+# (it returns a ``torch.device``), and the reshape that aliases its input
+# (its fake shares the input's storage, as the real op does)
+_UNREAD = {("prim", "device"), ("aten", "_unsafe_view")}
 _FLASH = {"flash_attention_fwd": "fwd", "flash_attention_bwd": "bwd"}
 PEAK_LARGEST = 8         # the largest storages live at the peak, reported
 
@@ -804,6 +814,7 @@ class Accountant(TorchDispatchMode):
         # reference's chunked_attention: 2 products forward, 4 backward)
         # would count for the same calls
         self.attention_flops = {"kernel": 0, "all_pairs": 0}
+        self.attention_bytes = 0    # of ``bytes``, the flash ops'
         self.inferring = 0          # inside DTensor's shape inference
         self.live = 0               # bytes of local storage alive
         self.peak = 0
@@ -931,9 +942,13 @@ class Accountant(TorchDispatchMode):
             self._collective(_DTENSOR[name], name, args, outs)
         elif ns in ("_c10d_functional", "c10d") and name not in _UNMOVED:
             self.unknown[name] += 1     # a collective not counted: reported
-        if func.is_view or name in _ALLOCATIONS or not (ins or outs):
+        if func.is_view or name in _ALLOCATIONS or not (ins or outs) \
+                or (ns, name) in _UNREAD:
             return
-        self.bytes += sum(_nbytes(t) for t in ins + outs)
+        moved = sum(_nbytes(t) for t in ins + outs)
+        self.bytes += moved
+        if name in _FLASH:
+            self.attention_bytes += moved
 
     def _collective(self, kind, name, args, payload) -> None:
         if _group_size(name, args) <= 1:
@@ -1746,6 +1761,7 @@ def account(fn, args: Tuple) -> Dict[str, Any]:
     flash calls' FLOPs, ``kernel``, beside ``all_pairs``: the same calls
     counted over every (query, key) pair, 4 S_q S_k D a forward and 8 a
     backward, as the reference's ``chunked_attention`` issues them),
+    ``attention_bytes`` (of ``bytes_accessed``, the flash calls'),
     ``memory`` (argument, output, temp and total bytes) and
     ``trace_s``."""
     check_torch()
@@ -1782,6 +1798,7 @@ def account(fn, args: Tuple) -> Dict[str, Any]:
         "unknown_collectives": dict(acct.unknown),
         "attention": {k: dict(v) for k, v in acct.attention.items() if v},
         "attention_flops": dict(acct.attention_flops),
+        "attention_bytes": acct.attention_bytes,
         "at_peak": [dict(bytes=n, op=op, shape=list(shape), dtype=dt)
                     for n, op, shape, dt in heapq.nlargest(PEAK_LARGEST,
                                                            live)],

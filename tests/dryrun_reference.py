@@ -5,6 +5,7 @@ JAX subprocess they read it in.
 512 host devices at import, so JAX never runs in the test process); the
 subprocess finds this module on its ``PYTHONPATH``.
 """
+import functools
 import json
 import math
 import os
@@ -21,17 +22,36 @@ import numpy as np
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 COMP = re.compile(r"^(?:ENTRY )?%([\w.\-]+) .*\{$")
 DEF = re.compile(r"^\s*(?:ROOT )?%([\w.\-]+) = [a-z0-9]+\[([0-9,]*)\]")
+INST = re.compile(r"^\s*(?:ROOT )?%([\w.\-]+) = (.*)$")
+ARRAY = re.compile(r"\b([a-z][a-z0-9]*)\[([0-9,]*)\]")
+ELEMENT = {"pred": 1, "s8": 1, "u8": 1, "s16": 2, "u16": 2, "f16": 2,
+           "bf16": 2, "s32": 4, "u32": 4, "f32": 4, "s64": 8, "u64": 8,
+           "f64": 8, "c64": 8, "c128": 16}
+# instructions XLA's cost analysis counts no bytes for
+UNMOVED = {"parameter", "constant", "get-tuple-element", "tuple", "bitcast"}
+# the chunked attention's two scans (src/repro/models/layers.py): a loop the
+# compile keeps by its line, the kv scan's at 177 and the query scan's at
+# 184; a scan of one block, which XLA unrolls, by its body's function
+SCANS = ("repro/models/layers.py", (177, 184),
+         "chunked_attention.<locals>.q_step")
+QUANTIZER = "repro/kernels/fixedpoint.py"
+# what a fusion that only converts between bf16 and float32 may otherwise
+# do (see accessed), and each element's bytes in a bf16 run
+MOVES = {"bitcast", "copy", "transpose", "reshape", "broadcast", "slice",
+         "dynamic-slice", "dynamic-update-slice", "concatenate", "parameter",
+         "constant", "tuple", "get-tuple-element"}
+AS_BF16 = dict(ELEMENT, f32=2)
 
 
 def costs(hlo, loops=False):
-    """``(flops, moved)`` of an optimized HLO module: the dots' FLOPs (2 x
-    result x contraction) and the collectives' bytes by kind
-    (``parse_collective_bytes``, a line at a time), each computation
-    counted as often as it runs: a while body its known trip count
-    (``cost_analysis`` and ``parse_collective_bytes`` count it once, which
-    the reference's dry run extrapolates around). With ``loops``, only what
-    runs inside a while body (in a one-period probe, the chunked
-    attention's scans)."""
+    """``(flops, moved, accessed)`` of an optimized HLO module: the dots'
+    FLOPs (2 x result x contraction), the collectives' bytes by kind
+    (``parse_collective_bytes``, a line at a time) and :func:`accessed`'s
+    bytes, each computation counted as often as it runs: a while body its
+    known trip count (``cost_analysis`` and ``parse_collective_bytes``
+    count it once, which the reference's dry run extrapolates around).
+    With ``loops``, only what runs inside a while body (in a one-period
+    probe, the chunked attention's scans)."""
     from repro.launch.analysis import _COLLECTIVES, parse_collective_bytes
     comps, shapes, entry, cur = {}, {}, None, None
     for line in hlo.splitlines():
@@ -69,7 +89,217 @@ def costs(hlo, loops=False):
                 for kind in moved:
                     moved[kind] += n * b[kind]
         return flops, moved
-    return count(entry)
+    return count(entry) + (accessed(hlo, loops),)
+
+
+def _array_bytes(shape, element=None):
+    """The bytes of an HLO shape's arrays (a tuple's elements summed), each
+    element as ``element`` (default :data:`ELEMENT`) sizes its type."""
+    element = element or ELEMENT
+    return sum(element.get(t, 0) * math.prod(int(x) for x in dims.split(",")
+                                             if x)
+               for t, dims in ARRAY.findall(shape))
+
+
+def _instructions(hlo):
+    """``({computation: [(name, shape, opcode, operands, rest)]}, {name:
+    shape}, entry)``: each instruction of an HLO module, its result's shape
+    and what follows its operands (attributes, metadata)."""
+    comps, shapes, entry, cur = {}, {}, None, None
+    for line in hlo.splitlines():
+        m = COMP.match(line)
+        if m:
+            cur = m.group(1)
+            comps[cur] = []
+            entry = cur if line.startswith("ENTRY") else entry
+            continue
+        i = INST.match(line)
+        if i is None or cur is None:
+            continue
+        text, depth = i.group(2), 0
+        if text.startswith("("):            # a tuple's shape
+            for end, ch in enumerate(text):
+                depth += (ch == "(") - (ch == ")")
+                if depth == 0:
+                    break
+            shape, text = text[:end + 1], text[end + 1:].lstrip()
+        else:
+            shape, _, text = text.partition(" ")
+        op = re.match(r"([a-z\-]+)\(", text)
+        depth = 1
+        for end in range(op.end(), len(text)):
+            depth += (text[end] == "(") - (text[end] == ")")
+            if depth == 0:
+                break
+        shapes[i.group(1)] = shape
+        comps[cur].append((i.group(1), shape, op.group(1), re.findall(
+            r"%([\w.\-]+)", text[op.end():end]), text[end:]))
+    return comps, shapes, entry
+
+
+def _sites(hlo):
+    """``site(opcode, rest)``: the part of the step the module's stack
+    frames place an instruction in: ``"scans"`` where a frame of its stack
+    is in the chunked attention's scans (:data:`SCANS`: at one of their
+    lines, or in their body), ``"quantizer"`` for a while loop whose own
+    frame is in :data:`QUANTIZER` (the Pallas quantizer the CPU runs as a
+    loop over its grid, as :func:`collectives` places it), else ``None``."""
+    files, locs, frames, names = (_section(hlo, n) for n in (
+        "FileNames", "FileLocations", "StackFrames", "FunctionNames"))
+    path, lines, body = SCANS
+
+    def where(i):
+        loc = locs[int(re.search(r"file_location_id=(\d+)",
+                                 frames[i]).group(1))]
+        file_ = files[int(re.search(r"file_name_id=(\d+)", loc).group(1))]
+        fn = names[int(re.search(r"function_name_id=(\d+)", loc).group(1))]
+        return (file_.strip('"'), int(re.search(r"\bline=(\d+)",
+                                                loc).group(1)), fn.strip('"'))
+
+    @functools.lru_cache(maxsize=None)
+    def in_scans(i):
+        file_, line, fn = where(i)
+        parent = int(re.search(r"parent_frame_id=(\d+)", frames[i]).group(1))
+        return (file_.endswith(path) and (line in lines
+                                          or fn.startswith(body))) \
+            or (parent != i and parent in frames and in_scans(parent))
+
+    def site(op, rest):
+        i = re.search(r"stack_frame_id=(\d+)", rest)
+        if i is None:
+            return None
+        if in_scans(int(i.group(1))):
+            return "scans"
+        if op == "while" and where(int(i.group(1)))[0].endswith(QUANTIZER):
+            return "quantizer"
+        return None
+    return site
+
+
+def accessed(hlo, loops=False, once=False):
+    """The bytes an optimized HLO module reads and writes, counted as XLA's
+    cost analysis counts them (``cost_analysis()["bytes accessed"]``):
+    ``"all"``, and of those ``"scans"`` and ``"quantizer"``, the parts
+    :func:`_sites` places there; ``"conversions"``, those of the
+    instructions that only convert between bf16 and float32 (a ``convert``,
+    or a fusion of converts and of :data:`MOVES`: the CPU compile's, which
+    runs the bf16 models in float32); ``"bf16_all"``, ``"bf16_scans"`` and
+    ``"bf16_quantizer"``, the same as the program moves them in bf16: each
+    float32 element 2 bytes (:data:`AS_BF16`), the conversions none.
+
+    Each instruction outside a fusion reads its operands and writes its
+    result, but those of :data:`UNMOVED`; a fusion writes its result (only
+    the update of a ``dynamic-update-slice`` root, in place) and reads each
+    parameter once, only the slice where a slice or ``dynamic-slice`` reads
+    it, nothing where it is a ``dynamic-update-slice``'s destination; a
+    ``call`` counts its computation once, a ``while`` its body and
+    condition its known trip count times (once with ``once``, as
+    ``cost_analysis`` counts it). With ``loops``, only what runs inside a
+    while body."""
+    comps, shapes, entry = _instructions(hlo)
+    site = _sites(hlo)
+
+    def read(c, p, element):    # a fusion's parameter p
+        n, shared = 0, False
+        for _, shape, op, args, _ in comps[c]:
+            if p not in args:
+                continue
+            if op == "slice" or (op == "dynamic-slice" and args[0] == p):
+                n += _array_bytes(shape, element)
+            elif op == "dynamic-update-slice" and args[0] == p:
+                pass                        # written in place
+            elif op in ("dynamic-slice", "dynamic-update-slice",
+                        "broadcast", "reshape"):
+                n += _array_bytes(shapes[p], element)
+            elif not shared:                # one read the others share
+                n, shared = n + _array_bytes(shapes[p], element), True
+        return n
+
+    def moved(shape, op, args, rest, element):
+        if op != "fusion":
+            return _array_bytes(shape, element) + sum(
+                _array_bytes(shapes[a], element) for a in args)
+        c = re.search(r"calls=%([\w.\-]+)", rest).group(1)
+        made = {i[0]: i for i in comps[c]}
+        root = comps[c][-1]             # a computation's last line
+        outs = [made[a] for a in root[3]] if root[2] == "tuple" else [root]
+        return sum(_array_bytes(shapes[o[3][1]], element)
+                   if o[2] == "dynamic-update-slice"
+                   else _array_bytes(o[1], element) for o in outs) \
+            + sum(read(c, i[0], element) for i in comps[c]
+                  if i[2] == "parameter")
+
+    def conversion(inst):
+        body = [inst]
+        if inst[2] == "fusion":
+            body = comps[re.search(r"calls=%([\w.\-]+)", inst[4]).group(1)]
+            if any(i[2] not in MOVES and i[2] != "convert" for i in body):
+                return False
+        return any(i[2] == "convert" and {shapes[i[3][0]].split("[")[0],
+                                          i[1].split("[")[0]}
+                   == {"bf16", "f32"} for i in body)
+
+    def walk(c, looped, part):
+        out = Counter()
+        for inst in comps[c]:
+            _, shape, op, args, rest = inst
+            if op in UNMOVED:
+                continue
+            here = part or site(op, rest)
+            if op in ("while", "call"):
+                trips = re.search(r'"known_trip_count":\{"n":"(\d+)"', rest)
+                n = int(trips.group(1)) if trips and not once else 1
+                for callee in re.findall(
+                        r"(?:body|condition|to_apply)=%([\w.\-]+)", rest):
+                    for k, v in walk(callee, looped or op == "while",
+                                     here).items():
+                        out[k] += n * v
+            elif looped or not loops:
+                b = moved(shape, op, args, rest, ELEMENT)
+                converts = conversion(inst)
+                half = 0 if converts else moved(shape, op, args, rest,
+                                                AS_BF16)
+                out["all"] += b
+                out["bf16_all"] += half
+                out["conversions"] += b if converts else 0
+                if here:
+                    out[here] += b
+                    out["bf16_" + here] += half
+        return out
+    out = walk(entry, False, None)
+    return {k: out[k] for k in (
+        "all", "scans", "quantizer", "conversions", "bf16_all", "bf16_scans",
+        "bf16_quantizer")}
+
+
+def bf16_dots(hlo):
+    """How many dots of an HLO module read a bf16 operand."""
+    comps, shapes, _ = _instructions(hlo)
+    return sum(i[2] == "dot" and any(shapes[a].startswith("bf16[")
+                                     for a in i[3])
+               for c in comps.values() for i in c)
+
+
+def held_bytes(want, finding=()):
+    """The reference's bytes a step's port bytes are held to: its compiled
+    bytes (``want["accessed"]``, :func:`accessed`'s, with ``bf16_dots``
+    from the same module) outside the chunked attention's scans, and
+    outside the quantizer's loops under ``quantizer_gathers``. Under the
+    ``float32`` finding, which this asserts on the module (no dot reads a
+    bf16 operand: its CPU compile runs the bf16 model's products, and the
+    values around them, in float32; and its conversions between bf16 and
+    float32 move bytes), the same as the program moves them in bf16."""
+    acc = want["accessed"]
+    width = ""
+    if "float32" in finding:
+        assert want["bf16_dots"] == 0 and acc["conversions"] > 0, \
+            (want["bf16_dots"], acc)
+        width = "bf16_"
+    out = acc[width + "all"] - acc[width + "scans"]
+    if "quantizer_gathers" in finding:
+        assert acc["quantizer"] > 0, acc
+        out -= acc[width + "quantizer"]
+    return out
 
 
 def _section(hlo, name):

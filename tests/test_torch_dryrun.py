@@ -22,7 +22,10 @@ package's (``repro.launch.dryrun``), and the flash kernels' custom ops.
   FLOPs (the HLO's dots) equal where both run the same products; the
   Canary trees' bytes equal the reference's ppermutes'; the rest
   (DTensor's layouts against GSPMD's, eager lifetimes against XLA's buffer
-  assignment) within stated bounds.
+  assignment, eager unfused bytes against XLA's fused ones) within stated
+  bounds. The reference's bytes are ``dryrun_reference.accessed``'s walk
+  of the compiled HLO, which with each loop counted once lies within
+  0.1 % of ``cost_analysis()["bytes accessed"]``.
 * FLOPs: at a one-rank fake mesh the dry run's count equals
   ``FlopCounterMode`` over the real CPU step at the same shape, through
   remat and the flash ops; at (4, 1) rank 0 counts a quarter of world 1's
@@ -70,8 +73,8 @@ from torch.utils.checkpoint import checkpoint
 from torch.utils.flop_counter import FlopCounterMode
 
 os.environ.setdefault("JAX_PLATFORMS", "cpu")
-from dryrun_reference import (cache_kv, new_cache_bytes,  # noqa: E402
-                              run_jax)
+from dryrun_reference import (cache_kv, held_bytes,  # noqa: E402
+                              new_cache_bytes, run_jax)
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention, flash_attention_bwd_op, flash_attention_fwd_op,
     live_pairs)
@@ -144,7 +147,8 @@ import repro.launch.dryrun as R
 import jax
 SMALL_S, SMALL_B = json.loads(sys.argv[3])
 from jax.sharding import Mesh
-from dryrun_reference import costs, link_bytes, new_caches
+from dryrun_reference import (accessed, bf16_dots, costs, link_bytes,
+                              new_caches)
 from repro.launch.mesh import mesh_axes
 from repro.models import get_config
 from repro.models.transformer import _activation_constraint
@@ -195,12 +199,15 @@ for arch, kind, mshape, route, over, sync, impl in json.loads(sys.argv[2]):
                                      cfg_override=cfg)
         c = jax.jit(fn).lower(*args).compile()
     hlo, m = c.as_text(), c.memory_analysis()
-    flops, moved = costs(hlo)
+    flops, moved, acc = costs(hlo)
     row = out["costs"][f"{arch}|{kind}|{mshape}|{route}|{sync}|{impl}"] = \
         dict(flops=flops, moved=moved, temp=m.temp_size_in_bytes,
              link=link_bytes(moved),
              total=m.argument_size_in_bytes + m.output_size_in_bytes
-             + m.temp_size_in_bytes - m.alias_size_in_bytes)
+             + m.temp_size_in_bytes - m.alias_size_in_bytes,
+             accessed=acc, bf16_dots=bf16_dots(hlo), loops=hlo.count(" while("),
+             once=accessed(hlo, once=True)["all"],
+             cost_analysis=c.cost_analysis()["bytes accessed"])
     if kind == "decode":
         row["new_caches"] = new_caches(hlo)
 print("JAX_OUT " + json.dumps(out))
@@ -261,7 +268,9 @@ def test_argument_bytes_match_reference(reference, arch, shape_name, mesh):
 # port / reference where the programs differ: DTensor's layouts against
 # GSPMD's (a product's operands and the collectives around it), eager
 # storage lifetimes against XLA's buffer assignment, the flash kernel's live
-# pairs against chunked_attention's whole blocks. The readings (PERF.md §6)
+# pairs against chunked_attention's whole blocks, eager unfused bytes
+# against XLA's fused ones (outside the attention: the flash calls against
+# the scans). The readings (PERF.md §6)
 # lie inside these bounds, the nearest a decode's temporaries (0.11, and
 # 0.14 with the new_cache finding) and link bytes (0.55) and llama's
 # prefill link bytes (0.51); a layout rule
@@ -283,14 +292,22 @@ EXACT_FLOPS = {(ARCH, "train", (4, 1), "plain", ""),
 # the cases held by the new_cache finding on the reference's HLO
 # (dryrun_reference.new_cache_bytes, as the production probes' ``hold``):
 # its decode writes each layer's K and V anew in float32, inside its scan
-# over the layers, where the port writes the step's slot in place
+# over the layers, where the port writes the step's slot in place; the
+# port's local K and V count as temporaries, and as read and written anew
 NEW_CACHE = {(ARCH, "decode", (2, 2), "plain", "")}
+# the cases whose bytes are held by the float32 finding on the reference's
+# HLO (dryrun_reference.held_bytes): its CPU compile runs the bf16 decode
+# in float32, converting the layers' weights and caches (62.0 % of llama's
+# bytes and 57.4 % of deepseek-moe's are such conversions)
+FLOAT32 = {(ARCH, "decode", (2, 2), "plain", ""),
+           (MOE, "decode", (2, 2), "plain", "")}
 # the Canary trees' int32 sends: the same bytes as the reference's
 # ppermutes (XLA sends a stacked leaf where the port sends a tensor, so
 # the counts differ)
 FLOPS_BOUND = (0.95, 1.05)
 TEMP_BOUND = (0.1, 1.25)
 LINK_BOUND = (0.5, 2.0)
+BYTES_BOUND = (0.5, 2.0)
 
 
 @pytest.mark.parametrize("arch,kind,mesh,route,sync,impl", COST_CASES,
@@ -298,12 +315,18 @@ LINK_BOUND = (0.5, 2.0)
 def test_costs_against_reference(reference, arch, kind, mesh, route, sync,
                                  impl):
     """Per-device FLOPs (the reference's dots, each while body times its
-    trip count), peak bytes and collective link bytes of one small step
-    against the reference's compiled one: FLOPs exact where both run the
-    same products (EXACT_FLOPS), the rest within the stated bounds (GSPMD
-    runs some products in other layouts: the grouped-query and the
-    Mamba-2 SSD's products, ``ep_a2a``'s shared expert; the cases of
-    NEW_CACHE held by that finding)."""
+    trip count), peak bytes, collective link bytes and bytes accessed of
+    one small step against the reference's compiled one: FLOPs exact where
+    both run the same products (EXACT_FLOPS), the rest within the stated
+    bounds (GSPMD runs some products in other layouts: the grouped-query
+    and the Mamba-2 SSD's products, ``ep_a2a``'s shared expert; the cases
+    of NEW_CACHE and FLOAT32 held by those findings). Bytes: the port's
+    less its flash calls' against the reference's less the chunked
+    attention's scans (``dryrun_reference.accessed``, each while body
+    times its trip count), and the flash calls' at most the scans'. Where
+    XLA unrolls a scan of one block (the flash route's 64-token chunk),
+    only its instructions whose stack frames name the scan's body are
+    counted as the scans': a lower bound of them."""
     want = reference["costs"][
         f"{arch}|{kind}|{list(mesh)}|{route}|{sync}|{impl}"]
     cfg = get_config(arch, "smoke").with_(**ROUTES[route])
@@ -312,17 +335,24 @@ def test_costs_against_reference(reference, arch, kind, mesh, route, sync,
     got = _account(mesh, dict(kind=kind, seq_len=SMALL_S,
                               global_batch=SMALL_B), cfg, grad_sync=sync,
                    arch=arch)
-    temp = got["memory"]["temp_bytes"]
-    if (arch, kind, mesh, route, impl) in NEW_CACHE:
-        temp += new_cache_bytes(got["cache_kv"], want["new_caches"])
+    key = (arch, kind, mesh, route, impl)
+    temp, flash = got["memory"]["temp_bytes"], got["attention_bytes"]
+    moved = got["bytes_accessed"] - flash
+    if key in NEW_CACHE:
+        kv = new_cache_bytes(got["cache_kv"], want["new_caches"])
+        temp, moved = temp + kv, moved + 2 * kv
+    scans = want["accessed"]["scans"]
     ratios = {"flops": got["flops"] / want["flops"],
               "temp": temp / want["temp"],
               "total": got["memory"]["total_bytes"] / want["total"],
-              "link": got["collective_link_bytes"] / want["link"]}
+              "link": got["collective_link_bytes"] / want["link"],
+              "bytes": moved / held_bytes(
+                  want, ("float32",) if key in FLOAT32 else ())}
     print(f"{arch} {kind} {mesh} {route} {sync} {impl}: port / reference "
-          f"{ratios}")
+          f"{ratios}; bytes port {got['bytes_accessed']} (flash calls "
+          f"{flash}) / reference {want['accessed']}")
     assert not got["unknown_collectives"]
-    if (arch, kind, mesh, route, impl) in EXACT_FLOPS:
+    if key in EXACT_FLOPS:
         assert got["flops"] == want["flops"]
     if sync == "canary_fp":
         assert got["collective_bytes"]["collective-permute"] == \
@@ -330,6 +360,26 @@ def test_costs_against_reference(reference, arch, kind, mesh, route, sync,
     assert FLOPS_BOUND[0] <= ratios["flops"] <= FLOPS_BOUND[1], ratios
     assert TEMP_BOUND[0] <= ratios["temp"] <= TEMP_BOUND[1], ratios
     assert LINK_BOUND[0] <= ratios["link"] <= LINK_BOUND[1], ratios
+    assert flash <= scans, (flash, scans)
+    assert BYTES_BOUND[0] <= ratios["bytes"] <= BYTES_BOUND[1], ratios
+
+
+@pytest.mark.parametrize("arch,kind,mesh,route,sync,impl", COST_CASES,
+                         ids=[_case_id(*c) for c in COST_CASES])
+def test_byte_walk_matches_cost_analysis(reference, arch, kind, mesh, route,
+                                         sync, impl):
+    """``dryrun_reference.accessed`` on the small step's compiled HLO,
+    with each while body counted once as XLA counts it, lies within 0.1 %
+    of ``cost_analysis()["bytes accessed"]``; on a step with no loop that
+    is the walk itself, the figure the bytes are held by."""
+    want = reference["costs"][
+        f"{arch}|{kind}|{list(mesh)}|{route}|{sync}|{impl}"]
+    print(f"{arch} {kind} {mesh} {route} {sync} {impl}: the walk "
+          f"{want['accessed']['all']}, each loop once {want['once']}, "
+          f"cost_analysis {want['cost_analysis']}, {want['loops']} loops")
+    assert abs(want["once"] / want["cost_analysis"] - 1) <= 1e-3
+    if not want["loops"]:
+        assert want["accessed"]["all"] == want["once"]
 
 
 # --------------------------------------------------------------------- FLOPs

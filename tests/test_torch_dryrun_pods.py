@@ -15,6 +15,9 @@ from test_torch_dryrun_production import case, period_tests  # noqa
 DENSE = ("glm4-9b", "llama3.2-1b", "nemotron-4-340b", "qwen2-7b",
          "qwen2-vl-2b")
 CASES = [case(a, "train_4k", mesh="multi") for a in DENSE]
+# the bytes held by the float32 finding (``hold``)
+FINDINGS = {c: {"float32": True} for c in CASES}
 
 
-reference, test_two_pod_period_against_reference = period_tests(CASES)
+reference, test_two_pod_period_against_reference = period_tests(CASES,
+                                                                FINDINGS)

@@ -10,8 +10,8 @@ layer), ``scan_layers=False``, ``remat=False``, the step of ``train_4k``
 * Reference: every case compiled in one JAX subprocess on the CPU (512
   host devices, which ``repro.launch.dryrun`` forces at import), counted by
   ``dryrun_reference.costs``: the dots' FLOPs, each while body times its
-  trip count, and the collectives' link bytes; temporaries from
-  ``memory_analysis()``.
+  trip count, the collectives' link bytes and the bytes accessed;
+  temporaries from ``memory_analysis()``.
 * Port: :func:`D.account` as rank 0 of the fake process group, as the
   small steps of ``test_torch_dryrun.py`` are counted.
 
@@ -39,9 +39,9 @@ import pytest
 
 os.environ.setdefault("JAX_PLATFORMS", "cpu")
 from dryrun_reference import (JaxRun, cache_kv,  # noqa: E402
-                              new_cache_bytes)
-from test_torch_dryrun import (FLOPS_BOUND, LINK_BOUND,  # noqa: E402
-                               TEMP_BOUND)
+                              held_bytes, new_cache_bytes)
+from test_torch_dryrun import (BYTES_BOUND, FLOPS_BOUND,  # noqa: E402
+                               LINK_BOUND, TEMP_BOUND)
 from repro_torch.launch import dryrun as D  # noqa: E402
 from repro_torch.launch.analysis import INPUT_SHAPES  # noqa: E402
 from repro_torch.launch.mesh import (PRODUCTION_SHAPES,  # noqa: E402
@@ -80,7 +80,8 @@ JAX_SCRIPT = r"""
 import json, sys
 import repro.launch.dryrun as R
 import jax
-from dryrun_reference import collectives, costs, link_bytes, new_caches
+from dryrun_reference import (accessed, bf16_dots, collectives, costs,
+                              link_bytes, new_caches)
 from repro.launch.analysis import INPUT_SHAPES
 from repro.launch.mesh import make_production_mesh, mesh_axes
 from repro.models import get_config
@@ -107,17 +108,22 @@ for key, (arch, shape, m, grad_sync, sp, moe_impl) in json.loads(sys.argv[1]):
                                          cfg_override=full.with_(**over),
                                          moe_impl=moe_impl)
             c = jax.jit(fn).lower(*args).compile()
-        return c.as_text(), c.memory_analysis()
+        return c.as_text(), c.memory_analysis(), c
 
-    hlo, ma_ = probe(sp)
-    flops, moved = costs(hlo)
+    hlo, ma_, c = probe(sp)
+    flops, moved, acc = costs(hlo)
     row = dict(flops=flops, link=link_bytes(moved),
                temp=ma_.temp_size_in_bytes,
-               args=ma_.argument_size_in_bytes)
+               args=ma_.argument_size_in_bytes,
+               accessed=acc, bf16_dots=bf16_dots(hlo),
+               loops=hlo.count(" while("),
+               once=accessed(hlo, once=True)["all"],
+               cost_analysis=c.cost_analysis()["bytes accessed"])
     if sp:      # the attention's scans, and as compiled without sp
         for name, text in (("loop", hlo), ("plain_loop", probe(False)[0])):
-            f, b = costs(text, loops=True)
+            f, b, a = costs(text, loops=True)
             row[name + "_flops"], row[name + "_link"] = f, link_bytes(b)
+            row[name + "_scans"] = a["scans"]
     if grad_sync == "canary_fp":    # the quantizer's loops, the trees
         cs = collectives(hlo)
         row["quantizer"] = [c for c in cs
@@ -229,11 +235,20 @@ def _trees_as_shares(trees, tensors, data, blocks=16):
 def hold(reference, c, finding=None):
     """One period of case ``c`` against the reference's compiled probe:
     FLOPs (the flash calls counted as the reference's attention issues
-    them), temporaries and collective link bytes within the small steps'
-    bounds, no collective left uncounted, and each rank's argument bytes
-    the reference's (a decode's less its cache's 4-byte position).
-    ``finding`` names what the reference's HLO shows of the case, which
-    this asserts and holds the case by (below).
+    them), temporaries, collective link bytes and bytes accessed within
+    the small steps' bounds, no collective left uncounted, and each rank's
+    argument bytes the reference's (a decode's less its cache's 4-byte
+    position). ``finding`` names what the reference's HLO shows of the
+    case, which this asserts and holds the case by (below).
+
+    Bytes accessed: the port's less its flash calls' against the
+    reference's less the chunked attention's scans
+    (``dryrun_reference.held_bytes``); inside them, the one-sided fact
+    that the flash calls (q, k and v read, o and the lse written, once)
+    move no more than the scans, which re-read each K/V block once a
+    query block. Where the probe has no loop, the byte walk is held to
+    ``cost_analysis()["bytes accessed"]`` within 0.1 % (with loops, its
+    count with each body once, as XLA counts it, is printed).
 
     Under ``--seq-parallel`` GSPMD lays the chunked attention's two scans
     (the only while bodies of a one-period probe) out along the sequence
@@ -243,8 +258,9 @@ def hold(reference, c, finding=None):
     88 (llama) and 128 (nemotron) times the bytes. The port lays its
     attention out as it does without sequence parallelism (whole
     sequences, split over the model axis with the batch), so there the
-    reference's scans, FLOPs and link bytes, are those it compiles without
-    ``--seq-parallel``; the rest of the step is held to the one with it.
+    reference's scans, FLOPs, link bytes and the scans' bytes, are those
+    it compiles without ``--seq-parallel``; the rest of the step is held
+    to the one with it.
 
     ``finding["quantizer_gathers"]``, ``(count, bytes)`` (``--grad-sync
     canary_fp``): on the CPU the reference runs its Pallas quantizer and
@@ -258,14 +274,25 @@ def hold(reference, c, finding=None):
     each model rank's share: this asserts that too
     (:func:`_trees_as_shares`), holds the port's trees' bytes exactly to
     the reference's with each tensor's share in place of its whole, and
-    counts those bytes on both sides.
+    counts those bytes on both sides. The loops' bytes (the all-gathers'
+    results and what the interpreted kernels move) are set apart from the
+    reference's bytes too; the port's quantize and dequantize calls stay
+    in its own.
 
     ``finding["new_cache"]`` (a decode): the reference's step writes its
     cache anew, in float32, where the port writes the step's slot into
     its cache in place; this asserts those values on the HLO and holds
     the port's temporaries with its local K and V counted as written anew
     (``dryrun_reference.new_cache_bytes``, which the small steps of
-    ``test_torch_dryrun.py`` share)."""
+    ``test_torch_dryrun.py`` share), and its bytes with them read and
+    written anew.
+
+    ``finding["float32"]``: the reference's CPU compile runs the bf16
+    model's products, and the values around them, in float32, and
+    converts between the two; this asserts that no dot of the probe reads
+    a bf16 operand and that the conversions move bytes, and holds the
+    port's bytes to the reference's as the same program moves them in
+    bf16 (``dryrun_reference.held_bytes``)."""
     finding = finding or {}
     shape, seq_parallel = c[1], c[4]
     got = _account(*c)
@@ -295,11 +322,17 @@ def hold(reference, c, finding=None):
               f"the port's trees {trees}", flush=True)
         assert trees == shares, (trees, shares)
         want["link"] -= moved + whole - shares
+    flash = got["attention_bytes"]
+    got_bytes = got["bytes_accessed"] - flash
     if "new_cache" in finding:
-        got_temp += new_cache_bytes(got["cache_kv"], want["new_caches"])
+        kv = new_cache_bytes(got["cache_kv"], want["new_caches"])
+        got_temp, got_bytes = got_temp + kv, got_bytes + 2 * kv
+    scans = want["plain_loop_scans"] if seq_parallel \
+        else want["accessed"]["scans"]
     ratios = {"kernel_flops": got["flops"] / want["flops"],
               "temp": got_temp / want["temp"],
-              "link": got_link / want["link"]}
+              "link": got_link / want["link"],
+              "bytes": got_bytes / held_bytes(want, finding)}
     att = got["attention_flops"]
     ratios["flops"] = (got["flops"] - att["kernel"] + att["all_pairs"]) \
         / want["flops"]
@@ -307,13 +340,21 @@ def hold(reference, c, finding=None):
     print(f"{case_id(c)}: port / reference {ratios}, reference "
           f"{want['flops'] / 1e12:.3f} TFLOP/dev, temporaries port "
           f"{got_temp} / reference {want['temp']} bytes, argument bytes "
-          f"port - reference {got['memory']['argument_bytes'] - want['args']}",
+          f"port - reference {got['memory']['argument_bytes'] - want['args']}"
+          f", bytes port {got['bytes_accessed']} (flash calls {flash}) / "
+          f"reference {want['accessed']} (scans {scans}; the walk, each "
+          f"loop once, / cost_analysis "
+          f"{want['once'] / want['cost_analysis']}, {want['loops']} loops)",
           flush=True)
     assert not got["unknown_collectives"], got["unknown_collectives"]
     assert got["memory"]["argument_bytes"] == want["args"] - pos
     assert FLOPS_BOUND[0] <= ratios["flops"] <= FLOPS_BOUND[1], ratios
     assert TEMP_BOUND[0] <= ratios["temp"] <= TEMP_BOUND[1], ratios
     assert LINK_BOUND[0] <= ratios["link"] <= LINK_BOUND[1], ratios
+    if not want["loops"]:
+        assert abs(want["once"] / want["cost_analysis"] - 1) <= 1e-3, want
+    assert flash <= scans, (flash, scans)
+    assert BYTES_BOUND[0] <= ratios["bytes"] <= BYTES_BOUND[1], ratios
 
 
 def period_tests(cases, findings=None):
@@ -338,7 +379,14 @@ def period_tests(cases, findings=None):
 
 
 # each case's id is ``arch-shape`` (one mesh, no mode)
-reference, test_production_period_against_reference = period_tests(CASES)
+# the bytes held by the float32 finding (``hold``)
+FINDINGS = {case(a, s): {"float32": True} for a, s in (
+    ("glm4-9b", "train_4k"), ("jamba-v0.1-52b", "train_4k"),
+    ("llama3.2-1b", "train_4k"), ("qwen2-7b", "train_4k"),
+    ("qwen2-moe-a2.7b", "train_4k"), ("qwen2-moe-a2.7b", "prefill_32k"),
+    ("mamba2-130m", "prefill_32k"))}
+reference, test_production_period_against_reference = period_tests(
+    CASES, FINDINGS)
 
 
 NESTED_HLO = """HloModule nested
@@ -361,15 +409,40 @@ NESTED_HLO = """HloModule nested
   ROOT %ot = (s32[], f32[4,8]{1,0}) tuple(%oa, %odot)
 }
 
+%cond (cp: (s32[], f32[4,8])) -> pred[] {
+  %cp = (s32[], f32[4,8]{1,0}) parameter(0)
+  %ci = s32[] get-tuple-element(%cp), index=0
+  %cn = s32[] constant(5)
+  ROOT %clt = pred[] compare(%ci, %cn), direction=LT
+}
+
 %fused (fp: f32[4,8]) -> f32[4,8] {
   %fp = f32[4,8]{1,0} parameter(0)
   %fw = f32[8,8]{1,0} constant(0)
   ROOT %fdot = f32[4,8]{1,0} dot(%fp, %fw), lhs_contracting_dims={1}, rhs_contracting_dims={0}
 }
 
+%row (sp: f32[4,8], si: s32[]) -> f32[1,8] {
+  %sp = f32[4,8]{1,0} parameter(0)
+  %si = s32[] parameter(1)
+  %sz = s32[] constant(0)
+  ROOT %ss = f32[1,8]{1,0} dynamic-slice(%sp, %si, %sz), dynamic_slice_sizes={1,8}
+}
+
+%put (dp: f32[4,8], du: f32[1,8], di: s32[]) -> f32[4,8] {
+  %dp = f32[4,8]{1,0} parameter(0)
+  %du = f32[1,8]{1,0} parameter(1)
+  %di = s32[] parameter(2)
+  %dz = s32[] constant(0)
+  ROOT %dd = f32[4,8]{1,0} dynamic-update-slice(%dp, %du, %di, %dz)
+}
+
 ENTRY %main (x: f32[4,8]) -> f32[4,8] {
   %x = f32[4,8]{1,0} parameter(0)
   %f = f32[4,8]{1,0} fusion(%x), kind=kOutput, calls=%fused
+  %i = s32[] constant(1)
+  %one = f32[1,8]{1,0} fusion(%x, %i), kind=kLoop, calls=%row
+  %back = f32[4,8]{1,0} fusion(%f, %one, %i), kind=kLoop, calls=%put
   %t = (s32[], f32[4,8]{1,0}) tuple(%x, %f)
   %owhile = (s32[], f32[4,8]{1,0}) while(%t), condition=%cond, body=%outer, backend_config={"known_trip_count":{"n":"3"}}
   ROOT %r = f32[4,8]{1,0} get-tuple-element(%owhile), index=1
@@ -384,11 +457,43 @@ def test_costs_counts_nested_while_bodies():
     512 FLOPs; the all-reduce moves 128 bytes); with ``loops``, all but the
     fusion's dot, which runs outside every while body."""
     from dryrun_reference import costs, link_bytes
-    flops, moved = costs(NESTED_HLO)
+    flops, moved, _ = costs(NESTED_HLO)
     assert flops == 512 * (1 + 3 + 3 * 5)
     assert moved["all-reduce"] == 128 * 3 * 5
     assert link_bytes(moved) == 2 * 128 * 3 * 5
     assert sum(moved.values()) == moved["all-reduce"]
-    flops, looped = costs(NESTED_HLO, loops=True)
+    flops, looped, _ = costs(NESTED_HLO, loops=True)
     assert flops == 512 * (3 + 3 * 5)
     assert looped == moved
+
+
+def test_byte_walk_counts_nested_while_bodies():
+    """``dryrun_reference.accessed`` on :data:`NESTED_HLO`, worked out by
+    hand. A 4 x 8 float32 array is 128 bytes. The inner body: its dot
+    reads 128 + 256 and writes 128, its all-reduce reads and writes 128:
+    768 bytes an iteration; a condition's compare reads two s32 and writes
+    a pred: 9. The outer body: its dot, 512, and the inner loop's 5
+    iterations with their conditions: 4397 an iteration. The entry: the
+    fusion of a dot reads its parameter and writes its result, 256; the
+    dynamic-slice fusion reads only the row it slices, 32, and its index,
+    4, and writes the row, 32; the dynamic-update-slice fusion writes the
+    row in place, 32, reads the row and the index, 36, and nothing of its
+    destination; the outer loop's 3 iterations with their conditions.
+    Parameters, constants, tuples and their elements move nothing."""
+    from dryrun_reference import accessed
+    inner, cond = 512 + 256, 9
+    outer = 512 + 5 * (inner + cond)
+    entry = 256 + 68 + 68
+    got = accessed(NESTED_HLO)
+    assert got["all"] == entry + 3 * (outer + cond) == 13610
+    assert got["scans"] == got["quantizer"] == 0       # no stack frames
+    assert accessed(NESTED_HLO, loops=True)["all"] == 3 * (outer + cond)
+    # each loop once, as cost_analysis counts it
+    assert accessed(NESTED_HLO, once=True)["all"] \
+        == entry + (512 + inner + cond) + cond
+    # nothing converts between bf16 and float32: at bf16 width, each
+    # float32 element 2 bytes, the s32 and pred as they are
+    assert got["conversions"] == 0
+    half = accessed(NESTED_HLO)["bf16_all"]
+    ints = 3 * (5 * cond + cond) + 4 + 4
+    assert half == ints + (got["all"] - ints) // 2

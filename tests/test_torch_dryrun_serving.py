@@ -22,10 +22,18 @@ CASES = [case(a, "prefill_32k") for a in ARCHS if a not in HELD] \
 
 # long_500k: the reference writes its cache anew, in float32, where the
 # port writes the step's slot in place (``hold``); the cases whose
-# temporaries are held by that
+# temporaries (and bytes) are held by that
 FINDINGS = {case(a, "long_500k"): {"new_cache": True}
             for a in ("nemotron-4-340b", "qwen2-7b", "qwen2-moe-a2.7b",
                       "qwen2-vl-2b")}
+# the bytes held by the float32 finding (``hold``)
+for c in [case(a, "decode_32k") for a in (
+        "deepseek-moe-16b", "jamba-v0.1-52b", "llama3.2-1b",
+        "qwen2-moe-a2.7b", "whisper-large-v3")] + [
+        case(a, "long_500k") for a in (
+            "deepseek-moe-16b", "jamba-v0.1-52b", "llama3.2-1b",
+            "qwen2-moe-a2.7b")]:
+    FINDINGS.setdefault(c, {})["float32"] = True
 
 
 reference, test_serving_period_against_reference = period_tests(CASES,
