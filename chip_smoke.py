@@ -185,13 +185,16 @@ printed:
               mamba2-130m; llama3.2-1b's prefill_32k, decode_32k and
               long_500k on (16, 16), its train_4k on (2, 16, 16) and under
               canary_fp; decode_32k of deepseek-moe-16b and
-              qwen2-moe-a2.7b, whose peaks and bytes accessed must equal
-              ``DRYRUN_MOE_DECODE_BYTES``, the CPU's, to the byte, less
-              the bytes ``DRYRUN_RELEASE_BYTES`` says the card's torch
-              release counts apart), each in a
-              subprocess of its own, all started together, each ``OK`` within
-              ``DRYRUN_ROW_S``, printed, with its TFLOP a device, peak a
-              device and useful share on a line of its own;
+              qwen2-moe-a2.7b), each in a subprocess of its own, all
+              started together, each ``OK`` within ``DRYRUN_ROW_S``,
+              printed, with its TFLOP a device, peak a device and useful
+              share on a line of its own; every row's FLOPs, bytes
+              accessed, link bytes, temporaries and peak must equal
+              ``DRYRUN_CPU``, the CPU's integers
+              (``tests/dryrun_rows.json``), exactly, whatever torch the
+              card has, each printed beside the CPU's on a line, but for
+              the gaps ``DRYRUN_RELEASE_GAPS`` names by row, number and
+              release (printed every run), which must be exact too;
 6. summary  — one ``{"kernels": [...]}`` JSON line (quantize and dequantize
               also give their launches by path and their times at the
               training shape), the card line, and last
@@ -404,22 +407,26 @@ DRYRUN_ROWS = tuple((a, "train_4k", "single", "auto") for a in (
     (MODEL_ARCH, "train_4k", "single", "canary_fp"),
     ("deepseek-moe-16b", "decode_32k", "single", "auto"),
     ("qwen2-moe-a2.7b", "decode_32k", "single", "auto"))
-# the peaks (total_bytes) and bytes accessed those two MoE rows must count
-# on the card: the integers tests/test_torch_dryrun_moe_decode.py holds on
-# the CPU
-DRYRUN_MOE_DECODE_BYTES = {
-    (arch, "decode_32k", "single"): n for arch, n in json.loads(
-        (ROOT / "tests" / "dryrun_moe_decode_bytes.json").read_text()).items()}
-# what torch 2.11 counts in a row's bytes accessed beside what the CPU
-# test's torch 2.13 counts, where DTensor's rules of the two releases run
-# other ops (ROADMAP.md, queue 3): qwen2-moe's dense route weights its
-# routing weights' partial sum over the data axis before reducing it on
-# 2.13 (an all-reduce of (512, 2048) a layer, where 2.11 reduces (512, 1)
-# first), and views its capacity buffer across the model axis's split of
-# the capacity before gathering it (2.13 then reorders the gathered rows
-# with an index_select, 2.11 gathers the split dim and concatenates)
-DRYRUN_RELEASE_BYTES = {("qwen2-moe-a2.7b", "decode_32k", "single", "2.11"):
-                        -100_798_464}
+# the five integers every row must count on the card, whatever its torch:
+# the CPU's, which scripts/dryrun_rows.py writes and the CPU tests
+# (tests/test_torch_dryrun_moe_decode.py, tests/test_torch_dryrun_rows_*.py)
+# hold; keyed (arch, shape, mesh, grad_sync)
+DRYRUN_KEYS = ("flops", "bytes_accessed", "collective_link_bytes",
+               "temp_bytes", "total_bytes")
+DRYRUN_CPU = {tuple(k.split(":")): v for k, v in json.loads(
+    (ROOT / "tests" / "dryrun_rows.json").read_text()).items()}
+# what a torch release's DTensor counts in a row beside the CPU's torch 2.13
+# where the two releases' rules run other ops and the dry run lays neither
+# out itself (ROADMAP.md, queue 3): qwen2-moe's router backward, where 2.11
+# reduce-scatters the normalised routing weights' partial gradient before
+# dividing it (2.13 divides the partial sum by the gathered denominators)
+# and makes top-k's gradient with ``zeros``, whole, gathering the tokens'
+# gradients into it (2.13's ``new_zeros`` keeps the tokens split); keyed
+# ((arch, shape, mesh, grad_sync), number, release)
+_QWEN_TRAIN = ("qwen2-moe-a2.7b", "train_4k", "single", "auto")
+DRYRUN_RELEASE_GAPS = {
+    (_QWEN_TRAIN, "bytes_accessed", "2.11"): 35_433_480_192,
+    (_QWEN_TRAIN, "collective_link_bytes", "2.11"): 1_107_296_256}
 PAR_FORMS = (("ep", (1, 4), 1), ("ep", (2, 2), 2), ("ep_a2a", (1, 4), 1))
 # the parent's peaks by mode (GiB; its chip run on an NVIDIA H100 80GB HBM3
 # at 700.00 W), printed beside this run's: 4d's llama3.2-1b steps and 4i's
@@ -2090,11 +2097,19 @@ def dryrun_production_row() -> None:
     """4j(c): the production rows of ``DRYRUN_ROWS`` through the CLI, each in
     a subprocess of its own (this process's phases start real process
     groups), all started together; each must print ``OK`` within
-    ``DRYRUN_ROW_S``. Run after phase 5's profiles, as 4i: the row
-    processes share the card."""
+    ``DRYRUN_ROW_S`` and count the CPU's five integers (``DRYRUN_CPU``,
+    less ``DRYRUN_RELEASE_GAPS``). Run after phase 5's profiles, as 4i:
+    the row processes share the card."""
     print("== phase 4j(c): the dry run's production rows", flush=True)
+    check(set(DRYRUN_ROWS) == set(DRYRUN_CPU), "tests/dryrun_rows.json "
+          f"holds {sorted(DRYRUN_CPU)}, 4j(c) runs {sorted(DRYRUN_ROWS)}")
+    release = ".".join(torch.__version__.split(".")[:2])
+    for (key, k, rel), gap in DRYRUN_RELEASE_GAPS.items():
+        print(f"4j(c) release gap: {' '.join(key)} {k} on torch {rel}: "
+              f"{gap:+d} beside the CPU's", flush=True)
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     t0 = time.perf_counter()
+    parted = set()
     with tempfile.TemporaryDirectory() as out:
         procs = []
         for arch, shape, mesh, sync in DRYRUN_ROWS:
@@ -2139,25 +2154,25 @@ def dryrun_production_row() -> None:
                   f"{row['memory']['total_bytes'] / 2**30:.2f} GiB/dev, "
                   f"useful {row['roofline']['useful_flops_ratio']:.3f}",
                   flush=True)
-            want = DRYRUN_MOE_DECODE_BYTES.get((arch, shape, mesh))
-            if want is not None:
-                release = ".".join(torch.__version__.split(".")[:2])
-                gap = DRYRUN_RELEASE_BYTES.get((arch, shape, mesh, release),
-                                               0)
-                got = {"total_bytes": row["memory"]["total_bytes"],
-                       "bytes_accessed": row["per_device"]["bytes_accessed"]
-                       - gap}
-                check(got == want, f"the dry run's {arch_row} peak and "
-                      f"bytes accessed {got} on the card (torch {release}, "
-                      f"less {gap} bytes its rules move apart), {want} on "
-                      f"the CPU")
-                print(f"4j(c) {arch_row}: peak {want['total_bytes']} bytes, "
-                      f"bytes accessed {want['bytes_accessed'] + gap} on "
-                      f"torch {release} ({gap} apart from the CPU test's "
-                      f"{want['bytes_accessed']}), to the byte", flush=True)
+            got = {k: row["per_device"][k] for k in DRYRUN_KEYS[:3]}
+            got.update({"temp_bytes": row["memory"]["temp_bytes"],
+                        "total_bytes": row["memory"]["total_bytes"]})
+            want = DRYRUN_CPU[(arch, shape, mesh, sync)]
+            for k in DRYRUN_KEYS:
+                gap = DRYRUN_RELEASE_GAPS.get(((arch, shape, mesh, sync), k,
+                                               release), 0)
+                same = got[k] == want[k] + gap
+                print(f"4j(c) {arch_row} {k}: {got[k]} on the card, "
+                      f"{want[k]} on the CPU"
+                      + (f", {gap:+d} the release gap" if gap else "")
+                      + ("" if same else " (DIFFERS)"), flush=True)
+                if not same:
+                    parted.add((arch_row, k))
     print(f"phase 4j(c): {len(DRYRUN_ROWS)} rows, "
           f"{time.perf_counter() - t0:.1f} s (the rows run together)",
           flush=True)
+    check(not parted, f"the dry run's rows count apart from the CPU's on "
+          f"the card (torch {torch.__version__}): {sorted(parted)}")
 
 
 def phase_dryrun(rows: dict, seed: int, llama_runs: dict) -> None:

@@ -56,7 +56,11 @@ How each part of the reference is carried over:
     decompose into, whose rule refuses to split a sharded dim unevenly
     (the heads of q into (KV, G) groups; a decode step's grouped-query
     logits, where torch 2.11 refuses the flattening); ``reshape``'s rule,
-    which reshards, is taken instead (:func:`_views_reshard`);
+    which reshards, is taken instead (:func:`_views_reshard`); a view
+    that merges a dim a mesh dim splits behind a whole dim (the dense MoE
+    route's (E, C, d) -> (E C, d) with C split) gathers that dim first,
+    as torch 2.11 does, where 2.13's ``reshape`` rule gathers the rows and
+    reorders them (:func:`_flatten_gathered`);
   - a product (``mm``, ``bmm``) of an activation and a weight: the weight
     is gathered over the data axes that split the tokens (FSDP), and the
     activation is made whole over the model axis where it splits the
@@ -107,10 +111,19 @@ How each part of the reference is carried over:
   - pointwise operations (``add``, ``sub``, ``mul``, ``div``, ``pow``): a
     partial sum over the model axis that meets an operand that is not one
     is reduced whole, and of two operands the model axis splits along
-    different dims the smaller is gathered (:func:`_reduce_model_partials`),
+    different dims the smaller is gathered (:func:`_reduce_partials`),
     where DTensor scatters the partial sum over the batch and then gathers
-    every activation that meets it; under sequence parallelism DTensor's
-    scatter onto the sequence split stands;
+    every activation that meets it; a partial sum over a data axis that
+    holds fewer elements than the result (the dense MoE route's routing
+    weights against the experts' output) is reduced first, as torch 2.11
+    and GSPMD reduce it (2.13 reduces the product); under sequence
+    parallelism DTensor's scatter onto the sequence split stands; an
+    activation's backward (``silu_backward``, ``gelu_backward``) reduces
+    a partial sum whole first (:func:`_partials_reduced`; 2.13 scatters it
+    along another dim);
+  - DTensor's unpadding of a gathered uneven split is a view of the
+    gathered tensor (:func:`_unpad_as_a_view`), as torch 2.11 leaves it;
+    2.13 copies it contiguous;
   - the dense MoE route, on the global batch (the reference's one GSPMD
     program): the ``searchsorted`` of the experts' sorted slots gathers
     the sorted values whole (:func:`_searchsorted_layout`; DTensor's own
@@ -160,7 +173,7 @@ How each part of the reference is carried over:
     (``parallel.layouts.heads_over_idle_data``), as GSPMD spreads that
     product over them, where DTensor runs every head on every data rank;
     the mask's ``where`` over logits that are a partial sum reduces them
-    first (:func:`_where_reduced`), where DTensor's rule differs between
+    first (:func:`_partials_reduced`), where DTensor's rule differs between
     torch releases;
   - a decode's attention where the mesh splits q, K and V only along the
     batch and the heads (the MoE archs' 16 key heads on 16 ranks): each
@@ -187,7 +200,9 @@ How each part of the reference is carried over:
     over the vocabulary as the logits are, also in a step that runs per
     data rank (``--grad-sync canary_fp``) (:func:`_zeros_like_source`,
     :func:`_scatter_into_split`), and the logits' ``logsumexp`` reduces
-    each rank's share of the vocabulary (:func:`_split_logsumexp`), and
+    each rank's share of the vocabulary, its max and its sum each
+    all-reduced (:func:`_split_logsumexp`; torch 2.13's ``log`` would
+    scatter the sum), and
     the accuracy's ``argmax`` gathers each rank's maximum and its index
     (:func:`_argmax_layout`; a decode's next token too, after its
     logits' partial sum is reduced), each where DTensor gathers or moves
@@ -216,7 +231,9 @@ How each part of the reference is carried over:
 * ``cost_analysis()["bytes accessed"]``: ``per_device.bytes_accessed``, the
   input and output bytes of every local operation that moves tensor data:
   not a view, a bare allocation, or an op of ``_UNREAD`` (DTensor's device
-  query of a local tensor, a reshape that aliases its input). That is what
+  query of a local tensor, a reshape that aliases its input); an op of
+  ``_TEMPLATED`` (``new_zeros``, ``zeros_like``, ...) reads of its tensor
+  argument only the shape, and counts its output alone. That is what
   eager PyTorch moves with no fusion, not a bound of XLA's fused count:
   the reference's CPU compile carries bf16 activations in float32, so its
   count can be the larger. ``tests/test_torch_dryrun.py`` holds it, less
@@ -338,6 +355,11 @@ _UNMOVED = {"wait_tensor", "_wrap_tensor_autograd", "recv_", "barrier",
 _WRAPS = {"_wrap_tensor_autograd"}
 _ALLOCATIONS = {"empty", "empty_strided", "empty_like", "new_empty",
                 "new_empty_strided"}
+# ops that read of a tensor argument only its shape, dtype and device, and
+# write their output: counted by their output's bytes (torch 2.11's topk
+# backward makes its zeros with ``zeros``, 2.13's with ``new_zeros``)
+_TEMPLATED = {"new_zeros", "new_ones", "new_full", "zeros_like",
+              "ones_like", "full_like"}
 # ops that read and write no tensor data though torch does not mark them
 # views, by namespace: the device query DTensor makes of each local tensor
 # (it returns a ``torch.device``), and the reshape that aliases its input
@@ -380,7 +402,7 @@ def check_torch() -> None:
              (torch._C, "_current_graph_task_id"),
              (torch.utils._python_dispatch, "_get_current_dispatch_mode"),
              (dtensor_utils, "compute_local_shape_and_global_offset"),
-             (DeviceMesh, "_flatten"),
+             (DeviceMesh, "_flatten"), (torch._prims_common, "infer_size"),
              (dtensor_placements, "shard_dim_alltoall"),
              (torch.ops._dtensor, "shard_dim_alltoall")]
     missing = [f"{getattr(o, '__name__', type(o).__name__)}.{n}"
@@ -501,6 +523,89 @@ def _views_reshard():
     finally:
         funcs.update(real)
         prop.propagate_op_sharding.cache_clear()
+
+
+def _merged_groups(src, dst) -> List[List[int]]:
+    """The groups of dims of shape ``src`` that a view to shape ``dst``
+    merges into one dim (the (E, C) of (E, C, d) -> (E C, d)), each with its
+    dims of more than one element only; ``[]`` where the view does not
+    only merge and split."""
+    groups, i, j = [], 0, 0
+    while i < len(src) and j < len(dst):
+        group, a, b = [i], src[i], dst[j]
+        i, j = i + 1, j + 1
+        while a != b:
+            if a < b and i < len(src):
+                group.append(i)
+                a, i = a * src[i], i + 1
+            elif b < a and j < len(dst):
+                b, j = b * dst[j], j + 1
+            else:
+                return []
+        group = [d for d in group if src[d] != 1]
+        if len(group) > 1:
+            groups.append(group)
+    return groups
+
+
+def _flatten_gathered(func):
+    """``func`` (``view``, ``_unsafe_view``, ``reshape``) of a DTensor that
+    a mesh dim splits along a dim the view merges behind a dim no mesh dim
+    splits (the capacity C of the dense MoE route's (E, C, d) -> (E C, d)):
+    that dim gathered (all-gather and concatenate, DTensor's
+    redistribution), then flattened on each rank, as torch 2.11 and GSPMD
+    do; the rule of torch 2.13 that :func:`_views_reshard` falls back to
+    gathers the flattened rows and reorders them with an
+    ``index_select``. A group whose first dim is split too (a batch split
+    over the data axes merged with heads split over the model axis) is
+    left to DTensor, whose strided split keeps both; so is every view under
+    sequence parallelism."""
+    def layout(x, size, *rest):
+        ctx = get_parallel_context()
+        if not isinstance(x, DTensor) or rest or ctx is None \
+                or ctx.sequence_parallel:
+            return NotImplemented
+        size = torch._prims_common.infer_size(size, x.numel())
+        mesh = x.device_mesh
+        split = {p.dim for m, p in enumerate(x.placements)
+                 if p.is_shard() and mesh.size(m) > 1}
+        behind = {d for g in _merged_groups(tuple(x.shape), tuple(size))
+                  if g[0] not in split for d in g[1:]}
+        gather = [m for m, p in enumerate(x.placements)
+                  if p.is_shard() and p.dim in behind and mesh.size(m) > 1]
+        if not gather:
+            return NotImplemented
+        x = x.detach().redistribute(mesh, [
+            Replicate() if m in gather else p
+            for m, p in enumerate(x.placements)])
+        return func(x, size)
+    return layout
+
+
+@contextlib.contextmanager
+def _unpad_as_a_view():
+    """DTensor's unpadding of a gathered uneven split (``Shard``'s
+    ``_maybe_unpad_tensor``) a narrow, a view of the gathered tensor, as
+    torch 2.11 leaves it and as GSPMD slices inside the fusion that reads
+    it; torch 2.13 copies it contiguous whatever reads it next (the
+    (16, 4096, 3352) projections of mamba2-130m, 107.6 GB of its
+    ``train_4k`` row). Restored after; a release with no such method is
+    left as it is."""
+    real = getattr(Shard, "_maybe_unpad_tensor", None)
+    if real is None:
+        yield
+        return
+
+    def unpad(self, local_tensor, logical_dim_size, num_chunks):
+        if local_tensor.size(self.dim) == logical_dim_size:
+            return local_tensor
+        return local_tensor.narrow(self.dim, 0, logical_dim_size)
+
+    Shard._maybe_unpad_tensor = unpad
+    try:
+        yield
+    finally:
+        Shard._maybe_unpad_tensor = real
 
 
 @contextlib.contextmanager
@@ -945,7 +1050,8 @@ class Accountant(TorchDispatchMode):
         if func.is_view or name in _ALLOCATIONS or not (ins or outs) \
                 or (ns, name) in _UNREAD:
             return
-        moved = sum(_nbytes(t) for t in ins + outs)
+        moved = sum(_nbytes(t) for t in (outs if name in _TEMPLATED
+                                         else ins + outs))
         self.bytes += moved
         if name in _FLASH:
             self.attention_bytes += moved
@@ -1442,27 +1548,35 @@ def _split_logsumexp(x, dim, keepdim=False):
                for m, p in enumerate(x.placements)) \
             or any(p.is_partial() for p in x.placements):
         return NotImplemented
-    top = torch.amax(x, d, keepdim=True)       # a partial max over the split
-    top = top.redistribute(mesh, [Replicate() if p.is_partial() else p
-                                  for p in top.placements])
-    out = torch.log(torch.sum(torch.exp(x - top), d, keepdim=True)) + top
+    # the max and the sum are partial over the split: each all-reduced
+    # before the next step (torch 2.13's ``log`` would reduce-scatter the
+    # sum and gather the logarithm)
+    top = _whole(torch.amax(x, d, keepdim=True), [])
+    out = torch.log(_whole(torch.sum(torch.exp(x - top), d, keepdim=True),
+                           [])) + top
     return out if keepdim else out.squeeze(d)
 
 
-def _where_reduced(cond, x, y):
-    """``torch.where(cond, x, y)`` on DTensors where ``x`` or ``y`` is a
-    partial sum (a one-sequence decode's logits, from a query contracted
-    along d split over the idle data axes): the partial sum is reduced
-    first, whole, as GSPMD reduces it before a step that is not linear.
-    DTensor's own rule differs by release: torch 2.11 reduces it whole,
-    torch 2.13 scatters it onto another dim of the logits on the
-    (2, 16, 16) mesh."""
-    if not any(isinstance(t, DTensor) and any(p.is_partial()
-                                              for p in t.placements)
-               for t in (x, y)):
-        return NotImplemented
-    return torch.where(cond, *(_whole(t, []) if isinstance(t, DTensor)
-                               else t for t in (x, y)))
+def _partials_reduced(func):
+    """``func`` (not linear in each operand: ``where``, an activation's
+    backward) on DTensors with each partial sum among its operands reduced
+    whole first, as GSPMD reduces a partial sum before a step that is not
+    linear. DTensor's own rule differs by release: a one-sequence decode's
+    logits, from a query contracted along d split over the idle data axes,
+    into the mask's ``where`` (torch 2.13 scatters them onto another dim
+    of the logits on the (2, 16, 16) mesh); the dense MoE route's experts'
+    gradient, a partial sum over the data axis, into ``silu_backward``
+    (2.13 scatters it along the experts' dim and gathers the result
+    later). Torch 2.11 reduces both whole."""
+    def layout(*args, **kwargs):
+        if not any(isinstance(a, DTensor) and any(p.is_partial()
+                                                  for p in a.placements)
+                   for a in args):
+            return NotImplemented
+        # detached, as in _gather_weight (DTensor 2.11 has no detach_ rule)
+        return func(*(_whole(a.detach(), []) if isinstance(a, DTensor)
+                      else a for a in args), **kwargs)
+    return layout
 
 
 def _split_softmax(x, dim, half_to_float=False):
@@ -1669,13 +1783,18 @@ def _split_keeping(x, split_sizes, dim=0):
     return tuple(_pieces_split(x.detach(), split_sizes, d, mdims))
 
 
-def _reduce_model_partials(func):
+def _reduce_partials(func):
     """``func`` (a pointwise op) on DTensors with each partial sum over the
     model axis that meets an operand that is not one reduced whole first
     (all-reduce), as Megatron reduces a row-parallel product's output; DTensor
     scatters it over the batch instead (a reduce-scatter), and the batch split
     over the model axis then meets every activation the model axis splits
-    along its features, each meeting a gather. Under sequence parallelism
+    along its features, each meeting a gather. A partial sum over another
+    mesh dim (a data axis) that meets an operand that is not one is reduced
+    first where it holds fewer elements than the result (the dense MoE
+    route's routing weights, (S k, 1), against the experts' (S k, d)
+    output), as torch 2.11 and GSPMD reduce it; torch 2.13 keeps a product's
+    partial sum and reduces the result. Under sequence parallelism
     DTensor's rule stands: it scatters the partial sum onto the sequence
     split, as Megatron's sequence parallelism does."""
     def layout(*args, **kwargs):
@@ -1685,30 +1804,49 @@ def _reduce_model_partials(func):
             return NotImplemented
         mesh = dts[0].device_mesh
         names = mesh.mesh_dim_names or ()
-        if ctx.model_axis not in names:
+        model = names.index(ctx.model_axis) if ctx.model_axis in names \
+            else None
+        whole = {id(a): set() for a in dts}     # mesh dims to replicate
+        if model is not None and mesh.size(model) > 1:
+            for i in _model_gathers(dts, model):
+                whole[i].add(model)
+        tensors = [a for a in args if isinstance(a, torch.Tensor)]
+        out = torch.broadcast_shapes(*(a.shape for a in tensors))
+        for m in range(mesh.ndim):
+            part = [a for a in dts if a.placements[m].is_partial()]
+            if m == model or mesh.size(m) == 1 or not part \
+                    or len(part) == len(tensors):
+                continue
+            for a in part:
+                if a.numel() < out.numel():
+                    whole[id(a)].add(m)
+        if not any(whole.values()):
             return NotImplemented
-        m = names.index(ctx.model_axis)
-        if mesh.size(m) == 1:
-            return NotImplemented
-        part = [a.placements[m].is_partial() for a in dts]
-        gather = set()
-        if any(part) and not (all(part) and len(dts) > 1):
-            gather = {id(a) for a, q in zip(dts, part) if q}
-        else:   # split along different (broadcast) dims: the smaller whole
-            split = {(a.placements[m].dim - a.ndim) for a in dts
-                     if a.placements[m].is_shard() and a.shape[
-                         a.placements[m].dim] > 1}
-            if len(split) < 2:
-                return NotImplemented
-            small = min((a for a in dts if a.placements[m].is_shard()),
-                        key=lambda a: a.numel())
-            gather = {id(small)}
         # detached, as in _gather_weight (DTensor 2.11 has no detach_ rule)
         args = [a.detach().redistribute(mesh, [
-            Replicate() if i == m else p for i, p in enumerate(a.placements)])
-                if id(a) in gather else a for a in args]
+            Replicate() if i in whole[id(a)] else p
+            for i, p in enumerate(a.placements)])
+                if isinstance(a, DTensor) and whole[id(a)] else a
+                for a in args]
         return func(*args, **kwargs)
     return layout
+
+
+def _model_gathers(dts, m) -> set:
+    """The ids of the operands a pointwise op gathers over the model axis
+    (mesh dim ``m``): each partial sum there that meets an operand that is
+    not one, or of operands split along different (broadcast) dims, the
+    smaller."""
+    part = [a.placements[m].is_partial() for a in dts]
+    if any(part) and not (all(part) and len(dts) > 1):
+        return {id(a) for a, q in zip(dts, part) if q}
+    split = {(a.placements[m].dim - a.ndim) for a in dts
+             if a.placements[m].is_shard() and a.shape[
+                 a.placements[m].dim] > 1}
+    if len(split) < 2:
+        return set()
+    return {id(min((a for a in dts if a.placements[m].is_shard()),
+                   key=lambda a: a.numel()))}
 
 
 # operations DTensor's own rules (torch 2.11) lay out otherwise than GSPMD
@@ -1736,12 +1874,17 @@ _LAYOUTS = {torch.ops.aten.mm.default: _gather_weight,
             torch.ops.aten.scatter_add_.default: _scatter_add_layout,
             torch.ops.aten.split_with_sizes.default: _split_keeping,
             torch.ops.aten.index_add.default: _index_add_layout,
-            torch.ops.aten.index_fill.int_Scalar: _index_fill_layout,
-            torch.ops.aten.where.self: _where_reduced}
-_LAYOUTS.update({op: _reduce_model_partials(op) for op in (
+            torch.ops.aten.index_fill.int_Scalar: _index_fill_layout}
+_LAYOUTS.update({op: _reduce_partials(op) for op in (
     torch.ops.aten.add.Tensor, torch.ops.aten.sub.Tensor,
     torch.ops.aten.mul.Tensor, torch.ops.aten.div.Tensor,
     torch.ops.aten.pow.Tensor_Scalar)})
+_LAYOUTS.update({op: _partials_reduced(op) for op in (
+    torch.ops.aten.where.self, torch.ops.aten.silu_backward.default,
+    torch.ops.aten.gelu_backward.default)})
+_LAYOUTS.update({op: _flatten_gathered(op) for op in (
+    torch.ops.aten.view.default, torch.ops.aten._unsafe_view.default,
+    torch.ops.aten.reshape.default)})
 
 
 def _fake_mode_of(tensors: List[torch.Tensor]):
@@ -1768,7 +1911,7 @@ def account(fn, args: Tuple) -> Dict[str, Any]:
     tensors = _leaves(args)
     acct = Accountant(_fake_mode_of(tensors), tensors)
     with implicit_replication(), _views_reshard(), _alltoall_as_on_cuda(), \
-            _shape_inference_uncounted(acct), acct:
+            _unpad_as_a_view(), _shape_inference_uncounted(acct), acct:
         held = {}       # each storage once, however many leaves share it
         for t in tensors:
             key = _storage_key(_local(t))

@@ -376,6 +376,77 @@ def collectives(hlo):
     return walk(entry, 1, "")
 
 
+def _first_group(line):
+    """The device ids of a collective's first replica group (``None``
+    where it names none)."""
+    m = re.search(r"replica_groups=\[(\d+),(\d+)\]<=\[([\d,]+)\]"
+                  r"(?:T\(([\d,]+)\))?", line)
+    if m:
+        dims = [int(x) for x in m.group(3).split(",")]
+        ids = np.arange(int(np.prod(dims))).reshape(dims)
+        if m.group(4):
+            ids = ids.transpose([int(x) for x in m.group(4).split(",")])
+        return ids.reshape(int(m.group(1)), int(m.group(2)))[0].tolist()
+    m = re.search(r"replica_groups=\{\{([\d,]+)\}", line)
+    return [int(x) for x in m.group(1).split(",")] if m else None
+
+
+def dense_combine(hlo):
+    """The collectives of the reference's dense MoE route
+    (``src/repro/models/moe.py``, ``_moe_dense``) in an optimized HLO
+    module of the (16, 16) (data, model) mesh:
+    ``[kind, arrays, axis, source]`` each, ``arrays`` the result's
+    ``[dtype, dims]`` (every element of a combined all-reduce's tuple),
+    ``axis`` ``"data"``, ``"model"`` or ``"both"`` by its first replica
+    group, ``source`` the line of ``_moe_dense`` its stack frames name,
+    stripped (XLA gives a combined all-reduce the frames of its first
+    operand)."""
+    files, locs, frames = (_section(hlo, n) for n in (
+        "FileNames", "FileLocations", "StackFrames"))
+    funcs = _section(hlo, "FunctionNames")
+    with open(os.path.join(ROOT, "src", "repro", "models", "moe.py")) as f:
+        source = f.read().splitlines()
+
+    def dense_line(frame):
+        seen = set()
+        while frame not in seen:
+            seen.add(frame)
+            loc = locs[int(re.search(r"file_location_id=(\d+)",
+                                     frames[frame]).group(1))]
+            name = files[int(re.search(r"file_name_id=(\d+)", loc)
+                             .group(1))]
+            func = funcs[int(re.search(r"function_name_id=(\d+)", loc)
+                             .group(1))]
+            if name.endswith('repro/models/moe.py"') \
+                    and func == '"_moe_dense"':
+                return source[int(re.search(r"line=(\d+)", loc)
+                                  .group(1)) - 1].strip()
+            frame = int(re.search(r"parent_frame_id=(\d+)",
+                                  frames[frame]).group(1))
+        return None
+
+    out = []
+    for line in hlo.splitlines():
+        m = re.match(r"^\s*(?:ROOT )?%[\w.\-]+ = (.*?) ([a-z\-]+)\(", line)
+        frame = re.search(r"stack_frame_id=(\d+)", line)
+        if not m or frame is None or m.group(2) not in (
+                "all-reduce", "all-gather", "reduce-scatter", "all-to-all",
+                "collective-permute"):
+            continue
+        where = dense_line(int(frame.group(1)))
+        if where is None:
+            continue
+        group = _first_group(line) or [0]
+        rows = {i // 16 for i in group}
+        cols = {i % 16 for i in group}
+        axis = "model" if len(rows) == 1 else "data" if len(cols) == 1 \
+            else "both"
+        arrays = [[t, [int(x) for x in dims.split(",") if x]]
+                  for t, dims in ARRAY.findall(m.group(1))]
+        out.append([m.group(2), arrays, axis, where])
+    return out
+
+
 def new_caches(hlo):
     """The shapes of the float32 values of a decode step that are its
     caches' ``dynamic_update_slice``, one a time the step computes them:

@@ -350,7 +350,9 @@ def test_costs_against_reference(reference, arch, kind, mesh, route, sync,
                   want, ("float32",) if key in FLOAT32 else ())}
     print(f"{arch} {kind} {mesh} {route} {sync} {impl}: port / reference "
           f"{ratios}; bytes port {got['bytes_accessed']} (flash calls "
-          f"{flash}) / reference {want['accessed']}")
+          f"{flash}) / reference {want['accessed']}; link bytes port "
+          f"{got['collective_link_bytes']}, temporaries port "
+          f"{got['memory']['temp_bytes']}")
     assert not got["unknown_collectives"]
     if key in EXACT_FLOPS:
         assert got["flops"] == want["flops"]
@@ -911,12 +913,12 @@ def _region_layouts_rank(rank: int, init_file: str):
             part = DTensor.from_local(a / 2, mesh, [Replicate(), Partial()],
                                       run_check=False)
             b = torch.randn(4, 6, generator=g)
-            got = D._reduce_model_partials(torch.ops.aten.mul.Tensor)(
+            got = D._reduce_partials(torch.ops.aten.mul.Tensor)(
                 part, dt(b, Replicate(), Shard(1)))
             close(got, a * b, "partial * split")
             # split along different (broadcast) dims: the smaller gathered
             c = torch.randn(4, 1, generator=g)
-            got = D._reduce_model_partials(torch.ops.aten.mul.Tensor)(
+            got = D._reduce_partials(torch.ops.aten.mul.Tensor)(
                 dt(b, Replicate(), Shard(1)), dt(c, Replicate(), Shard(0)))
             close(got, b * c, "conflicting splits")
             # a stacked weight split over data against a buffer whole over

@@ -7,7 +7,13 @@ returns a ``torch.device``) and the reshape that aliases its input
 (``aten._unsafe_view``). At one rank the step on DTensors counts what the
 same step on plain fake tensors counts, but for the ops that DTensor's
 layouts run there and the plain step does not, named here with their
-bytes."""
+bytes.
+
+The dense MoE route's two layouts of the dry run's own, on a (2, 2) fake
+mesh: a pointwise op whose smaller operand is a partial sum over a data
+axis reduces that operand first (``_reduce_partials``), and a view that
+merges a dim the model axis splits behind another gathers that dim first
+(``_flatten_gathered``); at one rank neither changes a count."""
 import os
 from collections import Counter
 
@@ -16,12 +22,14 @@ import torch
 from torch import nn
 from torch._subclasses.fake_tensor import FakeTensorMode
 from torch.distributed.device_mesh import init_device_mesh
-from torch.distributed.tensor import DTensor, Shard
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 os.environ.setdefault("JAX_PLATFORMS", "cpu")
 from repro_torch.launch import dryrun as D  # noqa: E402
 from repro_torch.models import Transformer, get_config  # noqa: E402
 from repro_torch.optim import AdamWConfig, AdamWState  # noqa: E402
+from repro_torch.parallel import (ParallelContext,  # noqa: E402
+                                  parallel_context)
 from repro_torch.train.train_step import (TrainConfig,  # noqa: E402
                                           make_train_step)
 from test_torch_dryrun import ARCH, _account  # noqa: E402
@@ -136,3 +144,125 @@ def test_one_rank_bytes_match_plain_step(per_op):
         == sum(ONE_RANK_MASK.values())
     assert on_mesh["flops"] == plain["flops"]
     assert on_mesh["memory"] == plain["memory"]
+
+
+def _on_data_model(fn, *tensors, sequence_parallel=False, out=None):
+    """``D.account(fn, ...)`` on a (2, 2) ``("data", "model")`` fake mesh;
+    each of ``tensors`` is ``(local shape, placements)`` of a float32 fake
+    local tensor. ``out``, a list, receives ``fn``'s result."""
+    with D.fake_process_group(4):
+        mesh = init_device_mesh("cpu", (2, 2),
+                                mesh_dim_names=("data", "model"))
+        with FakeTensorMode():
+            args = tuple(DTensor.from_local(torch.empty(shape), mesh,
+                                            placements, run_check=False)
+                         for shape, placements in tensors)
+
+        def keep(*a):
+            r = fn(*a)
+            if out is not None:
+                out.append((tuple(r.shape), list(r.placements),
+                            tuple(r.to_local().shape)))
+            return r
+        with parallel_context(ParallelContext(
+                mesh=mesh, data_axes=("data",), model_axis="model",
+                sequence_parallel=sequence_parallel)):
+            got = D.account(keep, args)
+    for k in ("collective_counts", "collective_bytes"):
+        got[k] = {kind: n for kind, n in got[k].items() if n}
+    return got
+
+
+# the dense route's ``vals * w_sorted[:, None]`` at 512 slots of d 256:
+# the experts' output whole, the routing weights a partial sum over data
+VALS = ((512, 256), [Replicate(), Replicate()])
+WEIGHTS = ((512, 1), [Partial(), Replicate()])
+
+
+def test_partial_weights_reduced_before_the_product(per_op):
+    """The routing weights, (512, 1) and a partial sum over the data axis,
+    times the experts' (512, 256) output: one all-reduce of the weights'
+    2 KiB, not of the product's 512 KiB, and the product whole."""
+    accessed, calls = per_op
+    out = []
+    got = _on_data_model(lambda v, w: v * w, VALS, WEIGHTS, out=out)
+    assert got["collective_counts"] == {"all-reduce": 1}
+    assert got["collective_bytes"] == {"all-reduce": 512 * 4}
+    assert got["collective_link_bytes"] == 2 * 512 * 4
+    assert out == [((512, 256), [Replicate(), Replicate()], (512, 256))]
+    assert accessed["aten.mul.Tensor"] == 4 * (2 * 512 * 256 + 512)
+
+
+@pytest.mark.parametrize("case", ["as_large", "seq_parallel"])
+def test_partial_operand_left_to_dtensor(case, monkeypatch):
+    """A partial sum over the data axis as large as the product, or any
+    under sequence parallelism, takes DTensor's own rule: the same counts
+    as with the dry run's pointwise layout taken out."""
+    if case == "as_large":
+        args, sp = ((VALS[0], WEIGHTS[1]), ((512, 1), VALS[1])), False
+    else:
+        args, sp = (VALS, WEIGHTS), True
+
+    def run():
+        got = _on_data_model(lambda v, w: v * w, *args, sequence_parallel=sp)
+        return {k: got[k] for k in ("bytes_accessed", "collective_bytes",
+                                    "collective_link_bytes", "memory")}
+    with_layout = run()
+    monkeypatch.delitem(D._LAYOUTS, torch.ops.aten.mul.Tensor)
+    assert run() == with_layout
+
+
+def test_flatten_gathers_the_split_capacity(per_op):
+    """The dense route's (E, C, d) -> (E C, d) with C split over the model
+    axis (6 experts, 8 slots, d 32): one all-gather of the whole buffer
+    (DTensor's gather of dim 1: an all-gather and a concatenation), then a
+    view on each rank, with no ``index_select``; the result is whole."""
+    accessed, calls = per_op
+    out = []
+    got = _on_data_model(lambda x: x.reshape(48, 32),
+                         ((6, 4, 32), [Replicate(), Shard(1)]), out=out)
+    assert got["collective_counts"] == {"all-gather": 1}
+    assert got["collective_bytes"] == {"all-gather": 6 * 8 * 32 * 4}
+    assert calls["aten.index_select.default"] == 0
+    assert out == [((48, 32), [Replicate(), Replicate()], (48, 32))]
+
+
+@pytest.mark.parametrize("shape,size", [((6, 4, 32), (6, 256)),
+                                        ((1, 4, 32), (8, 32))])
+def test_flatten_of_a_leading_split_is_dtensors(shape, size, monkeypatch):
+    """A view that merges nothing behind the split dim (the split dim
+    first of its group, or behind dims of one element only) takes
+    DTensor's own rule: the same counts without the layout."""
+    def run():
+        got = _on_data_model(lambda x: x.reshape(size),
+                             (shape, [Replicate(), Shard(1)]))
+        return {k: got[k] for k in ("bytes_accessed", "collective_bytes",
+                                    "memory")}
+    with_layout = run()
+    for op in (torch.ops.aten.view.default,
+               torch.ops.aten._unsafe_view.default):
+        monkeypatch.delitem(D._LAYOUTS, op)
+    assert run() == with_layout
+
+
+def test_one_rank_dense_moe_step_unchanged(monkeypatch):
+    """At one rank the dense MoE route's small train step (qwen2-moe
+    smoke, 8 sequences of 64 tokens) counts what it counts with the two
+    layouts taken out: FLOPs, bytes, collectives and memory."""
+    cfg = get_config("qwen2-moe-a2.7b", "smoke")
+
+    def run():
+        got = _account((1, 1), dict(kind="train", seq_len=S,
+                                    global_batch=B), cfg)
+        return {k: got[k] for k in ("flops", "bytes_accessed",
+                                    "collective_bytes", "memory")}
+    with_layouts = run()
+    for op in (torch.ops.aten.view.default,
+               torch.ops.aten._unsafe_view.default,
+               torch.ops.aten.reshape.default):
+        monkeypatch.delitem(D._LAYOUTS, op)
+    for op in (torch.ops.aten.add.Tensor, torch.ops.aten.sub.Tensor,
+               torch.ops.aten.mul.Tensor, torch.ops.aten.div.Tensor,
+               torch.ops.aten.pow.Tensor_Scalar):
+        monkeypatch.delitem(D._LAYOUTS, op)
+    assert run() == with_layouts

@@ -18,6 +18,10 @@ tensors, each against the operation on the whole tensors.
   where they hold fewer bytes than the weight, a stacked weight's gradient
   against a partial sum over the data axes, and an operand split in
   DTensor's strided way on a mesh of three dims (the backward's);
+* the dense MoE route's weighting and flattening: routing weights that
+  are a partial sum over the data axis reduced before their product with
+  the experts' output, and the capacity buffer gathered along the
+  capacity the model axis splits before it is flattened;
 * :func:`repro_torch.parallel.layouts.redistribute_over_data`: rows split
   over ("pod", "data") moved to columns in one all-to-all over the
   flattened pair, forward and backward;
@@ -175,6 +179,21 @@ def _serving_layouts_rank(rank: int, init_file: str):
                 got = D._gather_weight(dt(a, Shard(1), Replicate()), part)
             assert got.placements[0] == Shard(1)
             _close(got.full_tensor(), a @ b, "stacked weight's gradient")
+            # the dense MoE route's weighting: routing weights that are a
+            # partial sum over data, reduced before the product
+            w = torch.randn(8, 1, generator=g)
+            vals = torch.randn(8, 6, generator=g)
+            got = D._reduce_partials(torch.ops.aten.mul.Tensor)(
+                dt(vals, Replicate(), Replicate()), DTensor.from_local(
+                    w / 2, mesh, [Partial(), Replicate()], run_check=False))
+            assert list(got.placements) == [Replicate(), Replicate()]
+            _close(got.full_tensor(), vals * w, "weights reduced first")
+            # its capacity buffer flattened across the split capacity
+            buf = torch.randn(3, 4, 5, generator=g)
+            got = D._flatten_gathered(torch.ops.aten.view.default)(
+                dt(buf, Replicate(), Shard(1)), [-1, 5])
+            assert list(got.placements) == [Replicate(), Replicate()]
+            assert torch.equal(got.full_tensor(), buf.reshape(12, 5))
         # an operand split in DTensor's strided way (heads merged into the
         # batch) on a mesh of three dims, as the backward pass meets it:
         # made whole over that mesh dim, the product equal

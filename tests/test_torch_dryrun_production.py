@@ -81,7 +81,7 @@ import json, sys
 import repro.launch.dryrun as R
 import jax
 from dryrun_reference import (accessed, bf16_dots, collectives, costs,
-                              link_bytes, new_caches)
+                              dense_combine, link_bytes, new_caches)
 from repro.launch.analysis import INPUT_SHAPES
 from repro.launch.mesh import make_production_mesh, mesh_axes
 from repro.models import get_config
@@ -132,6 +132,7 @@ for key, (arch, shape, m, grad_sync, sp, moe_impl) in json.loads(sys.argv[1]):
                         if c[6].endswith("repro/core/collective/trees.py")]
     if INPUT_SHAPES[shape]["kind"] == "decode":
         row["new_caches"] = new_caches(hlo)
+        row["dense_combine"] = dense_combine(hlo)
     print(f"JAX_CASE {key} " + json.dumps(row), flush=True)
 """
 
@@ -287,6 +288,18 @@ def hold(reference, c, finding=None):
     ``test_torch_dryrun.py`` share), and its bytes with them read and
     written anew.
 
+    ``finding["dense_combine"]`` (the dense MoE route's decode): the
+    collectives the reference's ``_moe_dense`` issues
+    (``dryrun_reference.dense_combine``), asserted equal to the finding's:
+    GSPMD reduces the routing weights over the data axis before their
+    product (an all-reduce of one value a slot, combined with the tokens'
+    gather), as the port's ``_reduce_partials`` does, and takes each
+    slot's row of the experts' capacity-split output by a masked gather on
+    each model rank and an all-reduce over the model axis, where the
+    port's ``_flatten_gathered`` gathers the whole output first (its
+    link bytes count those gathers). Asserted, not held: the port's count
+    stands as it is.
+
     ``finding["float32"]``: the reference's CPU compile runs the bf16
     model's products, and the values around them, in float32, and
     converts between the two; this asserts that no dot of the probe reads
@@ -297,6 +310,10 @@ def hold(reference, c, finding=None):
     shape, seq_parallel = c[1], c[4]
     got = _account(*c)
     want = dict(reference.case(case_id(c)))
+    if "dense_combine" in finding:
+        print(f"{case_id(c)}: the reference's dense route combines by "
+              f"{want['dense_combine']}", flush=True)
+        assert want["dense_combine"] == finding["dense_combine"]
     got_temp, got_link = got["memory"]["temp_bytes"], \
         got["collective_link_bytes"]
     if seq_parallel:
@@ -339,7 +356,8 @@ def hold(reference, c, finding=None):
     pos = 4 if INPUT_SHAPES[shape]["kind"] == "decode" else 0
     print(f"{case_id(c)}: port / reference {ratios}, reference "
           f"{want['flops'] / 1e12:.3f} TFLOP/dev, temporaries port "
-          f"{got_temp} / reference {want['temp']} bytes, argument bytes "
+          f"{got_temp} / reference {want['temp']} bytes, link bytes port "
+          f"{got_link} / reference {want['link']}, argument bytes "
           f"port - reference {got['memory']['argument_bytes'] - want['args']}"
           f", bytes port {got['bytes_accessed']} (flash calls {flash}) / "
           f"reference {want['accessed']} (scans {scans}; the walk, each "

@@ -26,6 +26,16 @@ CASES = [case(a, "prefill_32k") for a in ARCHS if a not in HELD] \
 FINDINGS = {case(a, "long_500k"): {"new_cache": True}
             for a in ("nemotron-4-340b", "qwen2-7b", "qwen2-moe-a2.7b",
                       "qwen2-vl-2b")}
+# the reference's dense MoE route at decode (``hold``): the routing
+# weights, one float32 value a slot (128 tokens x 4), all-reduced over the
+# data axis with the tokens' gather; each slot's row of the experts'
+# output, (512, 2048 / 16), gathered on each model rank and all-reduced
+# over the model axis
+FINDINGS[case("qwen2-moe-a2.7b", "decode_32k")] = {"dense_combine": [
+    ["all-reduce", [["f32", [512, 2048]], ["f32", [512]]], "data",
+     'x2d[src_tok], mode="drop")'],
+    ["all-reduce", [["f32", [512, 128]]], "model",
+     "vals = out[sorted_e, jnp.minimum(pos_in_e, cap - 1)]"]]}
 # the bytes held by the float32 finding (``hold``)
 for c in [case(a, "decode_32k") for a in (
         "deepseek-moe-16b", "jamba-v0.1-52b", "llama3.2-1b",
