@@ -192,9 +192,35 @@ printed:
               accessed, link bytes, temporaries and peak must equal
               ``DRYRUN_CPU``, the CPU's integers
               (``tests/dryrun_rows.json``), exactly, whatever torch the
-              card has, each printed beside the CPU's on a line, but for
-              the gaps ``DRYRUN_RELEASE_GAPS`` names by row, number and
-              release (printed every run), which must be exact too;
+              card has, each printed beside the CPU's on a line;
+4k. trees   — (run after 4i: its processes share the card too) the Canary
+              trees' rounds on gloo ranks that share the card, each exchange
+              staged through two pinned host buffers (gloo's transport sends
+              host memory only; the sums stay on the card): (a)
+              ``canary_allreduce_tree`` alone over n = 2, 3, 4 and 8 ranks
+              (``TREE_RANKS``) on each rank's inputs drawn from ``--seed``
+              and the rank (``TREE_INPUTS``: a bf16 gradient dict of
+              (4096, 2048), (8192, 2048), (2048,) and (3, 5, 7), a float32
+              (1000,), and the replay's (128, 1024, 256) float32), 16 blocks
+              rooted by ``round_robin_roots`` and by its reverse: in fixed
+              point every rank's result the same bits, under both root
+              lists, and equal to the exact integer sum the CPU computes
+              (``dequantize_ref`` of the ranks' summed ``quantize_ref``,
+              the scale from their max), quantize and dequantize once a
+              tensor a rank, one ``all_reduce(MAX)`` a call and
+              2 ceil(log2 n) exchanges a tensor; in floating point the
+              float32 results the bits of the same call on CPU copies over
+              the same gloo group (bf16's differing elements reported);
+              host walls and the bytes each rank sends; (b) llama3.2-1b at
+              full width (all 16 layers) through the launcher's
+              ``make_trainer`` at (data, model) = (2, 1), B 1 a rank, S
+              4096: 3 steps of ``auto`` and of ``canary_fp`` held to the
+              same steps at world 1 (B 2, one-rank NCCL) as 4i(b) holds
+              its steps, and the first ``canary_fp`` step's sync of
+              ``embed.tok`` and ``layers.0.mlp.w_down``, as AdamW gets it,
+              bit for bit the two ranks' fixed-point sum (the scale from
+              the reference leaf's max over both) halved; each rank's peak,
+              step walls and the sync's host wall;
 6. summary  — one ``{"kernels": [...]}`` JSON line (quantize and dequantize
               also give their launches by path and their times at the
               training shape), the card line, and last
@@ -415,18 +441,6 @@ DRYRUN_KEYS = ("flops", "bytes_accessed", "collective_link_bytes",
                "temp_bytes", "total_bytes")
 DRYRUN_CPU = {tuple(k.split(":")): v for k, v in json.loads(
     (ROOT / "tests" / "dryrun_rows.json").read_text()).items()}
-# what a torch release's DTensor counts in a row beside the CPU's torch 2.13
-# where the two releases' rules run other ops and the dry run lays neither
-# out itself (ROADMAP.md, queue 3): qwen2-moe's router backward, where 2.11
-# reduce-scatters the normalised routing weights' partial gradient before
-# dividing it (2.13 divides the partial sum by the gathered denominators)
-# and makes top-k's gradient with ``zeros``, whole, gathering the tokens'
-# gradients into it (2.13's ``new_zeros`` keeps the tokens split); keyed
-# ((arch, shape, mesh, grad_sync), number, release)
-_QWEN_TRAIN = ("qwen2-moe-a2.7b", "train_4k", "single", "auto")
-DRYRUN_RELEASE_GAPS = {
-    (_QWEN_TRAIN, "bytes_accessed", "2.11"): 35_433_480_192,
-    (_QWEN_TRAIN, "collective_link_bytes", "2.11"): 1_107_296_256}
 PAR_FORMS = (("ep", (1, 4), 1), ("ep", (2, 2), 2), ("ep_a2a", (1, 4), 1))
 # the parent's peaks by mode (GiB; its chip run on an NVIDIA H100 80GB HBM3
 # at 700.00 W), printed beside this run's: 4d's llama3.2-1b steps and 4i's
@@ -446,6 +460,29 @@ PAR_LAYER_REL, PAR_LAYER_REPS = 1e-2, 3
 # the norms are what catch a wrong expert gradient
 PAR_LAYERS, PAR_STEPS, PAR_MESH = 2, 3, (1, 2)
 PAR_LOSS_REL, PAR_GRAD_REL = 5e-4, 1e-2
+PAR_RUN = dict(arch=PAR_ARCH, layers=PAR_LAYERS, batch=PAR_B, seq=PAR_S,
+               steps=PAR_STEPS, mesh=PAR_MESH)
+# phase 4k: the Canary trees' rounds on gloo ranks sharing the card. (a)
+# canary_allreduce_tree alone at each size of TREE_RANKS (3 is not a power
+# of two), TREE_BLOCKS blocks a tensor, on each rank's TREE_INPUTS: a
+# gradient dict shaped as test_one_rank_nccl_canary_fp_on_cuda's (bf16
+# drawn at 1e-3, and float32) and the replay's input, each drawn on the CPU
+# from --seed and the rank
+TREE_RANKS, TREE_BLOCKS = (2, 3, 4, 8), 16
+TREE_INPUTS = {"tok": ((4096, 2048), torch.bfloat16, 1e-3),
+               "w_down": ((8192, 2048), torch.bfloat16, 1e-3),
+               "scale": ((2048,), torch.bfloat16, 1e-3),
+               "odd": ((3, 5, 7), torch.bfloat16, 1e-3),
+               "f32": ((1000,), torch.float32, 1.0),
+               "replay": ((P, MSG_BYTES // BLOCK_BYTES, D), torch.float32,
+                          1.0)}
+# (b) llama3.2-1b at full width, all 16 layers, through the launcher at
+# (data, model) = (2, 1), B 1 a rank, S 4096, against world 1 at B 2; the
+# step-0 canary_fp sync of TREE_CHECKED held bit for bit to the two ranks'
+# fixed-point sum
+TREE_RUN = dict(arch=MODEL_ARCH, layers=16, batch=2, seq=4096, steps=3,
+                mesh=(2, 1))
+TREE_CHECKED = ("embed.tok", "layers.0.mlp.w_down")
 
 
 def fail(msg: str) -> None:
@@ -2097,16 +2134,12 @@ def dryrun_production_row() -> None:
     """4j(c): the production rows of ``DRYRUN_ROWS`` through the CLI, each in
     a subprocess of its own (this process's phases start real process
     groups), all started together; each must print ``OK`` within
-    ``DRYRUN_ROW_S`` and count the CPU's five integers (``DRYRUN_CPU``,
-    less ``DRYRUN_RELEASE_GAPS``). Run after phase 5's profiles, as 4i:
-    the row processes share the card."""
+    ``DRYRUN_ROW_S`` and count the CPU's five integers (``DRYRUN_CPU``)
+    exactly. Run after phase 5's profiles, as 4i: the row processes share
+    the card."""
     print("== phase 4j(c): the dry run's production rows", flush=True)
     check(set(DRYRUN_ROWS) == set(DRYRUN_CPU), "tests/dryrun_rows.json "
           f"holds {sorted(DRYRUN_CPU)}, 4j(c) runs {sorted(DRYRUN_ROWS)}")
-    release = ".".join(torch.__version__.split(".")[:2])
-    for (key, k, rel), gap in DRYRUN_RELEASE_GAPS.items():
-        print(f"4j(c) release gap: {' '.join(key)} {k} on torch {rel}: "
-              f"{gap:+d} beside the CPU's", flush=True)
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     t0 = time.perf_counter()
     parted = set()
@@ -2159,12 +2192,9 @@ def dryrun_production_row() -> None:
                         "total_bytes": row["memory"]["total_bytes"]})
             want = DRYRUN_CPU[(arch, shape, mesh, sync)]
             for k in DRYRUN_KEYS:
-                gap = DRYRUN_RELEASE_GAPS.get(((arch, shape, mesh, sync), k,
-                                               release), 0)
-                same = got[k] == want[k] + gap
+                same = got[k] == want[k]
                 print(f"4j(c) {arch_row} {k}: {got[k]} on the card, "
                       f"{want[k]} on the CPU"
-                      + (f", {gap:+d} the release gap" if gap else "")
                       + ("" if same else " (DIFFERS)"), flush=True)
                 if not same:
                     parted.add((arch_row, k))
@@ -3209,58 +3239,87 @@ def rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
         min=1e-300))
 
 
-def par_train_argv(mode: str, data: int, model: int) -> list:
-    """The launcher's arguments of phase 4i(b)'s runs."""
-    return ["--arch", PAR_ARCH, "--variant", "full", "--batch", str(PAR_B),
-            "--seq", str(PAR_S), "--steps", str(PAR_STEPS), "--lr",
-            str(TRAIN_LR), "--grad-sync", mode, "--data-parallel", str(data),
-            "--model-parallel", str(model), "--log-every", "0"]
+def train_argv(run: dict, mode: str, data: int, model: int) -> list:
+    """The launcher's arguments of a run of ``run`` (``PAR_RUN``,
+    ``TREE_RUN``) at ``(data, model)``."""
+    return ["--arch", run["arch"], "--variant", "full", "--batch",
+            str(run["batch"]), "--seq", str(run["seq"]), "--steps",
+            str(run["steps"]), "--lr", str(TRAIN_LR), "--grad-sync", mode,
+            "--data-parallel", str(data), "--model-parallel", str(model),
+            "--log-every", "0"]
 
 
-def train_on_mesh(world: int, mode: str) -> dict:
-    """``PAR_STEPS`` steps through the launcher's ``make_trainer`` on this
-    rank (the config's depth cut to ``PAR_LAYERS``), the launches counted
-    from 0 around ``Trainer.run``: losses, walls, launches, the norm of
-    each gradient tensor the optimizer was handed and the weights'
-    checksums after every step, the peak memory and the number of
-    parameter tensors."""
+def train_on_mesh(world: int, mode: str, run: dict, checked=()) -> dict:
+    """``run["steps"]`` steps of ``run`` through the launcher's
+    ``make_trainer`` on this rank (the config's depth cut to
+    ``run["layers"]``), the launches counted from 0 around ``Trainer.run``:
+    losses, walls, launches, the norm of each gradient tensor the optimizer
+    was handed and the weights' checksums after every step, the sync's
+    host wall a step, the peak memory and the number of parameter tensors.
+    ``checked`` (``canary_fp``): names of gradient tensors whose raw
+    gradient, the max of their reference leaf's raw gradients and the
+    gradient AdamW got are kept from the first step (``"first"``)."""
+    from repro_torch.convert import reference_leaves
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.launch import train as lt
     from repro_torch.models import get_config
     from repro_torch.parallel import parallel_context
-    from repro_torch.train import train_step
-    data, model = (1, 1) if world == 1 else PAR_MESH
-    args = lt.parse_args(par_train_argv(mode, data, model))
+    from repro_torch.train import make_train_step, train_step
+    data, model = (1, 1) if world == 1 else run["mesh"]
+    args = lt.parse_args(train_argv(run, mode, data, model))
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    cfg = get_config(PAR_ARCH, "full").with_(num_layers=PAR_LAYERS)
+    cfg = get_config(run["arch"], "full").with_(num_layers=run["layers"])
     trainer, ctx = lt.make_trainer(args, world, torch.device(DEV), cfg=cfg)
     step, update = trainer.step_fn, train_step.adamw_update
-    sums, norms, names = [], [], []
+    sync = train_step.canary_allreduce_tree
+    sums, norms, names, sync_s, first = [], [], [], [], {}
+
+    def keep(raw, synced):
+        leaf_of = {n: leaf.names for leaf in reference_leaves(cfg)
+                   for n in leaf.names}
+        first["raw"] = {n: raw[n].cpu() for n in checked}
+        first["leaf_max"] = {n: float(torch.stack([
+            raw[m].abs().max().float() for m in leaf_of[n]]).max())
+            for n in checked}
+    # the first step keeps its raw gradients for the check
+    first_step = [make_train_step(trainer.tc, mesh=trainer.mesh,
+                                  on_sync=keep)] if checked else []
 
     def stepped(*a):
-        out = step(*a)
+        sync_s.append(0.0)
+        out = (first_step.pop() if first_step else step)(*a)
         sums.append(checksums(trainer.params.parameters()))
+        return out
+
+    def timed_sync(*a, **k):
+        t, out = sync_wall(lambda: sync(*a, **k))
+        sync_s[-1] += t
         return out
 
     def updated(grads, *a, **k):   # the whole step's gradient, synced
         names[:] = list(grads)
         norms.append(torch.stack([torch.linalg.vector_norm(
             g, dtype=torch.float32) for g in grads.values()]))
+        if "raw" in first and "synced" not in first:
+            first["synced"] = {n: grads[n].cpu() for n in checked}
         return update(grads, *a, **k)
+
     trainer.step_fn, train_step.adamw_update = stepped, updated
+    train_step.canary_allreduce_tree = timed_sync
     reset_launch_counts()
     try:
         with parallel_context(ctx):
             hist = trainer.run()
     finally:
         trainer.step_fn, train_step.adamw_update = step, update
+        train_step.canary_allreduce_tree = sync
     counts = launch_counts()
     out = dict(losses=[h["loss"] for h in hist],
                walls=[h["step_time_s"] for h in hist], counts=counts,
                sums=[s.cpu() for s in sums],
                norms=[n.double().cpu() for n in norms],
-               names=names,
+               names=names, sync_s=sync_s, first=first,
                peak=torch.cuda.max_memory_allocated(),
                tensors=len(list(trainer.params.parameters())),
                tp=ctx.tp_size)
@@ -3270,13 +3329,16 @@ def train_on_mesh(world: int, mode: str) -> dict:
 
 
 def train_parallel_rank(rank: int, world: int, init_file: str,
-                        out_dir: str) -> None:
-    """One rank of phase 4i(b): every mode of ``TRAIN_MODES`` at
-    ``PAR_MESH``; the results to ``out_dir/train{rank}.pt``."""
+                        out_dir: str, run: dict, checked=()) -> None:
+    """One rank of a run of ``run`` at ``run["mesh"]`` (phases 4i(b) and
+    4k(b)): every mode of ``TRAIN_MODES``, ``checked`` kept in
+    ``canary_fp``; the results to ``out_dir/train{rank}.pt``."""
     import torch.distributed as dist
     _rank_group(rank, world, init_file)
     try:
-        out = {mode: train_on_mesh(world, mode) for mode in TRAIN_MODES}
+        out = {mode: train_on_mesh(world, mode, run, checked
+                                   if mode == "canary_fp" else ())
+               for mode in TRAIN_MODES}
         torch.save(out, f"{out_dir}/train{rank}.pt")
     finally:
         dist.destroy_process_group()
@@ -3353,40 +3415,53 @@ def rel_diffs(got: list, want: list) -> list:
     return out
 
 
-def parallel_train(rows: dict, smi: str) -> None:
-    """Phase 4i(b): training through the launcher's code path, depth cut
-    to ``PAR_LAYERS``, at ``PAR_MESH`` against the same steps at world 1:
-    every step's loss and every gradient tensor's norm, the model ranks'
-    weights bit for bit, the launches."""
+def train_world_and_mesh(run: dict, checked=()):
+    """``(one, ranks)``: each mode of ``TRAIN_MODES`` of ``run`` at world 1
+    in a one-rank NCCL group, then on ``run["mesh"]``'s gloo ranks sharing
+    the card (``train_on_mesh``'s results, by mode, a rank a dict)."""
     import torch.multiprocessing as mp
-    with one_rank_nccl():   # the world-1 reference (dense) first
-        one = {mode: train_on_mesh(1, mode) for mode in TRAIN_MODES}
+    with one_rank_nccl():   # the world-1 reference first
+        one = {mode: train_on_mesh(1, mode, run) for mode in TRAIN_MODES}
     torch.cuda.empty_cache()
-    world = PAR_MESH[0] * PAR_MESH[1]
+    world = run["mesh"][0] * run["mesh"][1]
     with tempfile.TemporaryDirectory() as tmp:
-        mp.spawn(train_parallel_rank, args=(world, f"{tmp}/rdv_train", tmp),
+        mp.spawn(train_parallel_rank, args=(world, f"{tmp}/rdv_train", tmp,
+                                            run, checked),
                  nprocs=world, join=True)
         ranks = [torch.load(f"{tmp}/train{r}.pt") for r in range(world)]
-    tokens = PAR_B * PAR_S
+    return one, ranks
+
+
+def hold_steps(one: dict, ranks: list, run: dict, rows: dict, path: str,
+               smi: str) -> dict:
+    """Each mode's steps on ``run["mesh"]`` against world 1's: every
+    step's loss within ``PAR_LOSS_REL``, each gradient tensor's norm
+    within ``PAR_GRAD_REL``, the ranks' weights bit for bit after every
+    step, the launches (flash twice and three times a layer under remat,
+    quantize and dequantize once a tensor a ``canary_fp`` step); the
+    launches summed over the ranks into ``rows`` under ``path_<mode>``.
+    Returns each mode's largest peak a rank, GiB."""
+    mesh, steps, layers = run["mesh"], run["steps"], run["layers"]
+    tokens = run["batch"] * run["seq"]
     peaks = {}
     for mode in TRAIN_MODES:
         ref, rs = one[mode], [r[mode] for r in ranks]
         peaks[mode] = max(r["peak"] for r in rs) / 2 ** 30
         n = rs[0]["tensors"]
-        fp = PAR_STEPS * n if mode == "canary_fp" else 0
+        fp = steps * n if mode == "canary_fp" else 0
         want = {"quantize": fp, "dequantize": fp, "packet_accumulate": 0,
                 "packet_accumulate_gather": 0,
-                "flash_attention": PAR_STEPS * 2 * PAR_LAYERS,
-                "flash_attention_bwd": PAR_STEPS * 3 * PAR_LAYERS}
+                "flash_attention": steps * 2 * layers,
+                "flash_attention_bwd": steps * 3 * layers}
         loss_rel = [abs(a - b) / abs(b)
                     for a, b in zip(rs[0]["losses"], ref["losses"])]
         norm_rel = rel_diffs(rs[0]["norms"], ref["norms"])
         warm = [sorted(r["walls"][1:])[len(r["walls"][1:]) // 2]
                 for r in (ref, rs[0])]
-        print(f"{mode}: {PAR_LAYERS} of 24 layers, {n} tensors, B {PAR_B}, "
-              f"S {PAR_S}; losses at {PAR_MESH} "
+        print(f"{mode}: {layers} layers, {n} tensors, global B "
+              f"{run['batch']}, S {run['seq']}; losses at {mesh} "
               + ", ".join(f"{x:.6f}" for x in rs[0]["losses"])
-              + ", at world 1 (dense) "
+              + ", at world 1 "
               + ", ".join(f"{x:.6f}" for x in ref["losses"])
               + "; difference by step " + ", ".join(f"{x:.3g}"
                                                     for x in loss_rel)
@@ -3396,36 +3471,50 @@ def parallel_train(rows: dict, smi: str) -> None:
               + f" relative; warm median step {warm[1] * 1e3:.1f} ms "
               f"({tokens / warm[1]:.0f} tokens/s; world 1: "
               f"{warm[0] * 1e3:.1f} ms, {tokens / warm[0]:.0f} tokens/s); "
-              f"peak memory a rank "
+              f"step walls by rank " + "; ".join(
+                  ", ".join(f"{w * 1e3:.1f}" for w in r["walls"])
+                  for r in rs) + " ms; the sync's host wall by step and rank "
+              + "; ".join(", ".join(f"{w * 1e3:.1f}" for w in r["sync_s"])
+                          for r in rs)
+              + " ms; peak memory a rank "
               + ", ".join(f"{r['peak'] / 2**30:.2f}" for r in rs)
               + f" GiB (world 1: {ref['peak'] / 2**30:.2f}); launches a rank "
-              f"over {PAR_STEPS} steps {rs[0]['counts']} [{smi}]",
+              f"over {steps} steps {rs[0]['counts']} [{smi}]",
               flush=True)
         for r in rs + [ref]:
             check(all(np.isfinite(r["losses"])), f"{mode}: a loss is not "
                                                  f"finite: {r['losses']}")
-            check(r["counts"] == want, f"{mode}: launches over {PAR_STEPS} "
+            check(r["counts"] == want, f"{mode}: launches over {steps} "
                                        f"steps {r['counts']}, want {want}")
         check(rs[0]["names"] == ref["names"], f"{mode}: the gradients' "
                                               f"names differ from world 1's")
-        for step in range(PAR_STEPS):
+        for step in range(steps):
             check(all(torch.equal(r["sums"][step], rs[0]["sums"][step])
-                      for r in rs), f"{mode}: the model ranks' weights differ"
+                      for r in rs), f"{mode}: the ranks' weights differ"
                                     f" after step {step}")
             check(loss_rel[step] <= PAR_LOSS_REL,
                   f"{mode}: step-{step} loss {rs[0]['losses'][step]} at "
-                  f"{PAR_MESH}, {ref['losses'][step]} at world 1")
+                  f"{mesh}, {ref['losses'][step]} at world 1")
             rel, i = norm_rel[step]
             check(rel <= PAR_GRAD_REL,
                   f"{mode}: step {step}: {ref['names'][i]}'s gradient norm "
-                  f"{float(rs[0]['norms'][step][i])} at {PAR_MESH}, "
+                  f"{float(rs[0]['norms'][step][i])} at {mesh}, "
                   f"{float(ref['norms'][step][i])} at world 1")
-        print(f"{mode}: weights the same bits on both model ranks after "
-              f"every step", flush=True)
+        print(f"{mode}: weights the same bits on every rank after every "
+              f"step", flush=True)
         for k, c in rs[0]["counts"].items():
             if c:
-                rows[k].setdefault("paths", {})[f"train_parallel_{mode}"] = \
+                rows[k].setdefault("paths", {})[f"{path}_{mode}"] = \
                     sum(r["counts"][k] for r in rs)
+    return peaks
+
+
+def parallel_train(rows: dict, smi: str) -> None:
+    """Phase 4i(b): training through the launcher's code path, depth cut
+    to ``PAR_LAYERS``, at ``PAR_MESH`` against the same steps at world 1
+    (dense): ``hold_steps``."""
+    one, ranks = train_world_and_mesh(PAR_RUN)
+    peaks = hold_steps(one, ranks, PAR_RUN, rows, "train_parallel", smi)
     parent = PARENT_PEAKS_GIB[("4i", PAR_ARCH)]
     print("4i peaks by mode (the largest rank at "
           f"{PAR_MESH}): " + ", ".join(
@@ -3433,10 +3522,246 @@ def parallel_train(rows: dict, smi: str) -> None:
               for m in TRAIN_MODES) + f" [{smi}]", flush=True)
 
 
+# ------------------------------------------ phase 4k: the trees' rounds
+def tree_inputs(seed: int, rank: int) -> dict:
+    """Rank ``rank``'s ``TREE_INPUTS``, drawn on the CPU."""
+    gen = torch.Generator().manual_seed(seed * 1000 + rank)
+    return {k: (torch.randn(shape, generator=gen) * std).to(dtype)
+            for k, (shape, dtype, std) in TREE_INPUTS.items()}
+
+
+def tree_reference(inputs: list) -> dict:
+    """``dequantize_ref(sum_r quantize_ref(x_r, s), s)`` of each tensor over
+    the ranks' ``inputs``, on the CPU, ``s`` the scale of the ranks' max
+    |x| as ``fixed_point_scales`` takes it (its own a tensor)."""
+    from repro_torch.kernels import fixed_point_scale
+    from repro_torch.kernels.ref import dequantize_ref, quantize_ref
+    out = {}
+    for k in inputs[0]:
+        xs = [x[k] for x in inputs]
+        gmax = torch.stack([x.abs().max().float() for x in xs]).max()
+        s = fixed_point_scale(gmax, bits=BITS, world=len(xs))
+        q = torch.stack([quantize_ref(x, s) for x in xs]).sum(
+            0, dtype=torch.int32)
+        out[k] = dequantize_ref(q, s).to(xs[0].dtype)
+    return out
+
+
+def tree_exchanges() -> dict:
+    """Count every ``batch_isend_irecv`` (one exchange of the trees)."""
+    import torch.distributed as dist
+    real, calls = dist.batch_isend_irecv, {"n": 0}
+
+    def counting(ops):
+        calls["n"] += 1
+        return real(ops)
+    dist.batch_isend_irecv = counting
+    return calls
+
+
+def trees_rank(rank: int, world: int, init_file: str, out_dir: str,
+               seed: int) -> None:
+    """One rank of phase 4k(a): ``canary_allreduce_tree`` over the first
+    ``n`` ranks for each ``n`` of ``TREE_RANKS`` (the others wait), in
+    fixed point under both root lists, each held on this rank to
+    ``out_dir/ref{n}.pt``, and in floating point on the card and on
+    CPU copies of the same inputs; its findings to
+    ``out_dir/trees{rank}.pt``."""
+    import torch.distributed as dist
+    _rank_group(rank, world, init_file)
+    count_max_all_reduces()
+    exchanges = tree_exchanges()
+    found = {}
+    try:
+        groups = {n: dist.group.WORLD if n == world
+                  else dist.new_group(list(range(n))) for n in TREE_RANKS}
+        cpu = tree_inputs(seed, rank)
+        grads = {k: v.to(DEV) for k, v in cpu.items()}
+        for n in TREE_RANKS:
+            if rank < n:
+                found[n] = trees_at(n, groups[n], grads, cpu, out_dir,
+                                    exchanges)
+            dist.barrier()
+        torch.save(found, f"{out_dir}/trees{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def bits_apart(a: torch.Tensor, b: torch.Tensor) -> int:
+    """How many elements of ``a`` and ``b`` (2- or 4-byte) differ in bits."""
+    view = torch.int16 if a.element_size() == 2 else torch.int32
+    return int((a.view(view) != b.view(view)).sum())
+
+
+def trees_at(n: int, group, grads: dict, cpu: dict, out_dir: str,
+             exchanges: dict) -> dict:
+    """:func:`trees_rank`'s calls at one group size ``n``: ``grads`` on the
+    card, ``cpu`` the same on the host; ``exchanges`` counts the
+    exchanges."""
+    from repro_torch.core.collective import (canary_allreduce_tree,
+                                             round_robin_roots)
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    roots = round_robin_roots(TREE_BLOCKS, n)
+    ref = {k: v.to(DEV) for k, v in torch.load(f"{out_dir}/ref{n}.pt")
+           .items()}
+    out = dict(counts={}, reduces={}, exchanges={}, wall_s={})
+    results = {}
+    for tag, rr in (("fwd", roots), ("rev", roots[::-1])):
+        reset_launch_counts()
+        MAX_REDUCES["calls"], exchanges["n"] = 0, 0
+        out["wall_s"][tag], results[tag] = sync_wall(
+            lambda: canary_allreduce_tree(dict(grads), group=group,
+                                          axis_size=n, roots=rr,
+                                          fixed_point=True))
+        out["counts"][tag] = launch_counts()
+        out["reduces"][tag] = MAX_REDUCES["calls"]
+        out["exchanges"][tag] = exchanges["n"]
+    fwd = results["fwd"]
+    out["fp"] = {k: dict(dtype=str(fwd[k].dtype),
+                         same_roots=torch.equal(fwd[k], results["rev"][k]),
+                         exact=torch.equal(fwd[k], ref[k]),
+                         sums=checksums([fwd[k]]).cpu()) for k in grads}
+    del results, fwd, ref
+    out["wall_s"]["float"], on_card = sync_wall(
+        lambda: canary_allreduce_tree(dict(grads), group=group, axis_size=n,
+                                      roots=roots))
+    out["wall_s"]["cpu"], on_cpu = sync_wall(
+        lambda: canary_allreduce_tree(dict(cpu), group=group, axis_size=n,
+                                      roots=roots))
+    out["float"] = {k: bits_apart(on_card[k].cpu(), on_cpu[k])
+                    for k in grads}
+    return out
+
+
+def phase_trees(rows: dict, seed: int, smi: str) -> None:
+    """Phase 4k: the Canary trees' rounds on gloo ranks that share the card
+    (gloo stages each exchange through host buffers): (a) the collective
+    alone, (b) data-parallel training through the launcher."""
+    print("== phase 4k: the Canary trees' rounds on gloo ranks sharing the "
+          "card", flush=True)
+    t0 = time.perf_counter()
+    trees_alone(rows, seed, smi)
+    t1 = time.perf_counter()
+    trees_train(rows, smi)
+    print(f"phase 4k: {time.perf_counter() - t0:.1f} s ((a) {t1 - t0:.1f} "
+          f"s, (b) {time.perf_counter() - t1:.1f} s)", flush=True)
+
+
+def trees_alone(rows: dict, seed: int, smi: str) -> None:
+    """Phase 4k(a): ``canary_allreduce_tree`` at each size of
+    ``TREE_RANKS``. Fixed point: every rank's result the same bits,
+    under both root lists, and equal to the CPU's exact integer sum
+    (:func:`tree_reference`); quantize and dequantize once a tensor a
+    rank, one ``all_reduce(MAX)`` a call, ``2 ceil(log2 n)`` exchanges a
+    tensor. Floating point: the float32 results the bits of the same call
+    on CPU copies over the same gloo group (the same adds in the same
+    order); bf16's differing elements reported."""
+    import math
+
+    import torch.multiprocessing as mp
+    world = max(TREE_RANKS)
+    inputs = [tree_inputs(seed, r) for r in range(world)]
+    numel = {k: v.numel() for k, v in inputs[0].items()}
+    launched = 0
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        for n in TREE_RANKS:
+            torch.save(tree_reference(inputs[:n]), f"{tmp}/ref{n}.pt")
+        t_ref = time.perf_counter() - t0
+        del inputs
+        t_ranks, _ = sync_wall(lambda: mp.spawn(
+            trees_rank, args=(world, f"{tmp}/rdv_trees", tmp, seed),
+            nprocs=world, join=True))
+        found = [torch.load(f"{tmp}/trees{r}.pt") for r in range(world)]
+    print(f"4k(a): the CPU's exact sums for n = {TREE_RANKS} in "
+          f"{t_ref:.1f} s; the {world} ranks in {t_ranks:.1f} s", flush=True)
+    for n in TREE_RANKS:
+        rs = [found[r][n] for r in range(n)]
+        rounds = 2 * math.ceil(math.log2(n))
+        want = {"quantize": len(numel), "dequantize": len(numel),
+                "packet_accumulate": 0, "packet_accumulate_gather": 0,
+                "flash_attention": 0, "flash_attention_bwd": 0}
+        for r, f in enumerate(rs):
+            for tag in ("fwd", "rev"):
+                check(f["counts"][tag] == want, f"4k(a) n={n} rank {r} "
+                      f"{tag}: launches {f['counts'][tag]}, want {want}")
+                check(f["reduces"][tag] == 1, f"4k(a) n={n} rank {r}: "
+                      f"{f['reduces'][tag]} all_reduce(MAX) calls, want 1")
+                check(f["exchanges"][tag] == rounds * len(numel),
+                      f"4k(a) n={n} rank {r}: {f['exchanges'][tag]} "
+                      f"exchanges, want {rounds} a tensor")
+            for k, v in f["fp"].items():
+                check(v["exact"], f"4k(a) n={n} rank {r}: {k} is not the "
+                      f"exact fixed-point sum")
+                check(v["same_roots"], f"4k(a) n={n} rank {r}: {k} differs "
+                      f"between the two root lists")
+                check(torch.equal(v["sums"], rs[0]["fp"][k]["sums"]),
+                      f"4k(a) n={n}: ranks {r} and 0 hold different {k}")
+                if v["dtype"] == "torch.float32":
+                    check(f["float"][k] == 0, f"4k(a) n={n} rank {r}: "
+                          f"float32 {k} differs from the CPU's gloo call "
+                          f"in {f['float'][k]} elements")
+            launched += f["counts"]["fwd"]["quantize"] \
+                + f["counts"]["rev"]["quantize"]
+        sent = sum(rounds * 4 * -(-m // TREE_BLOCKS) * TREE_BLOCKS
+                   for m in numel.values())
+        bf16 = {k: max(f["float"][k] for f in rs) for k, v in
+                rs[0]["fp"].items() if v["dtype"] == "torch.bfloat16"}
+        print(f"4k(a) n={n}: fixed point exact and the same bits on every "
+              f"rank and under both root lists ({len(numel)} tensors, "
+              f"{sum(numel.values())} values a rank); quantize and dequantize "
+              f"once a tensor, one all_reduce(MAX), {rounds} exchanges a "
+              f"tensor; float32 the CPU gloo call's bits, bf16 elements "
+              f"differing from it {bf16}; host wall a fixed-point call "
+              + ", ".join(f"{max(f['wall_s'][t] for f in rs) * 1e3:.1f}"
+                          for t in ("fwd", "rev"))
+              + f" ms (slowest rank, fwd and rev roots), floating point "
+              f"{max(f['wall_s']['float'] for f in rs) * 1e3:.1f} ms, on "
+              f"the CPU copies {max(f['wall_s']['cpu'] for f in rs) * 1e3:.1f}"
+              f" ms; "
+              f"{sent} int32 bytes sent (and received) a rank a "
+              f"fixed-point call [{smi}]", flush=True)
+    for k in ("quantize", "dequantize"):
+        rows[k].setdefault("paths", {})["trees"] = launched
+
+
+def trees_train(rows: dict, smi: str) -> None:
+    """Phase 4k(b): ``TREE_RUN`` on two data ranks against world 1
+    (:func:`hold_steps`), and the first ``canary_fp`` step's sync of
+    ``TREE_CHECKED``, as AdamW got it, bit for bit the two ranks'
+    fixed-point sum with their reference leaf's scale, halved (the mean
+    over the data ranks)."""
+    from repro_torch.kernels import fixed_point_scale
+    from repro_torch.kernels.ref import dequantize_ref, quantize_ref
+    one, ranks = train_world_and_mesh(TREE_RUN, TREE_CHECKED)
+    peaks = hold_steps(one, ranks, TREE_RUN, rows, "train_trees", smi)
+    firsts = [r["canary_fp"]["first"] for r in ranks]
+    world = len(ranks)
+    for name in TREE_CHECKED:
+        gmax = torch.tensor(max(f["leaf_max"][name] for f in firsts),
+                            dtype=torch.float32)
+        s = fixed_point_scale(gmax, bits=BITS, world=world)
+        raw = [f["raw"][name] for f in firsts]
+        q = torch.stack([quantize_ref(g, s) for g in raw]).sum(
+            0, dtype=torch.int32)
+        want = dequantize_ref(q, s).to(raw[0].dtype) / world
+        for r, f in enumerate(firsts):
+            check(torch.equal(f["synced"][name], want), f"4k(b): rank {r}'s "
+                  f"step-0 canary_fp {name} is not the two ranks' "
+                  f"fixed-point sum over {world}")
+    print(f"4k(b) canary_fp step 0: {', '.join(TREE_CHECKED)} as AdamW got "
+          f"them on both ranks bit for bit dequantize_ref(sum of the ranks' "
+          f"quantize_ref(g, s)) / {world}, s from the reference leaf's max "
+          f"over both ranks; peaks by mode, the larger rank: "
+          + ", ".join(f"{m} {peaks[m]:.2f} GiB" for m in TRAIN_MODES)
+          + f" [{smi}]", flush=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
+    t_start = time.perf_counter()
 
     smi = phase_device()
     # float32 references in full float32: no TF32 in matmuls or cuDNN
@@ -3486,6 +3811,7 @@ def main() -> int:
     del engine, prompt
     dryrun_production_row()
     phase_parallel(rows, args.seed, smi)
+    phase_trees(rows, args.seed, smi)
 
     # launches by path: the replay, switch or prefill run ("launches" so
     # far), then the replays of phase 4e and the training runs
@@ -3508,6 +3834,13 @@ def main() -> int:
             check(rows[k].get("paths", {}).get(f"train_parallel_{mode}", 0)
                   > 0, f"{k} never launched on the (data, model) mesh's "
                        f"{mode} training path")
+    for k in ("quantize", "dequantize", "flash_attention",
+              "flash_attention_bwd"):
+        for path in (["trees"] if k in ("quantize", "dequantize") else []) \
+                + [f"train_trees_{m}" for m in TRAIN_MODES
+                   if m == "canary_fp" or k.startswith("flash")]:
+            check(rows[k].get("paths", {}).get(path, 0) > 0,
+                  f"{k} never launched on phase 4k's {path} path")
     for k in ("quantize", "dequantize", "packet_accumulate_gather"):
         check(rows[k].get("paths", {}).get("replay_faults", 0) > 0,
               f"{k} never launched on phase 4e's replays")
@@ -3528,6 +3861,7 @@ def main() -> int:
             if extra in r:
                 row[extra] = r[extra]
         kernels.append(row)
+    print(f"every phase: {time.perf_counter() - t_start:.1f} s", flush=True)
     print("== phase 6: summary")
     print(json.dumps({"kernels": kernels}))
     print(smi)

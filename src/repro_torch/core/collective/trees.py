@@ -3,7 +3,12 @@
 
 The reference builds them from ``lax.ppermute`` over a mesh axis; here the
 axis is a ``torch.distributed`` ``ProcessGroup`` (NCCL on CUDA, gloo on the
-CPU) and a rank's place on it is its rank in the group. The schedule is the
+CPU) and a rank's place on it is its rank in the group. Gloo's transport
+sends and receives host memory only (handed a CUDA tensor, its TCP pair
+fails with ``Bad address``), so gloo ranks whose tensors are on a card
+(ranks sharing one card) stage each exchange through two pinned host
+buffers, reused by every round; the sums and masks stay on the card. The
+schedule is the
 reference's: every round is one exchange in which each rank ``i`` sends its
 accumulator to ``(i - stride) % n`` and receives from ``(i + stride) % n``
 (reduce phase; the broadcast phase the other way round), issued as one
@@ -21,7 +26,7 @@ from __future__ import annotations
 
 import math
 import warnings
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -32,21 +37,43 @@ def _rounds(n: int) -> int:
     return max(1, math.ceil(math.log2(n)))
 
 
+def _staged(x: torch.Tensor, group: ProcessGroup) -> bool:
+    """Whether an exchange of ``x`` over ``group`` goes through host
+    buffers: a CUDA tensor on a gloo group."""
+    return x.is_cuda and dist.get_backend(group) == "gloo"
+
+
+def _host_pair(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A send and a receive buffer on the host shaped like ``x`` (pinned
+    where ``x`` is on the card)."""
+    return tuple(torch.empty(x.shape, dtype=x.dtype, pin_memory=x.is_cuda)
+                 for _ in range(2))
+
+
 def _shift(acc: torch.Tensor, group: ProcessGroup, n: int,
-           offset: int, recv: Optional[torch.Tensor] = None
+           offset: int, recv: Optional[torch.Tensor] = None,
+           host: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
            ) -> torch.Tensor:
     """Send ``acc`` to group rank ``(i + offset) % n`` and return what rank
     ``(i - offset) % n`` sent (into ``recv`` when given): ``lax.ppermute``
-    with the pairs ``(i, (i + offset) % n)``."""
+    with the pairs ``(i, (i + offset) % n)``. With ``host``
+    (:func:`_host_pair`), ``acc`` is copied into its send buffer, the
+    exchange runs on the two host buffers and what arrived is copied into
+    ``recv``."""
     i = dist.get_rank(group)
     acc = acc.contiguous()
     recv = torch.empty_like(acc) if recv is None else recv
-    ops = [dist.P2POp(dist.isend, acc,
+    send, into = (acc, recv) if host is None else host
+    if host is not None:
+        send.copy_(acc)
+    ops = [dist.P2POp(dist.isend, send,
                       dist.get_global_rank(group, (i + offset) % n), group),
-           dist.P2POp(dist.irecv, recv,
+           dist.P2POp(dist.irecv, into,
                       dist.get_global_rank(group, (i - offset) % n), group)]
     for req in dist.batch_isend_irecv(ops):
         req.wait()
+    if host is not None:
+        recv.copy_(into)
     return recv
 
 
@@ -60,15 +87,16 @@ def tree_reduce_broadcast(x: torch.Tensor, group: ProcessGroup,
         return x
     rel = (dist.get_rank(group) - root) % axis_size
     acc = x
+    host = _host_pair(x) if _staged(x, group) else None
     R = _rounds(axis_size)
     for j in range(R):                      # reduce: sums climb to rel = 0
         stride = 1 << j
-        shifted = _shift(acc, group, axis_size, -stride)
+        shifted = _shift(acc, group, axis_size, -stride, host=host)
         if rel % (stride * 2) == 0 and rel + stride < axis_size:
             acc = acc + shifted
     for j in reversed(range(R)):            # broadcast: retrace in reverse
         stride = 1 << j
-        shifted = _shift(acc, group, axis_size, stride)
+        shifted = _shift(acc, group, axis_size, stride, host=host)
         if rel % (stride * 2) == stride and rel - stride >= 0:
             acc = shifted
     return acc
@@ -95,6 +123,16 @@ def multi_root_tree_allreduce(x: torch.Tensor, group: ProcessGroup,
     fuses into one buffer). The accumulator is ``x``'s own storage when
     ``inplace`` (the caller gives ``x`` up), else a copy.
     """
+    return _multi_root(x, group, axis_size, roots, inplace,
+                       staged=_staged(x, group))
+
+
+def _multi_root(x: torch.Tensor, group: ProcessGroup, axis_size: int,
+                roots: Sequence[int], inplace: bool = False,
+                staged: bool = False) -> torch.Tensor:
+    """:func:`multi_root_tree_allreduce`, each exchange through host
+    buffers (:func:`_host_pair`, one pair for every round) when
+    ``staged``."""
     if axis_size == 1:
         return x
     k = len(roots)
@@ -108,16 +146,17 @@ def multi_root_tree_allreduce(x: torch.Tensor, group: ProcessGroup,
     idx = dist.get_rank(group)
     rel = [(idx - r) % axis_size for r in roots]
     recv = torch.empty_like(acc)
+    host = _host_pair(acc) if staged else None
     R = _rounds(axis_size)
     for j in range(R):
         stride = 1 << j
-        _shift(acc, group, axis_size, -stride, recv)
+        _shift(acc, group, axis_size, -stride, recv, host)
         receives = _block_mask([r % (stride * 2) == 0 and r + stride
                                 < axis_size for r in rel], acc)
         torch.where(receives, recv.add_(acc), acc, out=acc)
     for j in reversed(range(R)):
         stride = 1 << j
-        _shift(acc, group, axis_size, stride, recv)
+        _shift(acc, group, axis_size, stride, recv, host)
         takes = _block_mask([r % (stride * 2) == stride and r - stride >= 0
                              for r in rel], acc)
         torch.where(takes, recv, acc, out=acc)

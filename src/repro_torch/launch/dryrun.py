@@ -116,7 +116,9 @@ How each part of the reference is carried over:
     every activation that meets it; a partial sum over a data axis that
     holds fewer elements than the result (the dense MoE route's routing
     weights against the experts' output) is reduced first, as torch 2.11
-    and GSPMD reduce it (2.13 reduces the product); under sequence
+    and GSPMD reduce it (2.13 reduces the product), and one divided by an
+    operand that mesh dim splits is reduce-scattered onto that split
+    first, as 2.11 does (2.13 gathers the divisor); under sequence
     parallelism DTensor's scatter onto the sequence split stands; an
     activation's backward (``silu_backward``, ``gelu_backward``) reduces
     a partial sum whole first (:func:`_partials_reduced`; 2.13 scatters it
@@ -130,7 +132,11 @@ How each part of the reference is carried over:
     sort gathers the sorted dim), ``index_copy_`` copies into each rank's
     share with the indices whole (:func:`_index_copy_layout`), the router's
     load count (``scatter_add_``) adds each rank's slots and reduces the sum
-    (:func:`_scatter_add_layout`); in the backward, a gather of rows adds
+    (:func:`_scatter_add_layout`); in the backward, the router's top-k
+    gradient is scattered into zeros split as the tokens, each rank its
+    own rows (:class:`_TopkBackwardLikeInput`, :func:`_scatter_by_rows`),
+    as GSPMD and torch 2.13 do (2.11 makes the zeros whole on every rank
+    and gathers the tokens' gradients into them), a gather of rows adds
     each rank's rows back (``index_add``, :func:`_index_add_layout`: torch
     2.11's rule meets the whole indices with the split rows) and
     ``index_copy_``'s zeroes the copied rows of each rank's share
@@ -306,6 +312,7 @@ from torch.distributed.device_mesh import DeviceMesh
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from torch.distributed.tensor.experimental import implicit_replication
 from torch._subclasses.fake_tensor import FakeTensor
+from torch.overrides import TorchFunctionMode
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils.flop_counter import flop_registry
 
@@ -1463,6 +1470,75 @@ def _scatter_into_split(dest, dim, index, src):
                               shape=dest.shape, stride=dest.stride())
 
 
+def _scatter_by_rows(dest, dim, index, src):
+    """``dest.scatter(dim, index, src)`` on DTensors that the mesh splits
+    alike, along dims other than ``dim`` and with the same extent there
+    (top-k's gradient into zeros split as the tokens, the router's
+    backward): each rank scatters its own rows, as GSPMD and torch 2.13
+    do. ``NotImplemented`` otherwise (DTensor's rule stands)."""
+    if not all(isinstance(t, DTensor) for t in (dest, index, src)):
+        return NotImplemented
+    d = dim % dest.ndim
+    split = [p for p in dest.placements if not p.is_replicate()]
+    if not split or not dest.placements == index.placements \
+            == src.placements or index.shape != src.shape \
+            or any(p.is_partial() or p.dim == d
+                   or index.shape[p.dim] != dest.shape[p.dim]
+                   for p in split):
+        return NotImplemented
+    local = torch.ops.aten.scatter.src(dest.to_local(), d, index.to_local(),
+                                       src.to_local())
+    return DTensor.from_local(local, dest.device_mesh, dest.placements,
+                              run_check=False, shape=dest.shape,
+                              stride=dest.stride())
+
+
+class _TopkGradientLikeInput(torch.autograd.Function):
+    """``torch.topk`` whose backward scatters the values' gradient into
+    ``grad.new_zeros`` of the input's shape, the op torch 2.13's top-k
+    backward starts from (:func:`_zeros_like_source` lays it out as the
+    gradient, split as the tokens); torch 2.11 starts from a factory's
+    ``zeros``, whole on every rank, and gathers the tokens' gradients into
+    it. The values are the same bits (top-k's indices are distinct within
+    a row, so each position is written once)."""
+
+    @staticmethod
+    def forward(ctx, x, k, dim, largest, sorted):
+        values, indices = torch.topk(x, k, dim, largest, sorted)
+        ctx.mark_non_differentiable(indices)
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(indices)
+        ctx.dim, ctx.shape = dim, x.shape
+        return values, indices
+
+    @staticmethod
+    def backward(ctx, grad, _):
+        indices, = ctx.saved_tensors
+        if grad is not None:
+            grad = grad.new_zeros(ctx.shape).scatter(ctx.dim, indices, grad)
+        return grad, None, None, None, None
+
+
+def _topk_args(input, k, dim=-1, largest=True, sorted=True):
+    return input, k, dim, largest, sorted
+
+
+class _TopkBackwardLikeInput(TorchFunctionMode):
+    """While the step traces, ``topk`` of a DTensor that autograd follows
+    takes :class:`_TopkGradientLikeInput`, so that both torch releases lay
+    its gradient out alike (the dense MoE route's router); every other
+    call is left as it is."""
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        if func in (torch.topk, torch.Tensor.topk) \
+                and isinstance(args[0], DTensor) and args[0].requires_grad \
+                and torch.is_grad_enabled():
+            return torch.return_types.topk(
+                _TopkGradientLikeInput.apply(*_topk_args(*args, **kwargs)))
+        return func(*args, **kwargs)
+
+
 def _argmax_layout(x, dim=None, keepdim=False):
     """``x.argmax(dim)`` on a DTensor. Where no mesh dim of more than one
     rank splits ``dim``, each rank's own (DTensor 2.11's handler gathers
@@ -1794,7 +1870,13 @@ def _reduce_partials(func):
     first where it holds fewer elements than the result (the dense MoE
     route's routing weights, (S k, 1), against the experts' (S k, d)
     output), as torch 2.11 and GSPMD reduce it; torch 2.13 keeps a product's
-    partial sum and reduces the result. Under sequence parallelism
+    partial sum and reduces the result. A division of a partial sum over a
+    data axis by an operand that mesh dim splits (in the router's backward,
+    the normalised routing weights' gradient by the denominators, split as
+    the tokens) reduce-scatters the partial sum onto that split first
+    (:func:`_split_like`), as torch 2.11 does and as GSPMD reduces it
+    before the division; 2.13 gathers the denominators and divides the
+    whole partial sum, which it scatters later. Under sequence parallelism
     DTensor's rule stands: it scatters the partial sum onto the sequence
     split, as Megatron's sequence parallelism does."""
     def layout(*args, **kwargs):
@@ -1806,10 +1888,12 @@ def _reduce_partials(func):
         names = mesh.mesh_dim_names or ()
         model = names.index(ctx.model_axis) if ctx.model_axis in names \
             else None
-        whole = {id(a): set() for a in dts}     # mesh dims to replicate
+        # {id: {mesh dim: placement}}: Replicate() to reduce whole, a
+        # Shard to reduce onto
+        to = {id(a): {} for a in dts}
         if model is not None and mesh.size(model) > 1:
             for i in _model_gathers(dts, model):
-                whole[i].add(model)
+                to[i][model] = Replicate()
         tensors = [a for a in args if isinstance(a, torch.Tensor)]
         out = torch.broadcast_shapes(*(a.shape for a in tensors))
         for m in range(mesh.ndim):
@@ -1819,17 +1903,36 @@ def _reduce_partials(func):
                 continue
             for a in part:
                 if a.numel() < out.numel():
-                    whole[id(a)].add(m)
-        if not any(whole.values()):
+                    to[id(a)][m] = Replicate()
+                elif func is torch.ops.aten.div.Tensor:
+                    onto = _split_like(a, dts, m)
+                    if onto is not None:
+                        to[id(a)][m] = onto
+        if not any(to.values()):
             return NotImplemented
         # detached, as in _gather_weight (DTensor 2.11 has no detach_ rule)
         args = [a.detach().redistribute(mesh, [
-            Replicate() if i in whole[id(a)] else p
-            for i, p in enumerate(a.placements)])
-                if isinstance(a, DTensor) and whole[id(a)] else a
+            to[id(a)].get(i, p) for i, p in enumerate(a.placements)])
+                if isinstance(a, DTensor) and to[id(a)] else a
                 for a in args]
         return func(*args, **kwargs)
     return layout
+
+
+def _split_like(a, dts, m: int) -> Optional[Shard]:
+    """The split of ``a`` (a partial sum over mesh dim ``m``) along the dim
+    that another operand of ``dts`` holds split over ``m`` at ``a``'s
+    extent (the dims aligned from the right, as they broadcast): the
+    placement a reduce-scatter of ``a`` onto that operand's split leaves;
+    ``None`` where no operand is so split."""
+    for b in dts:
+        p = b.placements[m]
+        if b is a or not p.is_shard():
+            continue
+        d = p.dim - b.ndim + a.ndim
+        if d >= 0 and b.shape[p.dim] == a.shape[d] > 1:
+            return Shard(d)
+    return None
 
 
 def _model_gathers(dts, m) -> set:
@@ -1865,6 +1968,7 @@ _LAYOUTS = {torch.ops.aten.mm.default: _gather_weight,
             torch.ops.aten.index_put.default: _embedding_grad,
             torch.ops.aten.new_zeros.default: _zeros_like_source,
             torch.ops.aten.scatter_add.default: _scatter_into_split,
+            torch.ops.aten.scatter.src: _scatter_by_rows,
             torch.ops.aten.expand.default: _expand_over_batch,
             torch.ops.aten.logsumexp.default: _split_logsumexp,
             torch.ops.aten._softmax.default: _split_softmax,
@@ -1911,7 +2015,8 @@ def account(fn, args: Tuple) -> Dict[str, Any]:
     tensors = _leaves(args)
     acct = Accountant(_fake_mode_of(tensors), tensors)
     with implicit_replication(), _views_reshard(), _alltoall_as_on_cuda(), \
-            _unpad_as_a_view(), _shape_inference_uncounted(acct), acct:
+            _unpad_as_a_view(), _shape_inference_uncounted(acct), \
+            _TopkBackwardLikeInput(), acct:
         held = {}       # each storage once, however many leaves share it
         for t in tensors:
             key = _storage_key(_local(t))

@@ -391,6 +391,57 @@ def _first_group(line):
     return [int(x) for x in m.group(1).split(",")] if m else None
 
 
+def _moe_lines(hlo, func):
+    """A function of a stack frame id: the line of ``func`` in the
+    reference's ``src/repro/models/moe.py`` that the frame or one of its
+    parents names, stripped (``None`` where none does)."""
+    files, locs, frames = (_section(hlo, n) for n in (
+        "FileNames", "FileLocations", "StackFrames"))
+    funcs = _section(hlo, "FunctionNames")
+    with open(os.path.join(ROOT, "src", "repro", "models", "moe.py")) as f:
+        source = f.read().splitlines()
+
+    def line_of(frame):
+        seen = set()
+        while frame not in seen:
+            seen.add(frame)
+            loc = locs[int(re.search(r"file_location_id=(\d+)",
+                                     frames[frame]).group(1))]
+            name = files[int(re.search(r"file_name_id=(\d+)", loc)
+                             .group(1))]
+            fn = funcs[int(re.search(r"function_name_id=(\d+)", loc)
+                           .group(1))]
+            if name.endswith('repro/models/moe.py"') and fn == f'"{func}"':
+                return source[int(re.search(r"line=(\d+)", loc)
+                                  .group(1)) - 1].strip()
+            frame = int(re.search(r"parent_frame_id=(\d+)",
+                                  frames[frame]).group(1))
+        return None
+    return line_of
+
+
+def _moe_ops(hlo, func, kinds):
+    """``[kind, arrays, line, group]`` of each instruction of ``kinds`` in
+    an optimized HLO module whose stack frames name ``func`` of the
+    reference's ``moe.py``: ``arrays`` its result's ``[dtype, dims]`` (each
+    element of a tuple), ``line`` the source line, ``group`` its first
+    replica group (``None`` where it names none)."""
+    line_of = _moe_lines(hlo, func)
+    out = []
+    for line in hlo.splitlines():
+        m = re.match(r"^\s*(?:ROOT )?%[\w.\-]+ = (.*?) ([a-z\-]+)\(", line)
+        frame = re.search(r"stack_frame_id=(\d+)", line)
+        if not m or frame is None or m.group(2) not in kinds:
+            continue
+        where = line_of(int(frame.group(1)))
+        if where is None:
+            continue
+        arrays = [[t, [int(x) for x in dims.split(",") if x]]
+                  for t, dims in ARRAY.findall(m.group(1))]
+        out.append([m.group(2), arrays, where, _first_group(line)])
+    return out
+
+
 def dense_combine(hlo):
     """The collectives of the reference's dense MoE route
     (``src/repro/models/moe.py``, ``_moe_dense``) in an optimized HLO
@@ -401,50 +452,31 @@ def dense_combine(hlo):
     group, ``source`` the line of ``_moe_dense`` its stack frames name,
     stripped (XLA gives a combined all-reduce the frames of its first
     operand)."""
-    files, locs, frames = (_section(hlo, n) for n in (
-        "FileNames", "FileLocations", "StackFrames"))
-    funcs = _section(hlo, "FunctionNames")
-    with open(os.path.join(ROOT, "src", "repro", "models", "moe.py")) as f:
-        source = f.read().splitlines()
-
-    def dense_line(frame):
-        seen = set()
-        while frame not in seen:
-            seen.add(frame)
-            loc = locs[int(re.search(r"file_location_id=(\d+)",
-                                     frames[frame]).group(1))]
-            name = files[int(re.search(r"file_name_id=(\d+)", loc)
-                             .group(1))]
-            func = funcs[int(re.search(r"function_name_id=(\d+)", loc)
-                             .group(1))]
-            if name.endswith('repro/models/moe.py"') \
-                    and func == '"_moe_dense"':
-                return source[int(re.search(r"line=(\d+)", loc)
-                                  .group(1)) - 1].strip()
-            frame = int(re.search(r"parent_frame_id=(\d+)",
-                                  frames[frame]).group(1))
-        return None
-
     out = []
-    for line in hlo.splitlines():
-        m = re.match(r"^\s*(?:ROOT )?%[\w.\-]+ = (.*?) ([a-z\-]+)\(", line)
-        frame = re.search(r"stack_frame_id=(\d+)", line)
-        if not m or frame is None or m.group(2) not in (
-                "all-reduce", "all-gather", "reduce-scatter", "all-to-all",
-                "collective-permute"):
-            continue
-        where = dense_line(int(frame.group(1)))
-        if where is None:
-            continue
-        group = _first_group(line) or [0]
+    for kind, arrays, where, group in _moe_ops(hlo, "_moe_dense", (
+            "all-reduce", "all-gather", "reduce-scatter", "all-to-all",
+            "collective-permute")):
+        group = group or [0]
         rows = {i // 16 for i in group}
         cols = {i % 16 for i in group}
         axis = "model" if len(rows) == 1 else "data" if len(cols) == 1 \
             else "both"
-        arrays = [[t, [int(x) for x in dims.split(",") if x]]
-                  for t, dims in ARRAY.findall(m.group(1))]
-        out.append([m.group(2), arrays, axis, where])
+        out.append([kind, arrays, axis, where])
     return out
+
+
+def router_layout(hlo):
+    """How the reference lays out its router's top-k gradient and the
+    normalisation of the routing weights (``_route``'s ``lax.top_k`` and
+    ``top_w / ...`` lines): ``[kind, dims]`` of each ``scatter`` (top-k's
+    gradient into zeros) and ``divide`` of those lines, in the module's
+    order, and the dims of every collective they issue."""
+    ops = _moe_ops(hlo, "_route", ("scatter", "divide", "all-reduce",
+                                   "all-gather", "reduce-scatter",
+                                   "all-to-all"))
+    lines = ("top_w, top_e = lax.top_k(", "top_w = top_w / ")
+    return [[kind, arrays[0][1]] for kind, arrays, where, _ in ops
+            if where.startswith(lines)]
 
 
 def new_caches(hlo):

@@ -13,8 +13,14 @@ Tolerances: float results within ``rtol = atol = 1e-5`` of JAX's (the
 reference test's); bfloat16 ones within one bf16 rounding; fixed-point
 results (the int32 sums and their dequantized values) bit for bit.
 
+The exchange staged through host buffers (``trees._shift`` with
+``host``: the path of gloo ranks whose tensors are on a card) is reached on
+CPU tensors through ``trees._multi_root(..., staged=True)``, at n = 8 and
+n = 3, and held to JAX's results and to the direct exchange bit for bit.
+
 ``test_one_rank_nccl_canary_fp_on_cuda`` runs the fixed-point sync in a
-one-rank NCCL group on the card and skips where there is none.
+one-rank NCCL group on the card, ``test_two_gloo_ranks_canary_fp_on_cuda``
+on two gloo ranks sharing it (staged); both skip where there is none.
 """
 import datetime
 import json
@@ -34,9 +40,10 @@ from repro_torch.core.collective import (CongestionOracle,
                                          multi_root_tree_allreduce,
                                          ring_allreduce, tree_link_load,
                                          tree_reduce_broadcast)
+from repro_torch.core.collective import trees
 from repro_torch.core.collective.api import fixed_point_scales
-from repro_torch.kernels import (fixed_point_scale, launch_counts, quantize,
-                                 reset_launch_counts)
+from repro_torch.kernels import (dequantize, fixed_point_scale, launch_counts,
+                                 quantize, reset_launch_counts)
 from repro_torch.kernels.ref import dequantize_ref, quantize_ref
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -149,6 +156,11 @@ res = run(m4, D1, lambda a, b: canary_allreduce_tree(
     {"a": a, "b": b.astype(bf16)}, axis_name="data", axis_size=4,
     fixed_point=True), x4, x4_37)
 out["n4_fp_a"], out["n4_fp_b"] = res["a"], res["b"]
+m3 = Mesh(devs[:3], ("data",))
+out["n3_fp"] = run(m3, D1, lambda v: canary_allreduce_tree(
+    v, axis_name="data", axis_size=3, fixed_point=True), inp["x3"])
+out["n3_fp_int"] = run(m3, D1, lambda v: fp_int(v, 3, tuple(
+    k % 3 for k in range(16))), inp["x3"])
 for i, (n, k, hot) in enumerate(C["ORACLE_CASES"]):
     for policy in ("round_robin", "balanced"):
         ext = np.where(np.arange(n) < 2, 1000.0, 0.0) if hot else None
@@ -186,7 +198,16 @@ CASES = {
     # in-place rounds, and canary_fp taking its gradients out of a dict
     "n4_multi_pad": (4, "float"), "n4_fp_int_pad": (4, "exact"),
     "n4_fp_a": (4, "exact"), "n4_fp_b": (4, "exact"),
+    # the exchange staged through host buffers (the path of gloo ranks
+    # sharing a card), reached on CPU tensors through trees._multi_root:
+    # the direct exchange's bits, at n = 8 and 3 (not a power of two)
+    "staged_fp_int_fwd": (N, "exact"), "staged_fp_fwd": (N, "exact"),
+    "n3_fp": (3, "exact"), "n3_fp_int": (3, "exact"),
+    "n3_staged_fp": (3, "exact"), "n3_staged_fp_int": (3, "exact"),
 }
+# each staged case and the JAX case it is held to, as its direct twin is
+STAGED = {"staged_fp_int_fwd": "fp_int_fwd", "staged_fp_fwd": "fp_fwd",
+          "n3_staged_fp_int": "n3_fp_int", "n3_staged_fp": "n3_fp"}
 
 
 def _inputs() -> dict:
@@ -194,12 +215,17 @@ def _inputs() -> dict:
     return {k: rng.standard_normal(s).astype(np.float32)
             for k, s in (("x", (N, 64)), ("x37", (N, 37)), ("xx", (N, 32)),
                          ("x6", (6, 64)), ("x6_37", (6, 37)),
-                         ("x4", (4, 64)), ("x4_37", (4, 37)))}
+                         ("x4", (4, 64)), ("x4_37", (4, 37)),
+                         ("x3", (3, 64)))}
 
 
-def _fp_int(v, group, n, roots):
+def _fp_int(v, group, n, roots, staged=False):
+    """The int32 sum of ``v``'s fixed-point blocks over ``group``, each
+    exchange through host buffers when ``staged``; and the scale."""
     scale, = fixed_point_scales(v, [group], bits=24, world=n)
-    return multi_root_tree_allreduce(quantize(v, scale), group, n, roots)
+    q = trees._multi_root(quantize(v, scale), group, n, roots,
+                          staged=staged)
+    return q, scale
 
 
 def _port_rank(rank: int, init_file: str, in_path: str, out_dir: str):
@@ -213,6 +239,7 @@ def _port_rank(rank: int, init_file: str, in_path: str, out_dir: str):
         mesh24 = make_mesh(outer_size=2)           # every rank, same order
         g6 = dist.new_group(list(range(6)))
         g4 = dist.new_group(list(range(4)))
+        g3 = dist.new_group(list(range(3)))
         W = dist.group.WORLD
         inp = np.load(in_path)
 
@@ -237,10 +264,13 @@ def _port_rank(rank: int, init_file: str, in_path: str, out_dir: str):
         for tag, roots in FP_ROOTS.items():
             out[f"fp_{tag}"] = canary_allreduce_tree(
                 x, group=W, axis_size=N, roots=roots, fixed_point=True)
-            out[f"fp_int_{tag}"] = _fp_int(x, W, N, roots)
+            out[f"fp_int_{tag}"] = _fp_int(x, W, N, roots)[0]
+        q, scale = _fp_int(x, W, N, FP_ROOTS["fwd"], staged=True)
+        out["staged_fp_int_fwd"] = q
+        out["staged_fp_fwd"] = dequantize(q, scale)
         out["fp_bf16"] = canary_allreduce_tree(bf, group=W, axis_size=N,
                                                fixed_point=True)
-        out["fp_int_bf16"] = _fp_int(bf, W, N, list(range(N)))
+        out["fp_int_bf16"] = _fp_int(bf, W, N, list(range(N)))[0]
         out["hier"] = hierarchical_allreduce(xx, mesh24.inner, mesh24.outer)
         for mode in MODES:
             res = canary_allreduce_tree(
@@ -260,18 +290,27 @@ def _port_rank(rank: int, init_file: str, in_path: str, out_dir: str):
             out["n6_ring"] = ring_allreduce(x6_37, g6)
             out["n6_fp"] = canary_allreduce_tree(x6, group=g6, axis_size=6,
                                                  fixed_point=True)
-            out["n6_fp_int"] = _fp_int(x6, g6, 6, [k % 6 for k in range(16)])
+            out["n6_fp_int"] = _fp_int(x6, g6, 6,
+                                       [k % 6 for k in range(16)])[0]
         if rank < 4:
             x4, x4_37 = row("x4"), row("x4_37")
             out["n4_multi_pad"] = multi_root_tree_allreduce(x4_37, g4, 4,
                                                             PAD_ROOTS)
             out["n4_fp_int_pad"] = _fp_int(x4_37, g4, 4,
-                                           [k % 4 for k in range(16)])
+                                           [k % 4 for k in range(16)])[0]
             given = {"a": x4.clone(), "b": x4_37.to(torch.bfloat16)}
             res = canary_allreduce_tree(given, group=g4, axis_size=4,
                                         fixed_point=True)
             assert not given and x4_37.equal(row("x4_37"))
             out["n4_fp_a"], out["n4_fp_b"] = res["a"], res["b"]
+        if rank < 3:
+            x3, roots3 = row("x3"), [k % 3 for k in range(16)]
+            out["n3_fp"] = canary_allreduce_tree(x3, group=g3, axis_size=3,
+                                                 fixed_point=True)
+            out["n3_fp_int"] = _fp_int(x3, g3, 3, roots3)[0]
+            q, scale = _fp_int(x3, g3, 3, roots3, staged=True)
+            out["n3_staged_fp_int"] = q
+            out["n3_staged_fp"] = dequantize(q, scale)
         np.savez(os.path.join(out_dir, f"rank{rank}.npz"),
                  **{k: v.float().numpy() if v.dtype == torch.bfloat16
                     else v.numpy() for k, v in out.items()})
@@ -310,7 +349,7 @@ def results(tmp_path_factory):
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_collective_matches_jax(results, case):
     jax_out, port = results
-    want, got = jax_out[case], port[case]
+    want, got = jax_out[STAGED.get(case, case)], port[case]
     kind = CASES[case][1]
     assert got.shape == want.shape and got.dtype == want.dtype, \
         (got.shape, got.dtype, want.shape, want.dtype)
@@ -334,6 +373,14 @@ def test_collective_is_the_sum(results, case):
     tol = 1e-3 if case.endswith("fp") else 1e-5
     want = np.broadcast_to(x.sum(0, keepdims=True), x.shape)
     np.testing.assert_allclose(port[case], want, rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("case", sorted(STAGED))
+def test_staged_exchange_is_the_direct_one(results, case):
+    """The exchange staged through host buffers gives the direct
+    exchange's bits (both also held to JAX above)."""
+    _, port = results
+    np.testing.assert_array_equal(port[case], port[STAGED[case]])
 
 
 def test_fixed_point_equal_across_roots(results):
@@ -422,3 +469,67 @@ def test_one_rank_nccl_canary_fp_on_cuda(tmp_path):
             assert torch.equal(synced[k], want), k
     finally:
         dist.destroy_process_group()
+
+
+CUDA_SHAPES = {"tok": ((4096, 2048), torch.bfloat16),
+               "odd": ((3, 5, 7), torch.bfloat16),
+               "f32": ((1000,), torch.float32)}
+
+
+def _cuda_grads(rank):
+    """Rank ``rank``'s gradients of :data:`CUDA_SHAPES`, drawn on the CPU."""
+    gen = torch.Generator().manual_seed(rank)
+    return {k: (torch.randn(s, generator=gen) * 1e-3).to(dtype)
+            for k, (s, dtype) in CUDA_SHAPES.items()}
+
+
+def _cuda_gloo_rank(rank, init_file, out_dir):
+    """One of two gloo ranks sharing the card: ``canary_fp`` of its
+    gradients on the card, the launches and exchanges counted."""
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{init_file}",
+                            world_size=2, rank=rank,
+                            timeout=datetime.timedelta(seconds=120))
+    try:
+        real, calls = dist.batch_isend_irecv, []
+
+        def counting(ops):
+            calls.append(len(ops))
+            return real(ops)
+        dist.batch_isend_irecv = counting
+        grads = {k: v.cuda() for k, v in _cuda_grads(rank).items()}
+        reset_launch_counts()
+        synced = canary_allreduce_tree(grads, group=dist.group.WORLD,
+                                       axis_size=2, fixed_point=True)
+        torch.save(dict(synced={k: v.cpu() for k, v in synced.items()},
+                        counts=launch_counts(), exchanges=len(calls)),
+                   os.path.join(out_dir, f"cuda{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+def test_two_gloo_ranks_canary_fp_on_cuda(tmp_path):
+    """canary_fp over two gloo ranks that share the card (each exchange
+    staged through host buffers): both ranks hold, bit for bit, the plain
+    versions' fixed-point sum of the two ranks' gradients, with each
+    tensor's scale from the max over both; quantize and dequantize once a
+    tensor a rank, two exchanges a tensor."""
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA card")
+    mp.spawn(_cuda_gloo_rank, args=(str(tmp_path / "rdv"), str(tmp_path)),
+             nprocs=2, join=True)
+    inputs = [_cuda_grads(r) for r in range(2)]
+    for r in range(2):
+        got = torch.load(tmp_path / f"cuda{r}.pt")
+        assert got["counts"]["quantize"] == got["counts"]["dequantize"] \
+            == len(CUDA_SHAPES)
+        assert got["exchanges"] == 2 * len(CUDA_SHAPES)
+        for k in CUDA_SHAPES:
+            xs = [x[k] for x in inputs]
+            s = fixed_point_scale(torch.stack([x.abs().max().float()
+                                               for x in xs]).max(),
+                                  bits=24, world=2)
+            q = (quantize_ref(xs[0], s) + quantize_ref(xs[1], s))
+            want = dequantize_ref(q, s).to(xs[0].dtype)
+            assert torch.equal(got["synced"][k], want), (r, k)

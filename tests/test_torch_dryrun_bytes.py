@@ -266,3 +266,59 @@ def test_one_rank_dense_moe_step_unchanged(monkeypatch):
                torch.ops.aten.pow.Tensor_Scalar):
         monkeypatch.delitem(D._LAYOUTS, op)
     assert run() == with_layouts
+
+
+def test_partial_divided_onto_the_divisor_split(per_op):
+    """The router's normalisation in the backward: the routing weights'
+    gradient, (512, 4) and a partial sum over the data axis, divided by
+    the denominators, (512, 1) split as the tokens over it: one
+    reduce-scatter of the gradient onto the tokens' split, then a
+    division of each rank's 256 rows (torch 2.13 gathers the
+    denominators and divides the whole partial sum)."""
+    accessed, calls = per_op
+    out = []
+    got = _on_data_model(lambda g, b: g / b,
+                         ((512, 4), [Partial(), Replicate()]),
+                         ((256, 1), [Shard(0), Replicate()]), out=out)
+    assert got["collective_counts"] == {"reduce-scatter": 1}
+    assert got["collective_bytes"] == {"reduce-scatter": 256 * 4 * 4}
+    assert out == [((512, 4), [Shard(0), Replicate()], (256, 4))]
+    assert calls["aten.div.Tensor"] == 1
+    assert accessed["aten.div.Tensor"] == 4 * (2 * 256 * 4 + 256)
+
+
+def test_router_backward_by_rows(per_op, monkeypatch):
+    """qwen2-moe smoke's small train step by the dense route (2 layers, 4
+    experts, top-2; 8 sequences of 64 tokens) on the (2, 2) mesh, as the
+    production row runs its 60 experts: top-k's gradient is
+    scattered into zeros split as the tokens, 256 rows a data rank, once a
+    layer, through the dry run's own top-k (no whole (512, 4) zeros
+    receives the tokens' gradients), and every division of a routing
+    weight's gradient runs on a data rank's 256 rows."""
+    shapes = {op: [] for op in ("aten.scatter.src", "aten.zeros.default",
+                                "aten.new_zeros.default", "aten.div.Tensor")}
+    count = D.Accountant._count
+
+    def spy(self, func, args, kwargs, out):
+        if str(func) in shapes:
+            shapes[str(func)].append(tuple(out.shape))
+        count(self, func, args, kwargs, out)
+    monkeypatch.setattr(D.Accountant, "_count", spy)
+    backward = D._TopkGradientLikeInput.backward
+    used = []
+
+    def counted(ctx, *grads):
+        used.append(ctx.shape)
+        return backward(ctx, *grads)
+    monkeypatch.setattr(D._TopkGradientLikeInput, "backward",
+                        staticmethod(counted))
+    cfg = get_config("qwen2-moe-a2.7b", "smoke").with_(moe_impl="dense")
+    _account((2, 2), dict(kind="train", seq_len=S, global_batch=B), cfg,
+             arch="qwen2-moe-a2.7b")
+    tokens, e, k = B * S, cfg.moe_experts, cfg.moe_top_k
+    assert used == [torch.Size((tokens, e))] * cfg.num_layers
+    assert shapes["aten.scatter.src"] == [(tokens // 2, e)] * cfg.num_layers
+    assert (tokens // 2, e) in shapes["aten.new_zeros.default"]
+    assert (tokens, e) not in shapes["aten.zeros.default"]
+    weights = [s for s in shapes["aten.div.Tensor"] if s[-1:] == (k,)]
+    assert weights and all(s == (tokens // 2, k) for s in weights), weights

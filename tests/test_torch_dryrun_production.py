@@ -81,7 +81,8 @@ import json, sys
 import repro.launch.dryrun as R
 import jax
 from dryrun_reference import (accessed, bf16_dots, collectives, costs,
-                              dense_combine, link_bytes, new_caches)
+                              dense_combine, link_bytes, new_caches,
+                              router_layout)
 from repro.launch.analysis import INPUT_SHAPES
 from repro.launch.mesh import make_production_mesh, mesh_axes
 from repro.models import get_config
@@ -118,7 +119,8 @@ for key, (arch, shape, m, grad_sync, sp, moe_impl) in json.loads(sys.argv[1]):
                accessed=acc, bf16_dots=bf16_dots(hlo),
                loops=hlo.count(" while("),
                once=accessed(hlo, once=True)["all"],
-               cost_analysis=c.cost_analysis()["bytes accessed"])
+               cost_analysis=c.cost_analysis()["bytes accessed"],
+               router=router_layout(hlo))
     if sp:      # the attention's scans, and as compiled without sp
         for name, text in (("loop", hlo), ("plain_loop", probe(False)[0])):
             f, b, a = costs(text, loops=True)
@@ -300,6 +302,16 @@ def hold(reference, c, finding=None):
     link bytes count those gathers). Asserted, not held: the port's count
     stands as it is.
 
+    ``finding["router"]`` (the dense MoE route's training step): the
+    reference's router as GSPMD lays it out
+    (``dryrun_reference.router_layout``), asserted equal to the finding's:
+    top-k's gradient scattered into zeros of one data rank's tokens, and
+    every division of the routing weights' normalisation on one data
+    rank's tokens, the gradient reduced before it is divided; the port's
+    ``_TopkBackwardLikeInput``, ``_scatter_by_rows`` and ``_split_like``
+    lay both out so (its forward gathers the probabilities whole for
+    top-k, which the port does not). Asserted, not held.
+
     ``finding["float32"]``: the reference's CPU compile runs the bf16
     model's products, and the values around them, in float32, and
     converts between the two; this asserts that no dot of the probe reads
@@ -314,6 +326,10 @@ def hold(reference, c, finding=None):
         print(f"{case_id(c)}: the reference's dense route combines by "
               f"{want['dense_combine']}", flush=True)
         assert want["dense_combine"] == finding["dense_combine"]
+    if "router" in finding:
+        print(f"{case_id(c)}: the reference's router lays out "
+              f"{want['router']}", flush=True)
+        assert want["router"] == finding["router"]
     got_temp, got_link = got["memory"]["temp_bytes"], \
         got["collective_link_bytes"]
     if seq_parallel:
@@ -403,6 +419,14 @@ FINDINGS = {case(a, s): {"float32": True} for a, s in (
     ("llama3.2-1b", "train_4k"), ("qwen2-7b", "train_4k"),
     ("qwen2-moe-a2.7b", "train_4k"), ("qwen2-moe-a2.7b", "prefill_32k"),
     ("mamba2-130m", "prefill_32k"))}
+# the reference's router on (16, 16), one data rank's 65536 tokens of 60
+# experts, top-4: the normalisation's divisions (forward, then the
+# gradients of the denominators and of the weights), top-k's gradient, and
+# the forward's gather of the probabilities for its top-k
+FINDINGS[case("qwen2-moe-a2.7b", "train_4k")]["router"] = [
+    ["divide", [65536, 4]], ["divide", [65536, 1]], ["divide", [65536, 1]],
+    ["divide", [65536, 4]], ["scatter", [65536, 60]],
+    ["all-gather", [1048576, 60]]]
 reference, test_production_period_against_reference = period_tests(
     CASES, FINDINGS)
 

@@ -770,3 +770,24 @@ def test_launch_train_canary_fp_on_2_cpu_ranks(tmp_path):
     assert "2 data-parallel ranks on cpu" in proc.stdout
     hist = json.loads(out.read_text())
     assert len(hist) == 3 and all(np.isfinite(h["loss"]) for h in hist)
+
+
+@pytest.mark.parametrize("data,model,cards", [(2, 1, 1), (1, 4, 2)])
+def test_launch_train_refuses_more_ranks_than_cards(data, model, cards,
+                                                    monkeypatch):
+    """``--device cuda`` with more ranks than the machine has cards raises,
+    naming both numbers, before any rank is spawned (a rank would die in
+    ``torch.cuda.set_device``); the count is patched, so no card is
+    needed."""
+    from repro_torch.launch import train as lt
+
+    def spawned(*a, **k):
+        raise AssertionError("a rank was spawned")
+    monkeypatch.setattr(lt, "resolve_device", torch.device)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: cards)
+    monkeypatch.setattr(lt.mp, "spawn", spawned)
+    world = data * model
+    with pytest.raises(ValueError, match=rf"^{world} ranks .* need {world} "
+                                         rf"cards, this machine has {cards}$"):
+        lt.main(["--arch", ARCH, "--device", "cuda", "--data-parallel",
+                 str(data), "--model-parallel", str(model)])
