@@ -14,16 +14,19 @@ printed:
 3. kernels  — each kernel against its plain PyTorch version on the card, at
               the main path's shapes and at ragged ones (the gathered
               segment-sum on a synthetic plan of fan-in 1 to 128 at the
-              replay's width; flash attention: the llama3.2-1b, qwen2-7b
-              and qwen2-moe-a2.7b (MHA) prefill head layouts, each also
-              read through the
+              replay's width; flash attention: the llama3.2-1b, qwen2-7b,
+              qwen2-moe-a2.7b (MHA), glm4-9b (32 / 2), qwen2-vl-2b (12 / 2)
+              and nemotron-4-340b (96 / 8 of head_dim 192) prefill head
+              layouts at 4096 tokens and qwen2-7b's window of 4096 at 8192,
+              each also read through the
               strides of a (B, S, H, D) transpose as the prefill hands it
               over, S = 1, 65 and 1000, non-causal, windows of 512 and
               300, head_dim 128 non-causal and with a window of 200 in
               bf16, head_dim 192 in both dtypes; peaked softmax, each
               element and each row held to its tolerance), and the same
               bits twice; the flash backward (three kernels) on the same
-              cases against its plain version (each row of dq, dk and dv
+              cases but phase 4l's layouts (held forward only) against its
+              plain version (each row of dq, dk and dv
               held to its tolerance) and at the training shape (1, 8192,
               32 / 8, 64) against autograd of float32 full attention (at
               most twice the plain backward's distance plus 1e-2), and the
@@ -79,6 +82,28 @@ printed:
               random weights the Mamba-2 models in bf16 are not: reported);
               parameters, init wall, prefill wall cold and warm, decode
               tok/s, peak memory;
+4l. zoo     — (run after phase 5's profiles: with it before them the
+              profiler recorded none of phase 5's flash backward launches)
+              qwen2-7b, glm4-9b and qwen2-vl-2b at their published depth
+              and width, deepseek-moe-16b (64 experts top-6, 2 shared) too,
+              and nemotron-4-340b cut to 2 of its 96 layers, every width
+              kept, each served as 4g serves its models and freed before
+              the next: its parameter count the reference's
+              (``ZOO_PARAMS``), a (1, 4096) prefill (qwen2-vl: 256 seeded
+              patch embeddings in front of 3840 tokens) launching the flash
+              kernel once a layer and nothing else, the same bits twice,
+              held against plain attention, decode, then float32 (for
+              deepseek at 14 layers and nemotron at 1: their float32
+              weights would not fit beside a prefill); then qwen2-7b's
+              sliding-window variant (window 4096): ``Engine.generate``
+              for 8 prompts of 8192 tokens through the cache-filling
+              prefill (28 flash launches with the window) and 32 decode
+              steps through the ring of 4096 slots, its teacher-forced
+              prefill and decode held against one windowed forward over
+              prompt + answer on the plain route; and ``python
+              -m repro_torch.launch.serve --arch qwen2-7b --variant full
+              --sliding-window 4096`` in its own process, which must print
+              its ``generated`` line;
 4d. train   — llama3.2-1b at full width trained by the port's ``Trainer``
               at its published context (B = 1, S = 8192, the chunked
               attention route: the flash forward twice a layer under remat
@@ -123,7 +148,10 @@ printed:
 5. timing   — CUDA events over warm launches: each kernel beside its bound,
               its plain version and one PyTorch call for the same function
               (the gathered segment-sum: the levels of one replay summed;
-              the standalone one also at a few shapes off the paths; the
+              the standalone one also at a few shapes off the paths; flash
+              attention also at the qwen2-7b, glm4-9b, qwen2-vl-2b and
+              nemotron-4-340b heads and qwen2-7b's window, beside SDPA with
+              the window as a boolean mask; the
               flash backward at the training shape beside the backward of
               ``scaled_dot_product_attention``, each of its three kernels
               beside its own bound, and the forward with and without its
@@ -301,6 +329,22 @@ FLASH_CASES = [
      2e-2, "bhsd"),
     ("qwen2-moe heads (MHA), (B, S, H, D) transposed", 1, 16, 16, 4096, 128,
      torch.bfloat16, True, 0, 2e-2, "bshd"),
+    ("glm4-9b heads", 1, 32, 2, 4096, 128, torch.bfloat16, True, 0, 2e-2,
+     "bhsd"),
+    ("glm4-9b heads, (B, S, H, D) transposed", 1, 32, 2, 4096, 128,
+     torch.bfloat16, True, 0, 2e-2, "bshd"),
+    ("qwen2-vl-2b heads", 1, 12, 2, 4096, 128, torch.bfloat16, True, 0, 2e-2,
+     "bhsd"),
+    ("qwen2-vl-2b heads, (B, S, H, D) transposed", 1, 12, 2, 4096, 128,
+     torch.bfloat16, True, 0, 2e-2, "bshd"),
+    ("nemotron-4-340b heads", 1, 96, 8, 4096, 192, torch.bfloat16, True, 0,
+     2e-2, "bhsd"),
+    ("nemotron-4-340b heads, (B, S, H, D) transposed", 1, 96, 8, 4096, 192,
+     torch.bfloat16, True, 0, 2e-2, "bshd"),
+    ("qwen2-7b window 4096", 1, 28, 4, 8192, 128, torch.bfloat16, True, 4096,
+     2e-2, "bhsd"),
+    ("qwen2-7b window 4096, (B, S, H, D) transposed", 1, 28, 4, 8192, 128,
+     torch.bfloat16, True, 4096, 2e-2, "bshd"),
     ("ragged S", 2, 4, 2, 1000, 64, torch.float32, True, 0, 2e-5, "bhsd"),
     ("ragged S, bf16", 2, 4, 2, 1000, 64, torch.bfloat16, True, 0, 2e-2,
      "bhsd"),
@@ -321,11 +365,17 @@ FLASH_CASES = [
      "bhsd"),
 ]
 # timed in phase 5: the llama3.2-1b prefill (the summary's row), through
-# its transpose, and the head_dim 128 layouts of qwen2-7b and qwen2-moe
+# its transpose, the head_dim 128 layouts of qwen2-7b and qwen2-moe, and
+# phase 4l's (the summary's "layouts")
 MHA_CASE = "qwen2-moe heads (MHA)"
+# phase 4l's layouts are held forward only: phase 3's backward
+# takes the other 17 cases
+FORWARD_ONLY = ("glm4-9b heads", "qwen2-vl-2b heads", "nemotron-4-340b heads",
+                "qwen2-7b window 4096")
+ZOO_FLASH = ("qwen2-7b heads",) + FORWARD_ONLY
 TIMED_FLASH = ("llama3.2-1b prefill",
                "llama3.2-1b prefill, (B, S, H, D) transposed",
-               "qwen2-7b heads", MHA_CASE)
+               MHA_CASE) + ZOO_FLASH
 # q and k are drawn at QK_SCALE and v at 1: the logits q.k/sqrt(D) then
 # spread by QK_SCALE**2 = 4, the softmax is peaked and every output row is
 # O(|v|). (At 0.5 the softmax is near uniform, late rows of a 4096-token
@@ -358,6 +408,37 @@ MAX_DLOGIT, MIN_ARGMAX_AGREE = 0.25, 0.90
 # Mamba-2, 4 MoE; ~13 B parameters), every width kept
 MOE_SSM_MODELS = (("qwen2-moe-a2.7b", None), ("mamba2-130m", None),
                   ("jamba-v0.1-52b", 8))
+# phase 4l: the zoo's other five decoders, (arch, layers kept or None for
+# the published depth, layers the float32 checks keep or None for the
+# same). Nemotron-4-340B's 96 layers are ~341 B parameters: cut to 2, every
+# width kept (16.3 B, 32.7 GB in bf16; one layer is 3.45 B and the untied
+# embedding and head 9.44 B). In float32 the weights are turned in place,
+# and where that would not fit beside a prefill the float32 checks run at a
+# further-cut depth: deepseek-moe-16b's 28 layers are 67.5 GB in float32
+# (14 layers, 34.6 GB), nemotron's 2 are 65.4 GB (1 layer, 51.6 GB, beside
+# its plain route's 6.4 GB of (1, 96, 4096, 4096) float32 logits)
+ZOO_MODELS = (("qwen2-7b", None, None), ("glm4-9b", None, None),
+              ("qwen2-vl-2b", None, None), ("deepseek-moe-16b", None, 14),
+              ("nemotron-4-340b", 2, 1))
+# phase 4l's sliding window: qwen2-7b's long_context_variant(WINDOW) (the
+# reference's launch/serve.py --sliding-window) served WINDOW_BATCH
+# sequences of a 2 * WINDOW-token prompt, through the cache-filling prefill
+# and then decode steps through the ring of WINDOW slots, which wraps.
+# WINDOW_BATCH is what the card holds beside the 15.2 GB of weights: the
+# teacher-forced prefill's logits, kept for the check, are 2.49 GB a
+# sequence, and the plain route's check forward over 8224 tokens holds
+# ~19 GB of (1, 28, 8224, 8224) logits in bf16 and float32 besides
+WINDOW_ARCH, WINDOW, WINDOW_BATCH = "qwen2-7b", 4096, 8
+LAUNCHER_S = 300                 # the launcher's process, start to end
+# the reference's init_params count at each (arch, depth) phase 4l runs
+# (tests/test_torch_zoo_layouts.py holds them to jax.eval_shape)
+ZOO_PARAMS = {("qwen2-7b", 28): 7_615_616_512,
+              ("glm4-9b", 40): 9_399_767_040,
+              ("qwen2-vl-2b", 28): 1_777_088_000,
+              ("deepseek-moe-16b", 28): 16_879_568_896,
+              ("deepseek-moe-16b", 14): 8_649_500_672,
+              ("nemotron-4-340b", 2): 16_345_294_848,
+              ("nemotron-4-340b", 1): 12_891_248_640}
 # a routing choice that differs between two bf16 routes must be a near tie:
 # its gap at the k-th choice within twice the probabilities' difference
 FLIP_MARGIN_RATIO = 2.0
@@ -570,11 +651,18 @@ def random_qkv(gen, B, H, KV, S, D, dtype, layout="bhsd"):
     return out
 
 
-def logit_agreement(a: torch.Tensor, b: torch.Tensor):
-    """Largest |a - b| and the share of positions whose argmax agrees."""
-    d = float((a.float() - b.float()).abs().max())
-    agree = float((a.argmax(-1) == b.argmax(-1)).float().mean())
-    return d, agree
+def logit_agreement(a: torch.Tensor, b: torch.Tensor, rows: int = 1024):
+    """Largest |a - b| and the share of positions whose argmax agrees,
+    ``rows`` positions at a time (a float32 copy of a (4096, 256000) prefill
+    is 4.2 GB); ``a`` may wait on the host, a chunk at a time going to
+    ``b``'s device."""
+    a, b = a.reshape(-1, a.shape[-1]), b.reshape(-1, b.shape[-1])
+    d, agree = 0.0, 0
+    for i in range(0, a.shape[0], rows):
+        x, y = a[i:i + rows].to(b.device), b[i:i + rows]
+        d = max(d, float((x.float() - y.float()).abs().max()))
+        agree += int((x.argmax(-1) == y.argmax(-1)).sum())
+    return d, agree / a.shape[0]
 
 
 def device_time_by_kernel(fn):
@@ -828,6 +916,8 @@ def phase_flash_bwd_kernel() -> float:
     worst = 0.0
     for (name, B, H, KV, S, D, dtype, causal, window, _,
          layout) in FLASH_CASES:
+        if name.startswith(FORWARD_ONLY):
+            continue
         q, k, v = random_qkv(gen, B, H, KV, S, D, dtype, layout)
         g = torch.randn(q.shape, generator=gen, device=DEV).to(dtype)
         out, lse = _forward(q, k, v, causal, window, with_lse=True)
@@ -1231,16 +1321,11 @@ def phase_model(rows: dict, seed: int):
           f"generated tokens {tokens.dtype} {tuple(tokens.shape)}")
     check(engine.cache["pos"] == PROMPT_LEN + NEW_TOKENS - 1,
           f"cache pos {engine.cache['pos']}")
-    # decode consistency: teacher-force prompt + answer through decode on a
-    # fresh cache, against one forward over the same 48 tokens
+    # decode consistency: teacher-force prompt + answer on a fresh cache as
+    # generate runs them, against one forward over the same 48 tokens
     seq = torch.cat([prompts, tokens], dim=1)
     replay = Engine(sc, params=engine.params, device=DEV)
-    steps = []
-    for t in range(seq.shape[1]):
-        _, lg, replay.cache = replay.step_fn(replay.params, replay.cache,
-                                             seq[:, t:t + 1])
-        steps.append(lg[:, 0])
-    dec = torch.stack(steps, dim=1)
+    dec = teacher_forced(replay, seq, PROMPT_LEN)
     check(torch.isfinite(dec).all(), "decode logits not finite")
     greedy = dec[:, PROMPT_LEN - 1:-1].argmax(-1).to(torch.int32)
     check(torch.equal(greedy, tokens),
@@ -1249,7 +1334,8 @@ def phase_model(rows: dict, seed: int):
     d2, agree2 = logit_agreement(dec, fwd)
     print(f"decode: {DECODE_BATCH} requests x {NEW_TOKENS} tokens "
           f"(prompts of {PROMPT_LEN}, max_len {MAX_LEN}), launches {dcounts},"
-          f" prefill-by-steps {stats['prefill_s'] * 1e3:.1f} ms, decode "
+          f" prefill {stats['prefill_s'] * 1e3:.1f} ms ("
+          f"{prefill_route(engine)}), decode "
           f"{stats['decode_s'] * 1e3:.1f} ms = "
           f"{stats['decode_tok_per_s']:.1f} tok/s; forward over the "
           f"{seq.shape[1]} tokens against the decode logits: max |dlogit| "
@@ -1360,6 +1446,31 @@ def decode_routes_as_forward(step_calls, n_moe: int, batch: int) -> list:
     return out
 
 
+def teacher_forced(replay, seq: torch.Tensor, prompt_len: int
+                   ) -> torch.Tensor:
+    """The logits of every position of ``seq`` on ``replay``'s fresh cache,
+    filled as ``Engine.generate`` fills it: the first ``prompt_len`` tokens
+    in one forward that writes the cache where the engine prefills so
+    (``prefills_in_one_forward``), else a decode step a token, and the rest
+    a decode step a token. Generate's tokens are the argmax of these
+    logits bit for bit."""
+    steps, start = [], 0
+    if replay.prefills_in_one_forward:
+        pre, _ = replay.prefill_fn(replay.params, seq[:, :prompt_len],
+                                   {"cache": replay.cache})
+        steps, start = list(pre.unbind(1)), prompt_len
+    for t in range(start, seq.shape[1]):
+        _, lg, replay.cache = replay.step_fn(replay.params, replay.cache,
+                                             seq[:, t:t + 1])
+        steps.append(lg[:, 0])
+    return torch.stack(steps, dim=1)
+
+
+def prefill_route(engine) -> str:
+    return ("one forward filling the cache"
+            if engine.prefills_in_one_forward else "a decode step a token")
+
+
 def held_beside(what: str, a, b, ref=None) -> str:
     """Hold ``a`` against ``b`` at phase 4b's bounds, unconditionally or,
     given ``ref`` (the ``(max |dlogit|, argmax agreement)`` of a plain bf16
@@ -1398,10 +1509,14 @@ def profile_split(fn) -> dict:
     flash kernel, the matrix products outside the router and SSD, the MoE
     router, the MoE dispatch and combine (sort, search, scatter, gather and
     the weighted sum; ``_moe_dense`` less the router and the expert
-    products), SSD (``ssd_chunked``) and the rest, and the wall."""
+    products), SSD (``ssd_chunked``) and the rest, and the wall; also the
+    flash launches the trace holds beside those its wrapper counted in the
+    call (the profiler has dropped records after a served model: a trace
+    that holds fewer gives a split that is not verified)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
 
+    from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.models import mamba2, moe
     names = {"moe._route": (moe, "_route"),
              "moe._expert_ffn": (moe, "_expert_ffn"),
@@ -1418,9 +1533,11 @@ def profile_split(fn) -> dict:
         setattr(m, n, ranged(label, saved[label]))
     try:
         torch.cuda.synchronize()
+        reset_launch_counts()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             wall, _ = sync_wall(fn)
+        counted = launch_counts()["flash_attention"]
     finally:
         for label, (m, n) in names.items():
             setattr(m, n, saved[label])
@@ -1445,6 +1562,7 @@ def profile_split(fn) -> dict:
         flash=sum(e.time_range.elapsed_us() for e in device
                   if "flash_attention" in e.name),
         flash_launches=sum("flash_attention" in e.name for e in device),
+        flash_counted=counted,
         products=sum(e.time_range.elapsed_us() for e in device
                      if _is_product(e.name)) - prod_in,
         moe_router=tot["moe._route"],
@@ -1457,8 +1575,9 @@ def profile_split(fn) -> dict:
     return out
 
 
-def serve_moe_ssm(arch: str, layers, seed: int) -> int:
-    """One configuration at full width on the serving engine.
+def serve_model(arch: str, layers, seed: int, f32_layers=None) -> int:
+    """One configuration at full width on the serving engine (phases 4g
+    and 4l).
 
     Returns the flash launches of its counted prefill.
 
@@ -1474,7 +1593,18 @@ def serve_moe_ssm(arch: str, layers, seed: int) -> int:
     routing through both attention routes, and the replayed steps decoded
     again against a dropless forward on their routing, each pair within
     ``F32_MAX_DLOGIT``; the bf16 decode and prefill against the float32
-    ones as :func:`held_beside` says."""
+    ones as :func:`held_beside` says.
+
+    With ``f32_layers`` below the depth (float32 weights of the whole
+    depth would not fit beside a prefill), the bf16 decode and flash
+    routes are held to their forward and plain attention at this depth
+    unconditionally, and the float32 checks run on the first
+    ``f32_layers`` layers, the rest freed, with the bf16 prefill, plain
+    route, decode and forward recomputed there on the recorded routing.
+    A VLM's prefill takes its ``num_patches`` patch embeddings (seeded,
+    std 0.02) in front of ``PREFILL_LEN - num_patches`` tokens; it decodes
+    text, as the engine serves it. Where ``ZOO_PARAMS`` names the
+    configuration, its parameter count must be the reference's."""
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.models import forward, get_config
     from repro_torch.serving import Engine, ServeConfig
@@ -1489,17 +1619,29 @@ def serve_moe_ssm(arch: str, layers, seed: int) -> int:
     torch.cuda.reset_peak_memory_stats()
     t_init, engine = sync_wall(lambda: Engine(sc, seed=seed, device=DEV))
     n_params = sum(p.numel() for p in engine.params.parameters())
+    want_params = ZOO_PARAMS.get((arch, cfg.num_layers))
+    check(want_params in (None, n_params), f"{cfg.name}: {n_params} "
+          f"parameters, the reference's init_params holds {want_params}")
     cut = "" if layers is None else f" (depth cut to {layers} layers)"
+    heads = (f"{cfg.num_heads}/{cfg.num_kv_heads} heads of "
+             f"{cfg.resolved_head_dim}, " if n_attn else "")
     print(f"{cfg.name}{cut}: {cfg.num_layers} layers ({n_attn} attention, "
           f"{cfg.num_layers - n_attn} Mamba-2, {n_moe} MoE), d_model "
-          f"{cfg.d_model}, {n_params / 1e9:.3f} B parameters ({cfg.dtype}), "
-          f"init {t_init:.2f} s", flush=True)
+          f"{cfg.d_model}, {heads}{n_params / 1e9:.3f} B parameters"
+          + (" (the reference's count)" if want_params else "")
+          + f" ({cfg.dtype}), init {t_init:.2f} s", flush=True)
     gen = torch.Generator(device=DEV).manual_seed(seed + 1)
-    prompt = torch.randint(0, cfg.vocab_size, (1, PREFILL_LEN), generator=gen,
+    prompt = torch.randint(0, cfg.vocab_size,
+                           (1, PREFILL_LEN - cfg.num_patches), generator=gen,
                            device=DEV, dtype=torch.int32)
+    extra = {}
+    if cfg.num_patches:
+        extra["extra_embeds"] = (torch.randn(
+            (1, cfg.num_patches, cfg.d_model), generator=gen, device=DEV)
+            * 0.02).to(torch.bfloat16)
 
     def prefill():
-        return engine.prefill_fn(engine.params, prompt, {})[0]
+        return engine.prefill_fn(engine.params, prompt, extra)[0]
 
     reset_launch_counts()
     t_cold, logits = sync_wall(prefill)
@@ -1528,9 +1670,9 @@ def serve_moe_ssm(arch: str, layers, seed: int) -> int:
     plain, plain_note = None, ""
     if n_attn:
         with torch.inference_mode(), routes.replay(flash_routes):
-            plain, _ = forward(engine.params, prompt, full_cfg)
+            plain, _ = forward(engine.params, prompt, full_cfg, **extra)
         with torch.inference_mode(), routes.record() as own:
-            plain_own, _ = forward(engine.params, prompt, full_cfg)
+            plain_own, _ = forward(engine.params, prompt, full_cfg, **extra)
         flips, ratio = route_flips(flash_routes, own)
         check(ratio <= FLIP_MARGIN_RATIO, f"{cfg.name}: a routing choice "
               f"flipped with a gap {ratio} x the probabilities' difference")
@@ -1546,10 +1688,14 @@ def serve_moe_ssm(arch: str, layers, seed: int) -> int:
                       f"({split[k] / busy:.1%})"
                       for k in ("products", "flash", "moe_router",
                                 "moe_dispatch_combine", "ssd", "rest"))
-    print(f"profiled prefill: wall {split['wall_us'] / 1e3:.1f} ms, device "
-          f"busy {busy / 1e3:.2f} ms ({busy / split['wall_us']:.1%} of the "
-          f"wall), {split['launches']} launches ({split['flash_launches']} "
-          f"flash); {parts}", flush=True)
+    seen, counted = split["flash_launches"], split["flash_counted"]
+    trace = (f"the trace holds the {counted} flash launches counted"
+             if seen == counted else f"UNVERIFIED: the trace holds {seen} of "
+             f"the {counted} flash launches counted")
+    print(f"profiled prefill ({trace}): wall {split['wall_us'] / 1e3:.1f} "
+          f"ms, device busy {busy / 1e3:.2f} ms "
+          f"({busy / split['wall_us']:.1%} of the wall), {split['launches']} "
+          f"launches ({seen} flash); {parts}", flush=True)
     for name, (n, us) in split["top"]:
         print(f"  {n:6d} x {us / n:9.2f} us = {us / 1e3:8.2f} ms  "
               f"{name[:90]}")
@@ -1573,19 +1719,14 @@ def serve_moe_ssm(arch: str, layers, seed: int) -> int:
                  f"{sum(n for n, _ in by_name.values())} launches")
     del engine.cache
 
-    def teacher_forced(model_cfg):
-        replay = Engine(ServeConfig(model=model_cfg, batch=DECODE_BATCH,
-                                    max_len=MAX_LEN),
-                        params=engine.params, device=DEV)
-        steps = []
-        for t in range(seq.shape[1]):
-            _, lg, replay.cache = replay.step_fn(replay.params, replay.cache,
-                                                 seq[:, t:t + 1])
-            steps.append(lg[:, 0])
-        return torch.stack(steps, dim=1)
+    def replayed(model_cfg):
+        return teacher_forced(
+            Engine(ServeConfig(model=model_cfg, batch=DECODE_BATCH,
+                               max_len=MAX_LEN),
+                   params=engine.params, device=DEV), seq, PROMPT_LEN)
 
     with routes.record() as step_routes:
-        dec = teacher_forced(cfg)
+        dec = replayed(cfg)
     check(torch.isfinite(dec).all(), f"{cfg.name}: decode logits not finite")
     check(torch.equal(dec[:, PROMPT_LEN - 1:-1].argmax(-1).to(torch.int32),
                       tokens), f"{cfg.name}: generate's tokens are not the "
@@ -1614,18 +1755,76 @@ def serve_moe_ssm(arch: str, layers, seed: int) -> int:
         del fwd_own, own, published
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
 
+    depth = ""
+    if f32_layers is not None and f32_layers < cfg.num_layers:
+        # no float32 forward of this depth fits: the bf16 pairs held here
+        # unconditionally, then the float32 checks on the first layers
+        held_full = (held_beside(f"{cfg.name}: decode and forward (bf16)",
+                                 dec, fwd),
+                     held_beside(f"{cfg.name}: flash vs plain", logits,
+                                 plain))
+        print(f"at {cfg.num_layers} layers (no float32 forward of this "
+              f"depth fits the card): the decode logits against the "
+              f"forward over the {seq.shape[1]} tokens: {held_full[0]}; the "
+              f"flash route against the plain one on the same routing: "
+              f"{held_full[1]}; the float32 checks cut to {f32_layers} "
+              f"layer{'s' * (f32_layers > 1)}", flush=True)
+        per_step = n_moe
+        n_moe = sum(map(cfg.layer_is_moe, range(f32_layers)))
+        step_routes = [c for i, c in enumerate(step_routes)
+                       if i % max(per_step, 1) < n_moe]
+        flash_routes, fwd_routes = flash_routes[:n_moe], fwd_routes[:n_moe]
+        del logits, plain, dec, fwd
+        engine.params.layers = engine.params.layers[:f32_layers]
+        gc.collect()
+        torch.cuda.empty_cache()
+        cfg, full_cfg, dropless = (c.with_(num_layers=f32_layers)
+                                   for c in (cfg, full_cfg, dropless))
+        with torch.inference_mode(), routes.replay(flash_routes):
+            logits, _ = forward(engine.params, prompt, cfg, **extra)
+        with torch.inference_mode(), routes.replay(flash_routes):
+            plain, _ = forward(engine.params, prompt, full_cfg, **extra)
+        with routes.replay(step_routes):
+            dec = replayed(cfg)
+        with torch.inference_mode(), routes.replay(fwd_routes):
+            fwd, _ = forward(engine.params, seq, dropless)
+        depth = f" (at {f32_layers} layer{'s' * (f32_layers > 1)})"
+
     # float32: the bf16 weights turned to float32 in place, bits kept
     with torch.no_grad():
         for prm in engine.params.parameters():
             prm.data = prm.data.to(torch.float32)
+    gc.collect()
+    torch.cuda.empty_cache()
     cfg32 = cfg.with_(dtype="float32")
     with torch.inference_mode(), routes.replay(flash_routes):
-        truth, _ = forward(engine.params, prompt, cfg32)
+        truth, _ = forward(engine.params, prompt, cfg32, **extra)
+    # the bf16 prefill's comparisons first; then its float32 logits wait
+    # on the host while the plain route's float32 forward runs (at
+    # nemotron's 96 heads it holds 2 x 6.4 GB of logits beside 51.6 GB of
+    # weights)
+    route = "chunked (flash kernel) route" if n_attn else "bf16 prefill"
+    line = f"prefill{depth}: the {route} against a float32 forward over " \
+           f"the same weights and routing: "
+    if plain is not None:
+        ref_plain = logit_agreement(plain, truth)
+        flash_f32 = held_beside(f"{cfg.name}: flash vs float32", logits,
+                                truth, ref_plain)
+        # the routes differ in the attention layers only: held as in 4b
+        flash_plain = held_beside(f"{cfg.name}: flash vs plain", logits,
+                                  plain)
+    else:
+        d, agree = logit_agreement(logits, truth)
+        line += f"max |dlogit| {d:.4g}, argmax agrees on {agree:.2%}"
+    truth = truth.cpu()
+    del logits, plain
+    gc.collect()
+    torch.cuda.empty_cache()
     with torch.inference_mode(), routes.replay(fwd_routes):
         fwd32, _ = forward(engine.params, seq, dropless.with_(
             dtype="float32"))
     with routes.replay(step_routes):
-        dec32 = teacher_forced(cfg32)
+        dec32 = replayed(cfg32)
     d32, agree32 = logit_agreement(dec32, fwd32)
     check(d32 <= F32_MAX_DLOGIT, f"{cfg.name}: float32 decode and forward "
           f"differ by {d32}")
@@ -1637,29 +1836,20 @@ def serve_moe_ssm(arch: str, layers, seed: int) -> int:
             f"tokens on the decode's routing" if n_moe
             else f"a forward over the {seq.shape[1]} tokens")
     print(f"decode: {DECODE_BATCH} requests x {NEW_TOKENS} tokens (prompts of "
-          f"{PROMPT_LEN}), prefill-by-steps {stats['prefill_s'] * 1e3:.1f} "
-          f"ms, decode {stats['decode_s'] * 1e3:.1f} ms = "
-          f"{stats['decode_tok_per_s']:.1f} tok/s{step_note}; {what} against "
-          f"the decode "
+          f"{PROMPT_LEN}), prefill {stats['prefill_s'] * 1e3:.1f} ms ("
+          f"{prefill_route(engine)}), decode {stats['decode_s'] * 1e3:.1f} ms = "
+          f"{stats['decode_tok_per_s']:.1f} tok/s{step_note}; {what}{depth} "
+          f"against the decode "
           f"logits: {held_dec} (the bf16 forward from the float32 one: max "
           f"|dlogit| {ref_fwd[0]:.4g}, argmax {ref_fwd[1]:.2%}){decode_note}; "
           f"in float32, decode against the forward: max |dlogit| {d32:.3g} "
           f"(<= {F32_MAX_DLOGIT}), argmax agrees on {agree32:.2%}",
           flush=True)
-    route = "chunked (flash kernel) route" if n_attn else "bf16 prefill"
-    line = f"prefill: the {route} against a float32 forward over the same " \
-           f"weights and routing: "
-    if plain is not None:
-        ref_plain = logit_agreement(plain, truth)
-        flash_f32 = held_beside(f"{cfg.name}: flash vs float32", logits,
-                                truth, ref_plain)
-        # the routes differ in the attention layers only: held as in 4b
-        flash_plain = held_beside(f"{cfg.name}: flash vs plain", logits,
-                                  plain)
+    if n_attn:
         # the two attention routes in float32 (the flash kernel's f32 body)
         with torch.inference_mode(), routes.replay(flash_routes):
             plain32, _ = forward(engine.params, prompt,
-                                 full_cfg.with_(dtype="float32"))
+                                 full_cfg.with_(dtype="float32"), **extra)
         d_f32, agree_f32 = logit_agreement(truth, plain32)
         del plain32
         check(d_f32 <= F32_MAX_DLOGIT, f"{cfg.name}: the float32 flash and "
@@ -1670,14 +1860,11 @@ def serve_moe_ssm(arch: str, layers, seed: int) -> int:
                  f"routing: {flash_plain}{plain_note}; in float32, the two "
                  f"routes: max |dlogit| {d_f32:.3g} (<= {F32_MAX_DLOGIT}), "
                  f"argmax agrees on {agree_f32:.2%}")
-    else:
-        d, agree = logit_agreement(logits, truth)
-        line += f"max |dlogit| {d:.4g}, argmax agrees on {agree:.2%}"
     print(line, flush=True)
     print(f"{cfg.name}: peak device memory {peak:.2f} GiB while serving in "
           f"bf16, {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB with "
-          f"the float32 weights", flush=True)
-    del truth, plain, logits, flash_routes, step_routes, fwd_routes, engine
+          f"the float32 weights{depth}", flush=True)
+    del truth, flash_routes, step_routes, fwd_routes, engine
     del dec, fwd, dec32, fwd32
     gc.collect()
     torch.cuda.empty_cache()
@@ -1692,9 +1879,183 @@ def phase_moe_ssm(rows: dict, seed: int) -> None:
     t0 = time.perf_counter()
     flash = 0
     for arch, layers in MOE_SSM_MODELS:
-        flash += serve_moe_ssm(arch, layers, seed)
+        flash += serve_model(arch, layers, seed)
     rows["flash_attention"].setdefault("paths", {})["prefill_4g"] = flash
     print(f"phase 4g: {time.perf_counter() - t0:.1f} s", flush=True)
+
+
+def serve_window(seed: int) -> int:
+    """qwen2-7b's sliding-window variant at full width: ``Engine.generate``
+    for ``WINDOW_BATCH`` prompts of ``2 * WINDOW`` tokens through the
+    cache-filling prefill (one flash launch a layer, ``window=WINDOW``, and
+    nothing else in the whole generation) and ``NEW_TOKENS`` decode steps
+    through the ring of ``WINDOW`` slots, which wraps. Then the same
+    tokens teacher-forced (the prompt filled anew, the answer a decode
+    step at a time): generate's tokens their argmax, the prefill's logits
+    held against one windowed forward over prompt + answer on the plain
+    route, and the decode's too, a sequence at a time, at phase 4b's
+    bounds. Returns the counted flash launches."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import forward, get_config
+    from repro_torch.serving import Engine, ServeConfig
+
+    cfg = get_config(WINDOW_ARCH, "full").long_context_variant(WINDOW)
+    S, Bw = 2 * WINDOW, WINDOW_BATCH
+    sc = ServeConfig(model=cfg, batch=Bw, max_len=S + NEW_TOKENS)
+    torch.cuda.reset_peak_memory_stats()
+    t_init, engine = sync_wall(lambda: Engine(sc, seed=seed, device=DEV))
+    ring = engine.cache["layers"][0]["k"].shape[1]
+    check(ring == WINDOW, f"{cfg.name}: a ring of {ring} slots, want "
+          f"{WINDOW}")
+    gen = torch.Generator(device=DEV).manual_seed(seed + 2)
+    prompts = torch.randint(0, cfg.vocab_size, (Bw, S), generator=gen,
+                            device=DEV, dtype=torch.int32)
+    held = torch.cuda.memory_allocated()
+    reset_launch_counts()
+    check(engine.prefills_in_one_forward, f"{cfg.name}: the engine would "
+          f"step the prompt")
+    tokens, stats = engine.generate(prompts, NEW_TOKENS)
+    counts = launch_counts()
+    gen_peak = torch.cuda.max_memory_allocated() - held
+    want = {k: 0 for k in counts}
+    want["flash_attention"] = cfg.num_layers
+    check(counts == want, f"{cfg.name} generate launches {counts}, want "
+          f"flash_attention x {cfg.num_layers} and nothing else")
+    check(tokens.dtype == torch.int32
+          and tuple(tokens.shape) == (Bw, NEW_TOKENS)
+          and int(tokens.min()) >= 0 and int(tokens.max()) < cfg.vocab_size,
+          f"{cfg.name}: generated {tokens.dtype} {tuple(tokens.shape)}")
+    check(engine.cache["pos"] == S + NEW_TOKENS - 1,
+          f"{cfg.name}: cache pos {engine.cache['pos']}")
+    del engine.cache
+    seq = torch.cat([prompts, tokens], dim=1)
+    replay = Engine(sc, params=engine.params, device=DEV)
+    t_pre, (pre, _) = sync_wall(lambda: replay.prefill_fn(
+        replay.params, prompts, {"cache": replay.cache}))
+    steps = [pre[:, -1]]
+    for t in range(NEW_TOKENS):
+        _, lg, replay.cache = replay.step_fn(replay.params, replay.cache,
+                                             seq[:, S + t:S + t + 1])
+        steps.append(lg[:, 0])
+    dec = torch.stack(steps, dim=1)         # positions S - 1 .. S + 31
+    after_pre = torch.cuda.memory_allocated()
+    check(torch.isfinite(dec).all() and all(
+        torch.isfinite(row).all() for row in pre), f"{cfg.name}: logits not "
+          f"finite")
+    check(torch.equal(dec[:, :-1].argmax(-1).to(torch.int32), tokens),
+          f"{cfg.name}: generate's tokens are not the argmax of the same "
+          f"prefill and decode steps")
+    plain_cfg = cfg.with_(attn_chunk_threshold=1 << 30)
+    d_pre, agree_pre, fwd = 0.0, 0.0, []
+    for b in range(Bw):
+        with torch.inference_mode():
+            full, _ = forward(replay.params, seq[b:b + 1], plain_cfg)
+        d, agree = logit_agreement(pre[b:b + 1], full[:, :S])
+        d_pre, agree_pre = max(d_pre, d), agree_pre + agree / Bw
+        fwd.append(full[:, S - 1:])
+        del full
+    fwd = torch.cat(fwd)
+    print(f"{cfg.name} (window {WINDOW}): init {t_init:.2f} s; generate "
+          f"for {Bw} prompts of {S} tokens (the batch the card holds beside "
+          f"the weights) x {NEW_TOKENS} tokens: launches {counts}, prefill "
+          f"{stats['prefill_s'] * 1e3:.1f} ms, decode "
+          f"{stats['decode_s'] * 1e3:.1f} ms = "
+          f"{stats['decode_tok_per_s']:.1f} tok/s through the ring of {ring} "
+          f"slots (position p at slot p % {ring}), {gen_peak / 2 ** 30:.2f} "
+          f"GiB at its peak beside the {held / 2 ** 30:.2f} held before it; "
+          f"the teacher-forced prefill {t_pre * 1e3:.1f} ms, its logits "
+          f"{pre.numel() * pre.element_size() / 2 ** 30:.2f} GiB of the "
+          f"{after_pre / 2 ** 30:.2f} held after it", flush=True)
+    check(d_pre <= MAX_DLOGIT and agree_pre >= MIN_ARGMAX_AGREE,
+          f"{cfg.name}: the windowed flash prefill and the plain forward "
+          f"differ: {d_pre}, {agree_pre}")
+    held = held_beside(f"{cfg.name}: windowed decode and forward", dec, fwd)
+    print(f"against one windowed forward over the {seq.shape[1]} tokens on "
+          f"the plain route, a sequence at a time: the flash prefill's "
+          f"{S} positions max |dlogit| {d_pre:.4g}, argmax agrees on "
+          f"{agree_pre:.2%} (<= {MAX_DLOGIT}, >= {MIN_ARGMAX_AGREE:.0%}); "
+          f"the last prefill position and the {NEW_TOKENS} decode steps "
+          f"through the ring: {held}; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB",
+          flush=True)
+    del engine, replay, pre, dec, fwd, steps
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts["flash_attention"]
+
+
+def serve_launcher() -> None:
+    """Phase 4l's launcher: the reference's serving launcher as the port
+    runs it, ``python -m repro_torch.launch.serve --arch WINDOW_ARCH
+    --variant full --sliding-window WINDOW`` on one prompt of twice the
+    window (its prefill masks half of what it sees, its decode wraps the
+    ring), in a process of its own, which must print its ``generated``
+    line: a check that the launcher starts and runs the route, whose
+    values :func:`serve_window` holds. Run after phase 5's profiles, as
+    4j(c)'s processes are."""
+    print("== phase 4l (launcher)", flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+           WINDOW_ARCH, "--variant", "full", "--sliding-window", str(WINDOW),
+           "--batch", "1", "--prompt-len", str(2 * WINDOW),
+           "--max-len", str(2 * WINDOW + NEW_TOKENS),
+           "--new-tokens", str(NEW_TOKENS)]
+    t0 = time.perf_counter()
+    try:
+        proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                              timeout=LAUNCHER_S, env=dict(
+                                  os.environ, PYTHONPATH=str(ROOT / "src")))
+    except subprocess.TimeoutExpired:
+        fail(f"{' '.join(cmd[1:])} ran past {LAUNCHER_S} s")
+    out = proc.stdout.strip().splitlines()
+    check(proc.returncode == 0 and any(ln.startswith("generated")
+                                       for ln in out),
+          f"{' '.join(cmd[1:])} failed (exit {proc.returncode}): "
+          f"{proc.stdout[-2000:]}{proc.stderr[-2000:]}")
+    print(f"{' '.join(cmd[1:])}: {' / '.join(out)} "
+          f"({time.perf_counter() - t0:.1f} s with the process)", flush=True)
+
+
+def allocator_settings(conf: str) -> None:
+    """Set the caching allocator's options (``PYTORCH_CUDA_ALLOC_CONF``'s
+    syntax) in this process, through the call its torch release has."""
+    setter = getattr(torch._C, "_accelerator_setAllocatorSettings", None)
+    (setter or torch.cuda.memory._set_allocator_settings)(conf)
+
+
+def phase_zoo(rows: dict, seed: int) -> None:
+    """Phase 4l (run after phase 5's profiles): the zoo's other five
+    decoders (``ZOO_MODELS``) at full width, each served, checked and freed
+    before the next, then qwen2-7b's sliding-window variant (its launcher
+    is :func:`serve_launcher`)."""
+    print("== phase 4l: glm4-9b, qwen2-7b (and its sliding window), "
+          "qwen2-vl-2b, deepseek-moe-16b and nemotron-4-340b serving",
+          flush=True)
+    t0 = time.perf_counter()
+    paths = rows["flash_attention"].setdefault("paths", {})
+    # one float32 layer of nemotron (51.6 GB) beside its plain route's
+    # (1, 96, 4096, 4096) float32 logits and probabilities (3 x 6.4 GB)
+    # leaves no room for blocks the caching allocator has split (8.8 GiB
+    # of them on the H100): in this phase its segments grow in place
+    gc.collect()
+    torch.cuda.empty_cache()
+    allocator_settings("expandable_segments:True")
+    try:
+        paths["prefill_4l"] = 0
+        for arch, layers, f32_layers in ZOO_MODELS:
+            paths["prefill_4l"] += serve_model(arch, layers, seed, f32_layers)
+            # the served model lives on in reference cycles until a
+            # collection (on the H100: 37 GiB of nemotron's, which left the
+            # next model short): collected before the next is built
+            gc.collect()
+            torch.cuda.empty_cache()
+        paths["prefill_4l_window"] = serve_window(seed)
+    finally:
+        gc.collect()
+        torch.cuda.empty_cache()
+        allocator_settings("expandable_segments:False")
+    print(f"phase 4l: {time.perf_counter() - t0:.1f} s", flush=True)
 
 
 def serve_whisper(cfg, seed: int) -> None:
@@ -2440,8 +2801,14 @@ def time_flash(rows: dict) -> None:
         k_ms, p_ms = in_turns(
             lambda: flash_attention_ref(q, k, v, causal=causal, window=window),
             lambda: flash_attention(q, k, v, causal=causal, window=window), 10)
+        mask = None
+        if window:                  # SDPA takes a window as a boolean mask
+            pos = torch.arange(S, device=DEV)
+            mask = (pos[None, :] <= pos[:, None]) \
+                & (pos[None, :] > pos[:, None] - window)
         lib = event_ms(lambda: F.scaled_dot_product_attention(
-            q, k, v, is_causal=causal, enable_gqa=True), 10)
+            q, k, v, attn_mask=mask, is_causal=causal and mask is None,
+            enable_gqa=True), 10)
         flops, nbytes = flash_work(B, H, KV, S, D, dtype, causal, window)
         b_ms, b_by = flash_bound_ms(flops, nbytes, dtype)
         print(f"flash_attention {name} q {(B, H, S, D)} kv {KV} "
@@ -2457,7 +2824,11 @@ def time_flash(rows: dict) -> None:
             rows["flash_attention"]["mha_head_dim_128"] = dict(
                 shape=[B, H, S, D], ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
                 bound_by=b_by, library_ms=lib)
-        del q, k, v
+        elif name in ZOO_FLASH:
+            rows["flash_attention"].setdefault("layouts", {})[name] = dict(
+                q=[B, H, S, D], kv=KV, window=window, ms=k_ms, plain_ms=p_ms,
+                bound_ms=b_ms, bound_by=b_by, library_ms=lib)
+        del q, k, v, mask
 
 
 def time_flash_bwd(rows: dict) -> None:
@@ -3809,6 +4180,11 @@ def main() -> int:
     # of 5 in one run, against 5 of 5 before it; 0 of 5 in another, and 0
     # of 5 after 4j(c)'s row processes ran before phase 5)
     del engine, prompt
+    # after phase 5's profiles: with 4l's five models served before them,
+    # the profiler recorded none of phase 5's flash backward launches (on
+    # the H100, twice); its launcher's process shares the card, as 4j(c)'s
+    phase_zoo(rows, args.seed)
+    serve_launcher()
     dryrun_production_row()
     phase_parallel(rows, args.seed, smi)
     phase_trees(rows, args.seed, smi)
@@ -3841,6 +4217,9 @@ def main() -> int:
                    if m == "canary_fp" or k.startswith("flash")]:
             check(rows[k].get("paths", {}).get(path, 0) > 0,
                   f"{k} never launched on phase 4k's {path} path")
+    for path in ("prefill_4g", "prefill_4l", "prefill_4l_window"):
+        check(rows["flash_attention"].get("paths", {}).get(path, 0) > 0,
+              f"flash_attention never launched on the {path} path")
     for k in ("quantize", "dequantize", "packet_accumulate_gather"):
         check(rows[k].get("paths", {}).get("replay_faults", 0) > 0,
               f"{k} never launched on phase 4e's replays")
@@ -3857,7 +4236,7 @@ def main() -> int:
                    bound_by=r["bound_by"], library_ms=r["library_ms"],
                    paths=paths)
         for extra in ("train", "lse_store", "by_kernel",    # other shapes
-                      "mha_head_dim_128", "qwen2_moe_train"):
+                      "mha_head_dim_128", "qwen2_moe_train", "layouts"):
             if extra in r:
                 row[extra] = r[extra]
         kernels.append(row)

@@ -225,6 +225,24 @@ def decode_attention(q1, k_cache, v_cache, valid_len) -> torch.Tensor:
     return out if out is not None else _gqa_out(probs, v_cache)
 
 
+def fill_cache(cache_kv, k: torch.Tensor, v: torch.Tensor,
+               ring: bool) -> None:
+    """Write a prefill's K and V ``(B, S, KV, hd)`` into a decode cache
+    ``{"k", "v"}`` of ``(B, C, KV, hd)`` in place, position ``p`` at slot
+    ``p % C``, where ``S`` decode steps would leave them: a ring (a sliding
+    window's cache) keeps the last ``C`` positions; any other cache must
+    hold all ``S``."""
+    S, C = k.shape[1], cache_kv["k"].shape[1]
+    if S > C and not ring:
+        raise ValueError(f"a prefill of {S} positions is past the cache's "
+                         f"{C} slots (max_len)")
+    n = min(S, C)
+    slots = torch.arange(S - n, S, device=k.device) % C
+    for name, t in (("k", k), ("v", v)):
+        cache_kv[name].index_copy_(1, slots,
+                                   t[:, S - n:].to(cache_kv[name].dtype))
+
+
 def project_qkv(p: Attention, x: torch.Tensor):
     """``x @ wq``, ``x @ wk``, ``x @ wv`` as (B, S, heads, hd), plus the
     biases where the config has them. On DTensors whose model axis divides
@@ -256,18 +274,22 @@ def rotate_qk(q, k, positions, cfg: ModelConfig):
 
 def attention_forward(p: Attention, x: torch.Tensor, positions,
                       cfg: ModelConfig, *, causal: bool = True,
-                      kv_override=None) -> torch.Tensor:
+                      kv_override=None, cache_kv=None) -> torch.Tensor:
     """Projection + RoPE + attention for prefill.
 
     Long sequences (``S >= attn_chunk_threshold`` and a multiple of
     ``attn_chunk``) take :func:`chunked_attention`, the flash kernel; the
     rest :func:`full_attention`. ``kv_override`` supplies externally
-    computed K/V (cross-attention).
+    computed K/V (cross-attention). With ``cache_kv`` (the layer's decode
+    cache), the rotated K and V are also written into it
+    (:func:`fill_cache`).
     """
     S = x.shape[1]
     if kv_override is None:
         q, k, v = project_qkv(p, x)
         q, k = rotate_qk(q, k, positions, cfg)
+        if cache_kv is not None:
+            fill_cache(cache_kv, k, v, ring=cfg.sliding_window > 0)
     else:
         q = torch.einsum("bsd,dhx->bshx", x, p.wq)
         if hasattr(p, "bq"):

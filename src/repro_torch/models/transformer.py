@@ -175,7 +175,7 @@ def _feed_forward(p: DecoderLayer, x, cfg: ModelConfig
 
 
 def _decoder_sublayer(p: DecoderLayer, x, positions, cfg: ModelConfig,
-                      enc_out=None
+                      enc_out=None, cache_kv=None
                       ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     h = rmsnorm(p.norm1, x, cfg.norm_eps)
     if hasattr(p, "attn"):
@@ -183,7 +183,8 @@ def _decoder_sublayer(p: DecoderLayer, x, positions, cfg: ModelConfig,
         # split: its d keeps the model axis's share (a layout hook)
         with keep_d_split() if enc_out is not None \
                 and hasattr(p, "cross") else contextlib.nullcontext():
-            x = x + attention_forward(p.attn, h, positions, cfg, causal=True)
+            x = x + attention_forward(p.attn, h, positions, cfg, causal=True,
+                                      cache_kv=cache_kv)
     else:
         x = x + mamba2_forward(p.ssm, h, cfg)
     del h       # not held through the next norm, as XLA reuses its buffer
@@ -218,10 +219,11 @@ def _activation_constraint(x: torch.Tensor) -> torch.Tensor:
 
 
 def _period_body(period: nn.ModuleList, x, aux, positions,
-                 cfg: ModelConfig, enc_out=None
+                 cfg: ModelConfig, enc_out=None, caches=None
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
-    for layer in period:
-        x, a = _decoder_sublayer(layer, x, positions, cfg, enc_out)
+    for j, layer in enumerate(period):
+        x, a = _decoder_sublayer(layer, x, positions, cfg, enc_out,
+                                 None if caches is None else caches[j])
         if a is not None:           # the reference adds a zero for the rest
             aux = aux + a
     return x, aux
@@ -260,9 +262,20 @@ def encode(params: Transformer, frames: torch.Tensor,
     return rmsnorm(params.enc_norm, x, cfg.norm_eps)
 
 
+def fills_cache(cfg: ModelConfig) -> bool:
+    """Whether :func:`forward` can fill a decode cache for ``cfg`` as
+    decode steps would: a decoder of attention layers with no MoE block (no
+    SSM state or cross K/V to write, and no capacity to drop slots that a
+    decode step, routing one token, keeps)."""
+    return not cfg.is_encoder_decoder and not any(
+        cfg.layer_kind(i) != "attn" or cfg.layer_is_moe(i)
+        for i in range(cfg.num_layers))
+
+
 def forward(params: Transformer, tokens: torch.Tensor, cfg: ModelConfig, *,
             positions=None, extra_embeds: Optional[torch.Tensor] = None,
-            frames: Optional[torch.Tensor] = None
+            frames: Optional[torch.Tensor] = None,
+            cache: Optional[Dict[str, Any]] = None
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Prefill forward.
 
@@ -271,7 +284,18 @@ def forward(params: Transformer, tokens: torch.Tensor, cfg: ModelConfig, *,
     frame embeddings consumed by the encoder.
     Returns (logits (B, S_total, vocab), moe_aux_loss): the float32 sum of
     the MoE layers' load-balancing losses (zero without MoE layers).
+
+    With ``cache`` (an empty :func:`init_cache` of a config that
+    :func:`fills_cache` accepts), each layer's rotated K and V are also
+    written into it, each position at the slot its decode step would write,
+    and ``cache["pos"]`` becomes ``S_total``: decoding goes on from the
+    prompt as after ``S_total`` decode steps. The reference has no such
+    prefill (its engine steps the prompt a token at a time).
     """
+    if cache is not None and (cache["pos"] != 0 or not fills_cache(cfg)):
+        raise ValueError("a prefill fills an empty cache of attention "
+                         "layers only (no SSM state, no cross K/V, no "
+                         "MoE block)")
     B, S = tokens.shape
     x = embed(params.embed, tokens)
     if extra_embeds is not None:
@@ -291,12 +315,16 @@ def forward(params: Transformer, tokens: torch.Tensor, cfg: ModelConfig, *,
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(0, cfg.num_layers, per):
         period = params.layers[i:i + per]
+        caches = None if cache is None else cache["layers"][i:i + per]
         x = _activation_constraint(x)
         if remat:
             x, aux = checkpoint(_period_body, period, x, aux, positions, cfg,
-                                enc_out, use_reentrant=False)
+                                enc_out, caches, use_reentrant=False)
         else:
-            x, aux = _period_body(period, x, aux, positions, cfg, enc_out)
+            x, aux = _period_body(period, x, aux, positions, cfg, enc_out,
+                                  caches)
+    if cache is not None:
+        cache["pos"] = S
     x = rmsnorm(params.final_norm, x, cfg.norm_eps)
     return unembed(params.embed, x), aux
 

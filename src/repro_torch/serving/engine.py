@@ -7,7 +7,12 @@ and a greedy generation loop, and ``prefill_fn`` is the bulk prefill
 ``forward`` (which reaches the flash-attention kernel on prompts of at least
 ``attn_chunk_threshold`` tokens). An encoder-decoder's prefill first runs
 the encoder over the request's frames and stores each layer's cross K/V in
-the cache. Everything runs under
+the cache. The reference's engine fills the cache by stepping the prompt a
+token at a time. This one does so where the config needs it (SSM state,
+cross K/V, MoE blocks); a decoder of attention layers and dense blocks
+(``fills_cache``) takes its prompt through one ``forward`` that writes the
+cache instead (a prompt of thousands of tokens, as a sliding window's ring
+needs, would take thousands of steps). Everything runs under
 ``torch.inference_mode()``. The engine runs on the card unless the caller
 passes ``device="cpu"``.
 """
@@ -23,6 +28,7 @@ from ..kernels.ops import resolve_device
 from ..models import (decode_step, forward, init_cache, init_params,
                       prepare_cross_cache)
 from ..models.config import ModelConfig
+from ..models.transformer import fills_cache
 
 
 @dataclass
@@ -59,19 +65,27 @@ class Engine:
         self.prefill_fn = torch.inference_mode()(
             lambda p, toks, kw: forward(p, toks, cfg, **kw))
         self.cross_fn = torch.inference_mode()(prepare_cross_cache)
+        self.prefills_in_one_forward = fills_cache(cfg)
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
     def prefill(self, prompts: torch.Tensor, frames=None) -> torch.Tensor:
-        """Teacher-forced prefill; fills the KV cache by stepping tokens.
+        """Teacher-forced prefill: fills the KV cache and returns the next
+        tokens (B, 1).
 
-        For attention-only models a bulk prefill would be a single forward;
-        stepping keeps one code path valid for SSM/hybrid caches too (decode
-        correctness is what the examples demonstrate).
+        Where ``prefills_in_one_forward``, the prompt goes through one
+        forward that writes the cache (``forward``'s ``cache``); otherwise
+        it is stepped a token at a time, the one route valid for SSM and
+        hybrid caches, cross K/V and MoE blocks.
         """
         cfg = self.sc.model
+        if self.prefills_in_one_forward:
+            logits, _ = self.prefill_fn(self.params, prompts.to(self.device),
+                                        {"cache": self.cache})
+            return torch.argmax(logits[:, -1, :], dim=-1).to(
+                torch.int32)[:, None]
         if cfg.is_encoder_decoder:
             if frames is None:
                 raise ValueError("enc-dec serving needs frames")

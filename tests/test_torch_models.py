@@ -538,7 +538,8 @@ def test_unported_models_raise(arch):
 def test_entry_points_need_cuda_by_default(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     for arch in ("llama3.2-1b", "qwen2-moe-a2.7b", "mamba2-130m",
-                 "jamba-v0.1-52b"):
+                 "jamba-v0.1-52b", "qwen2-7b", "glm4-9b", "qwen2-vl-2b",
+                 "deepseek-moe-16b", "nemotron-4-340b"):
         cfg = get_config(arch, "smoke")
         with pytest.raises(RuntimeError, match="CUDA"):
             init_params(cfg, torch.Generator().manual_seed(0))
